@@ -5,19 +5,36 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``); no card -> exit 1;
-2. build every kernel of the decision path with ``nvcc`` (``sm_90a``);
-3. each kernel against its plain PyTorch version on the card;
+2. build every kernel (``graph_prop_fwd``, ``graph_prop_bwd``) with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
+3. each kernel against its plain PyTorch version on the card: the forward
+   at atol = rtol = 1e-5, the backward against ``graph_prop_vjp_plain`` at
+   the reference's gradient tolerance (atol 1e-4, rtol 1e-3) and bit for
+   bit against a second launch;
 4. the decision path of the four paper jobs (LR, MPC, K-Means, GBT): a
    context encoder on the card, a seeded simulated cluster, 3 profiling
    runs, then one normal and one failure-injected adaptive run with
    ``EnelScaler.recommend`` (``candidate_stride=2``) at every decision
    boundary; the model has ``init_enel`` weights from a seeded
-   ``torch.Generator`` (fitting is not ported yet).  Each decision must
-   launch the graph-prop kernel exactly once, and the largest sweep of each
-   job is held against the plain route on the card;
+   ``torch.Generator``.  Each decision must launch the forward kernel
+   exactly once, and the largest sweep of each job is held against the
+   plain route on the card;
 5. timings with CUDA events at the LR decision shape and the per-decision
    latency of ``recommend``;
-6. a ``{"kernels": [...]}`` line, then the device line last.
+6. the training path of the four jobs: ``JobExperiment.profile`` (10
+   profiling runs, a scratch fit on the resident ring), 6 adaptive Enel
+   runs (the 5th retrains from scratch), one failure-injected Enel run and
+   one Ellis run; then a K-Means experiment under chaos (NaN graphs, ring
+   corruption, NaN params).  The backward kernel must launch once per Adam
+   step and the forward once per step or decision; no step is skipped
+   outside the chaos run, scratch fits end below their first-step loss,
+   picks lie in [4, 36], and the chaos run quarantines rows and has finite
+   params again after its scratch retrain;
+7. timings of the training path: the backward kernel at the scratch shape
+   (B = 96, N = 8, levels = 8) beside its bound and the plain VJP, fit wall
+   seconds (scratch, fine-tune) per job with the device-busy share of one
+   scratch fit, and each run's runtime against the target (Enel vs Ellis);
+8. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -36,6 +53,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 JOB_KEYS = ("lr", "mpc", "kmeans", "gbt")
 ATOL = RTOL = 1e-5          # float32: FMA contraction + shuffle-tree sums
+ATOL_BWD, RTOL_BWD = 1e-4, 1e-3   # the reference's gradient tolerance
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 HBM_BYTES = 3.35e12         # H100 SXM HBM3
 REPS = 30
@@ -53,8 +71,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def close(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
-    torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL, msg=lambda m:
+def close(a: torch.Tensor, b: torch.Tensor, what: str, atol: float = ATOL,
+          rtol: float = RTOL) -> float:
+    torch.testing.assert_close(a, b, atol=atol, rtol=rtol, msg=lambda m:
                                f"{what}: {m}")
     return float((a - b).abs().max()) if a.numel() else 0.0
 
@@ -115,9 +134,32 @@ def raw_launcher(ops, params, x, adj, m, valid, levels):
     return launch
 
 
-def profile_device(fn, reps: int = 10):
-    """(device busy ms per call, ms per call of kernels named graph_prop)
-    from a torch.profiler (CUPTI) trace of ``reps`` calls."""
+def bwd_raw_launcher(ops, params, x, adj, m, valid, g_e, g_m, levels):
+    """The backward kernel's C entry (per-graph kernel + slot sum) with its
+    pointers bound once, as :func:`raw_launcher`."""
+    fn = ops._bwd_kernel_fn()
+    b, n = x.shape[:2]
+    outs = (torch.empty_like(x), torch.empty_like(m),
+            torch.empty((b, ops.N_WEIGHTS), dtype=torch.float32,
+                        device=x.device),
+            torch.empty(ops.N_WEIGHTS, dtype=torch.float32, device=x.device))
+    ptrs = [t.data_ptr() for t in (x, adj, m, valid) + ops._weights(params)
+            + (g_e, g_m) + outs]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = fn(*ptrs, b, n, levels, stream)
+        assert rc == 0, rc
+    return launch
+
+
+def profile_device(fn, reps: int = 10, names=("graph_prop",)):
+    """(device busy ms, {name: ms of the kernels whose name holds it},
+    kernels launched), each per call of ``fn``, from a torch.profiler
+    (CUPTI) trace of ``reps`` calls.  Only device events are summed: a CPU
+    op also carries the device time of the kernels it launched, and those
+    kernels appear again as events of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -126,25 +168,82 @@ def profile_device(fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = ours = 0.0
+    busy, kernels = 0.0, 0
+    per = dict.fromkeys(names, 0.0)
     for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
         t = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
         busy += t
-        if "graph_prop" in ev.key:
-            ours += t
-    return busy / 1e3 / reps, ours / 1e3 / reps
+        kernels += ev.count
+        for nm in names:
+            if nm in ev.key:
+                per[nm] += t
+    return (busy / 1e3 / reps, {nm: t / 1e3 / reps for nm, t in per.items()},
+            kernels / reps)
+
+
+XD, HID, ED, NM = 30, 32, 16, 5     # f3 input per node, hidden, edge, metrics
+N_WEIGHTS = 2 * XD * HID + HID + HID * ED + 2 * ED + (ED + NM) * HID + HID \
+    + HID * NM + NM                 # 3365 floats
 
 
 def graph_prop_work(b: int, n: int, levels: int):
-    """(FLOPs, bytes) graph_prop needs for b graphs of n nodes, in the split
-    form: per node x @ W31 halves, per pair the rest of f3, attention and
-    h3 @ W41[:16], per level m @ W41[16:] per node and f4 + sum per pair."""
-    per_graph = (3840 * n + 2213 * n * n
-                 + levels * (320 * n + 431 * n * n))
-    weights = (60 * 32 + 32 + 32 * 16 + 16 + 16 + 21 * 32 + 32 + 32 * 5 + 5)
-    per_graph_bytes = n * 30 * 4 + n * n + n * 5 * 4 + n + n * n * 4 + \
-        n * 5 * 4
-    return b * per_graph, b * per_graph_bytes + weights * 4
+    """(FLOPs, bytes) that eqs. 6-7 need at least for b graphs of n nodes.
+
+    FLOPs in the least form: f3's first layer split into per-node halves
+    (x_i @ W31[:30], x_j @ W31[30:]); b41 folded into the level-invariant
+    h3 @ W41[:16]; f4's second layer taken per node, m_i = S_i @ W42 +
+    (sum_j e_ij) b42 with S_i = sum_j e_ij hh_ij, so no pair forms its
+    message.  Bytes: inputs read once, outputs written once."""
+    node = 2 * (2 * XD * HID)                    # x @ W31 halves
+    pair = (2 * HID + HID                        # a_i + c_j + b31, leaky
+            + 2 * HID * ED + 2 * ED              # h1 @ W32 + b32, leaky
+            + 2 * ED + 5                         # logit, masked softmax
+            + 2 * ED * HID + HID)                # h3 @ W41[:16] + b41
+    level_node = 2 * NM * HID + 2 * HID * NM + 2 * NM   # m_j @ W41[16:],
+    #                                              S_i @ W42, (sum e) b42
+    level_pair = HID + HID + 2 * HID             # zz, leaky, S_i += e hh
+    per_graph = node * n + pair * n * n + levels * (level_node * n
+                                                    + level_pair * n * n)
+    per_graph_bytes = n * XD * 4 + n * n + n * NM * 4 + n \
+        + n * n * 4 + n * NM * 4
+    return b * per_graph, b * per_graph_bytes + N_WEIGHTS * 4
+
+
+def graph_prop_bwd_work(b: int, n: int, levels: int):
+    """(FLOPs, bytes) that the VJP of eqs. 6-7 needs at least for b graphs
+    of n nodes: the forward once (:func:`graph_prop_work`, every level's f4
+    pre-activation kept), then per level u_i = W42 g_m_i once per node, so
+    a pair's cotangents g_e_ij = hh_ij . u_i + g_m_i . b42 and g_zz_ij =
+    e_ij u_i dleaky(zz_ij) cost ~64 FLOPs each; gW42 from S_i x g_m_i per
+    node; the cotangent of h3 @ W41[:16] summed over the levels before its
+    one matmul; gW31 and gx from per-node row and column sums of g_z1.
+    Bytes: primal inputs and cotangents read once, gx, gm_obs and the
+    summed weight gradients written once."""
+    fwd_flops, _ = graph_prop_work(b, n, levels)
+    level_node = (2 * HID * NM + 2 * NM          # u_i, g_m_i . b42
+                  + 2 * HID * NM + 2 * NM        # gW42 += S_i x g_m_i, gb42
+                  + HID                          # gb41
+                  + 2 * NM * HID + 2 * HID * NM  # gW41[16:], g_m_j
+                  + 2 * NM)                      # g_m_obs, carry
+    level_pair = (2 * HID + 1                    # g_e_ij
+                  + 2 * HID                      # g_zz_ij
+                  + HID + HID)                   # sum over levels, over i
+    pair = (1 + 5 + 2 * ED                       # g_e, softmax, g_attn
+            + 2 * ED + 2 * HID * ED + ED         # g_h3
+            + 2 * ED * HID                       # gW41[:16]
+            + 2 * HID * ED + ED                  # gW32, gb32
+            + 2 * ED * HID + HID + HID           # g_z1, gb31
+            + 2 * HID)                           # row, column sums of g_z1
+    node = 2 * (2 * XD * HID) + 2 * (2 * XD * HID) + XD   # gW31, gx
+    per_graph = levels * (level_node * n + level_pair * n * n) \
+        + pair * n * n + node * n
+    per_graph_bytes = (n * XD * 4 + n * n + n * NM * 4 + n  # primal inputs
+                       + n * n * 4 + n * NM * 4             # cotangents
+                       + n * XD * 4 + n * NM * 4)           # gx, gm_obs
+    return (fwd_flops + b * per_graph,
+            b * per_graph_bytes + 2 * N_WEIGHTS * 4)
 
 
 class SweepRecorder:
@@ -238,6 +337,60 @@ def run_job(job_key, device, ops):
             "sweep": (trainer.params, template, deltas)}
 
 
+def run_training(job_key, device, chaos=None):
+    """One job's training path (phase 6): profile, 6 Enel runs (the 5th a
+    scratch retrain), a failure-injected Enel run and an Ellis run; with
+    ``chaos`` (a ChaosSpec) 6 Enel runs under fault injection instead."""
+    from repro_torch.dataflow.runner import JobExperiment
+    from repro_torch.dataflow.workloads import SCALEOUT_RANGE
+    from repro_torch.sim.chaos import ChaosInjector
+
+    ex = JobExperiment(job_key, seed=SEED, device=device)
+    tr = ex.trainer
+    ex.profile()
+    scratch = [(tr.last_fit_seconds, tr.first_step_loss, tr.last_loss)]
+    tune = []
+    if chaos is not None:
+        ex.chaos = ChaosInjector(chaos, exp_seed=SEED)
+    plan = [("enel", False)] * 6
+    if chaos is None:
+        plan += [("enel", True), ("ellis", False)]
+    finite_after = []
+    for method, inject in plan:
+        st = ex.adaptive_run(method, inject_failures=inject)
+        if method == "enel":
+            fit = (st.fit_seconds, tr.first_step_loss, tr.last_loss)
+            (scratch if tr.runs_seen % 5 == 0 else tune).append(fit)
+        finite_after.append(tr.params_finite())
+    lo, hi = SCALEOUT_RANGE
+    for st in ex.stats:
+        assert all(lo <= s <= hi for s in st.scaleouts), st.scaleouts
+    if chaos is None:
+        assert tr.nonfinite_steps == 0, tr.nonfinite_steps
+        for _, first, last in scratch + tune:
+            assert np.isfinite(first) and np.isfinite(last), (first, last)
+        for _, first, last in scratch:
+            assert last < first, (job_key, first, last)
+        assert ex.enel.fallback_decisions == 0
+    else:
+        c = ex.chaos
+        assert c.graphs_poisoned and c.cache_rows_corrupted and \
+            c.fits_poisoned, (c.graphs_poisoned, c.cache_rows_corrupted,
+                              c.fits_poisoned)
+        assert tr.cache.quarantined > 0 and tr.nonfinite_steps > 0
+        # the 5th run retrains from scratch: finite params again
+        assert finite_after[4], finite_after
+        assert not all(finite_after), finite_after
+    adaptive = [st for st in ex.stats if st.kind != "profiling"]
+    return {"experiment": ex, "scratch": scratch, "tune": tune,
+            "runs": adaptive,
+            "decisions": sum(st.decide_calls for st in adaptive
+                             if st.kind == "enel"),
+            "steps": tr.adam_steps, "quarantined": tr.cache.quarantined,
+            "skipped": tr.nonfinite_steps,
+            "fallbacks": ex.enel.fallback_decisions}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -253,19 +406,26 @@ def main() -> int:
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.core.model import init_enel
     from repro_torch.kernels import build
     from repro_torch.kernels.graph_prop import ops
     t0 = time.perf_counter()
-    ops._kernel_fn()
-    info = build.BUILDS["graph_prop_fwd"]
-    say(f"build graph_prop_fwd: {time.perf_counter() - t0:.2f}s "
-        f"(nvcc {info.seconds:.2f}s, compiled={info.compiled})")
-    say("\n".join(line for line in info.log.splitlines()
-                  if "registers" in line or "spill" in line))
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(ops._kernel_fn),
+                  pool.submit(ops._bwd_kernel_fn)]
+        for fut in builds:
+            fut.result()
+    say(f"build: {time.perf_counter() - t0:.2f}s wall")
+    for kname in ("graph_prop_fwd", "graph_prop_bwd"):
+        info = build.BUILDS[kname]
+        say(f"build {kname}: nvcc {info.seconds:.2f}s, "
+            f"compiled={info.compiled}")
+        say("\n".join(line for line in info.log.splitlines()
+                      if "registers" in line or "spill" in line))
 
-    # 3. kernel vs plain
+    # 3. kernels vs plain
     params = init_enel(torch.Generator().manual_seed(SEED), device=device)
     rng = np.random.RandomState(SEED)
     max_err = 0.0
@@ -285,15 +445,46 @@ def main() -> int:
                     f"max|de|={err_e:.3g} max|dm|={err_m:.3g}")
     say(f"kernel vs plain: max abs err {max_err:.3g} "
         f"(atol={ATOL}, rtol={RTOL})")
+    names = ("gx", "gm_obs", "gw31", "gb31", "gw32", "gb32", "g_attn",
+             "gw41", "gb41", "gw42", "gb42")
+    max_err_bwd = 0.0
+    for n in (4, 8, 16):
+        for levels in (1, 3, 8):
+            for b in (1, 7, 96):
+                x, adj, m, valid = random_inputs(rng, b, n, device)
+                g_e = torch.tensor(rng.randn(b, n, n).astype(np.float32),
+                                   device=device)
+                g_m = torch.tensor(rng.randn(b, n, 5).astype(np.float32),
+                                   device=device)
+                w = ops._weights(params)
+                got = ops._launch_bwd(x, adj, m, valid, w, g_e, g_m, levels)
+                again = ops._launch_bwd(x, adj, m, valid, w, g_e, g_m,
+                                        levels)
+                torch.cuda.synchronize()
+                ref = ops.graph_prop_vjp_plain(params, x, adj, m, valid, g_e,
+                                               g_m, levels=levels)
+                errs = []
+                for nm, a, a2, r in zip(names, got, again, ref):
+                    assert torch.equal(a, a2), \
+                        f"{nm} N={n} levels={levels} B={b}: not repeatable"
+                    errs.append(close(a, r, f"{nm} N={n} levels={levels} "
+                                      f"B={b}", ATOL_BWD, RTOL_BWD))
+                max_err_bwd = max(max_err_bwd, max(errs))
+                say(f"  bwd kernel vs plain VJP N={n:2d} levels={levels} "
+                    f"B={b:2d}: max abs err {max(errs):.3g}, repeat "
+                    f"bit-equal")
+    say(f"bwd kernel vs plain VJP: max abs err {max_err_bwd:.3g} "
+        f"(atol={ATOL_BWD}, rtol={RTOL_BWD}); two launches bit-equal")
 
-    # 4. the main path; only its launches count
-    ops.LAUNCHES = 0
+    # 4. the decision path; only its launches count
+    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
     jobs = {key: run_job(key, device, ops) for key in JOB_KEYS}
     torch.cuda.synchronize()
-    launches = ops.LAUNCHES
+    launches, launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
     n_decisions = sum(j["decisions"] for j in jobs.values())
     assert launches == n_decisions > 0, (launches, n_decisions)
-    say(f"main path: {n_decisions} decisions, graph_prop_fwd launched "
+    assert launches_bwd == 0, launches_bwd
+    say(f"decision path: {n_decisions} decisions, graph_prop_fwd launched "
         f"{launches} times")
 
     # 5. timings at the LR decision shape
@@ -314,7 +505,7 @@ def main() -> int:
     bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES) * 1e3
     bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES \
         else "bytes"
-    _, prof_kernel_ms = profile_device(launch, reps=50)
+    prof_kernel_ms = profile_device(launch, reps=50)[1]["graph_prop"]
     say(f"timing at B={b} N={n} levels={levels} on {card}: kernel "
         f"{kernel_ms:.4f} ms (again {kernel_ms2:.4f}; profiler "
         f"{prof_kernel_ms:.4f}; through the wrapper {call_ms:.4f}), plain "
@@ -324,10 +515,12 @@ def main() -> int:
     trainer = jobs["lr"]["trainer"]
     sweep = lambda: trainer.predict_sweep_device(template, deltas).cpu()
     sweep_ms = median_wall_ms(sweep)
-    busy_ms, sweep_kernel_ms = profile_device(sweep)
+    busy_ms, per, sweep_kernels = profile_device(sweep)
+    sweep_kernel_ms = per["graph_prop"]
     say(f"LR sweep evaluation (C x K = {b}): {sweep_ms:.3f} ms wall, device "
         f"busy {busy_ms:.3f} ms (graph_prop {sweep_kernel_ms:.3f} ms), "
-        f"idle share {1 - busy_ms / sweep_ms:.3f}")
+        f"idle share {1 - busy_ms / sweep_ms:.3f}, {sweep_kernels:.0f} "
+        f"kernels")
     for key, j in jobs.items():
         c, k = j["largest"]
         say(f"recommend {key}: {j['decisions']} decisions, per decision "
@@ -338,14 +531,133 @@ def main() -> int:
         key: {"median": j["recommend_ms_median"], "p90": j["recommend_ms_p90"]}
         for key, j in jobs.items()}}))
 
-    # 6. results
+    # 6. the training path; only its launches count
+    from repro_torch.sim.chaos import ChaosSpec
+    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+    t0 = time.perf_counter()
+    train = {key: run_training(key, device) for key in JOB_KEYS}
+    train["kmeans-chaos"] = run_training(
+        "kmeans", device, chaos=ChaosSpec(name="smoke", nan_graphs_every=2,
+                                          cache_corrupt_every=3,
+                                          nan_fit_every=4))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t_launches, t_launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
+    steps = sum(t["steps"] for t in train.values())
+    t_decisions = sum(t["decisions"] for t in train.values())
+    assert t_launches_bwd == steps > 0, (t_launches_bwd, steps)
+    assert t_launches == steps + t_decisions, \
+        (t_launches, steps, t_decisions)
+    say(f"training path ({train_s:.1f}s): {steps} Adam steps, "
+        f"{t_decisions} decisions; graph_prop_bwd launched {t_launches_bwd} "
+        f"times, graph_prop_fwd {t_launches}")
+    chaos = train["kmeans-chaos"]
+    say(f"chaos (K-Means): {chaos['quarantined']} rows quarantined, "
+        f"{chaos['skipped']} steps skipped, {chaos['fallbacks']} fallback "
+        f"decisions, params finite after the scratch retrain")
+
+    # 7. timings of the training path
+    ex = train["lr"]["experiment"]
+    tr = ex.trainer
+    ring, _ = tr.cache.full_batch()
+    _, _, x, adj = model._prelude(ring)
+    b, n = x.shape[:2]
+    lv = model.MAX_LEVELS
+    m, valid = ring["metrics"], ring["metrics_valid"]
+    g_e = torch.tensor(rng.randn(b, n, n).astype(np.float32), device=device)
+    g_m = torch.tensor(rng.randn(b, n, 5).astype(np.float32), device=device)
+    targs = (tr.params, x, adj, m, valid)
+    blaunch = bwd_raw_launcher(ops, *targs, g_e, g_m, lv)
+    flaunch = raw_launcher(ops, *targs, lv)
+    bwd_ms = median_ms(blaunch, burst=50)
+    fwd_train_ms = median_ms(flaunch, burst=50)
+    bwd_plain_ms = median_ms(lambda: ops.graph_prop_vjp_plain(
+        *targs, g_e, g_m, levels=lv), burst=5)
+    bwd_ms2 = median_ms(blaunch, burst=50)
+    bflops, bbytes = graph_prop_bwd_work(b, n, lv)
+    bwd_bound_ms = max(bflops / FP32_FLOPS, bbytes / HBM_BYTES) * 1e3
+    bwd_bound_by = "operations" if bflops / FP32_FLOPS >= \
+        bbytes / HBM_BYTES else "bytes"
+    ff, fb = graph_prop_work(b, n, lv)
+    fwd_train_bound = max(ff / FP32_FLOPS, fb / HBM_BYTES) * 1e3
+    say(f"backward timing at B={b} N={n} levels={lv} on {card}: kernel "
+        f"{bwd_ms:.4f} ms (again {bwd_ms2:.4f}), plain VJP "
+        f"{bwd_plain_ms:.4f} ms, bound {bwd_bound_ms:.5f} ms by "
+        f"{bwd_bound_by} ({bflops / 1e6:.1f} MFLOP incl. the forward "
+        f"recompute, {bbytes / 1e6:.3f} MB); forward at this shape "
+        f"{fwd_train_ms:.4f} ms, bound {fwd_train_bound:.5f} ms")
+    scratch_fit = lambda: tr.fit_resident(steps=160, from_scratch=True)
+    fit_wall_ms = median_wall_ms(scratch_fit, reps=3, warmup=1)
+    f_busy, per, f_kernels = profile_device(
+        scratch_fit, reps=2,
+        names=("graph_prop_fwd", "graph_prop_bwd", "sum_slots"))
+    f_fwd = per["graph_prop_fwd"]
+    f_bwd = per["graph_prop_bwd"] + per["sum_slots"]
+    n_steps = 128
+    say(f"LR scratch fit ({n_steps} steps, B={b}): {fit_wall_ms:.1f} ms "
+        f"wall, device busy {f_busy:.1f} ms (graph_prop_fwd {f_fwd:.2f}, "
+        f"graph_prop_bwd {f_bwd:.2f}; {(f_fwd + f_bwd) / f_busy:.3f} of "
+        f"busy), idle share {1 - f_busy / fit_wall_ms:.3f}, "
+        f"{f_kernels / n_steps:.0f} kernels per step, "
+        f"{fit_wall_ms / n_steps:.2f} ms per step")
+    fits = {}
+    for key, t in train.items():
+        sc = [f[0] for f in t["scratch"]]
+        tu = [f[0] for f in t["tune"]]
+        fits[key] = {"scratch_s": sc, "tune_s_median": float(np.median(tu)),
+                     "tune_n": len(tu),
+                     "scratch_loss": [(f[1], f[2]) for f in t["scratch"]]}
+        say(f"fit {key}: scratch {', '.join(f'{v:.3f}' for v in sc)} s, "
+            f"fine-tune median {np.median(tu):.3f} s over {len(tu)}; "
+            f"scratch losses first -> last "
+            f"{', '.join(f'{a:.3g} -> {z:.3g}' for _, a, z in t['scratch'])}")
+    compliance = {}
+    for key in JOB_KEYS:
+        runs = train[key]["runs"]
+        enel = [r for r in runs if r.kind == "enel"]
+        ellis = [r for r in runs if r.kind == "ellis"]
+        compliance[key] = {
+            "target": enel[0].target,
+            "enel": [(float(r.runtime), float(r.violation), r.n_failures)
+                     for r in enel],
+            "ellis": [(float(r.runtime), float(r.violation), r.n_failures)
+                      for r in ellis],
+            "enel_cvc": float(np.mean([r.cvc for r in enel])),
+            "enel_cvs_min": float(np.mean([r.violation for r in enel])) / 60,
+            "ellis_cvc": float(np.mean([r.cvc for r in ellis])),
+            "ellis_cvs_min": float(np.mean([r.violation for r in ellis]))
+            / 60}
+        say(f"compliance {key}: target {enel[0].target:.1f}s; Enel runs "
+            + ", ".join(f"{r.runtime:.1f}s(+{r.violation:.1f})" for r in enel)
+            + "; Ellis "
+            + ", ".join(f"{r.runtime:.1f}s(+{r.violation:.1f})"
+                        for r in ellis))
+    say(json.dumps({"card": card, "training": {
+        "steps": steps, "decisions": t_decisions, "seconds": train_s,
+        "fits": fits, "compliance": compliance,
+        "scratch_fit": {"wall_ms": fit_wall_ms, "busy_ms": f_busy,
+                        "fwd_ms": f_fwd, "bwd_ms": f_bwd,
+                        "kernels_per_step": f_kernels / n_steps}}}))
+
+    # 8. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + t_launches,
+        "launches_by_path": {"decision": launches, "training": t_launches},
+        "max_abs_err": max_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ms_training_shape": fwd_train_ms,
+        "bound_ms_training_shape": fwd_train_bound,
+    }, {
+        "name": "graph_prop_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
+        "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
+        "launches": t_launches_bwd, "max_abs_err": max_err_bwd,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by, "library_ms": None,
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,17 +1,20 @@
-"""Parameters of the JAX reference -> the port's parameters.
+"""State of the JAX reference -> the port's state.
 
-Both take the reference's pytrees with numpy leaves (the caller applies
-``np.asarray`` to every leaf) and return the same structure as float32
+The converters take the reference's pytrees with numpy leaves (the caller
+applies ``np.asarray`` to every leaf) and return the same structure as
 tensors on ``device``: the layout is already the port's, ``(in, out)``
-weights and 1-D biases, so nothing is transposed.
+weights and 1-D biases, so nothing is transposed.  Besides the parameters,
+the Adam state and a training ring convert, so that both packages can start
+a fit from one state.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.graph import TrainingCache
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -40,3 +43,31 @@ def autoencoder_params_from_numpy(tree: Mapping, device: DeviceLike = "cuda"
     """{"enc_w1", "enc_b1", ...} -> the same of tensors."""
     dev = resolve_device(device)
     return {k: _tensor(v, dev) for k, v in tree.items()}
+
+
+def adam_state_from_numpy(opt: Sequence, device: DeviceLike = "cuda"
+                          ) -> Tuple[Dict, Dict, torch.Tensor]:
+    """The reference's Adam state ``(mu, nu, t)`` (two parameter pytrees
+    and the int32 step count) -> the port's."""
+    mu, nu, t = opt
+    dev = resolve_device(device)
+    return (enel_params_from_numpy(mu, dev), enel_params_from_numpy(nu, dev),
+            torch.tensor(np.asarray(t), dtype=torch.int32, device=dev))
+
+
+def training_cache_from_numpy(buffers: Mapping, *, capacity: int,
+                              max_nodes: int, pos: int, count: int,
+                              latest, slot_ok, quarantined: int,
+                              device: DeviceLike = "cuda"
+                              ) -> TrainingCache:
+    """A reference ``TrainingCache`` (its buffers as numpy arrays and its
+    ring counters) -> the port's ``TrainingCache``."""
+    cache = TrainingCache(capacity, max_nodes=max_nodes, device=device)
+    cache.buffers = {k: torch.tensor(np.asarray(v), device=cache.device)
+                     for k, v in buffers.items()}
+    cache.pos = int(pos)
+    cache.count = int(count)
+    cache.latest = np.asarray(latest, np.int64).copy()
+    cache.slot_ok = np.asarray(slot_ok, bool).copy()
+    cache.quarantined = int(quarantined)
+    return cache

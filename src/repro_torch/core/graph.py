@@ -8,8 +8,8 @@ historical summaries) are prepended as predecessors of the next component's
 roots and participate only in metric propagation (flagged ``is_summary``).
 
 Host-side numpy copy of ``repro.core.graph`` (graphs, stacking, the sweep
-template, summaries); the device-resident training cache comes with the
-training slice.
+template, summaries) plus the device-resident :class:`TrainingCache` ring
+that the trainer fits on, whose buffers are torch tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +17,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
 
 MAX_NODES = 16          # padded node count per component graph
 N_METRICS = 5           # CPU util, shuffle r/w, data I/O, GC frac, spill ratio
@@ -230,6 +233,222 @@ def historical_summaries_batch(candidates: Sequence[NodeAttrs],
             "metrics_valid": n_valid > 0,
             "start": starts[idx].mean(axis=1),
             "end": ends[idx].mean(axis=1)}
+
+
+# ------------------------------------------------------------ training cache
+# Device-resident ring buffer of stacked graphs: the runner appends each
+# run's graphs once, and every (re)fit trains straight on the resident
+# (capacity, max_nodes, ...) tensors instead of restacking on the host.
+
+def _cache_spec(max_nodes: int) -> Dict[str, tuple]:
+    """(shape, dtype, fill) per stacked key; fills mirror build_graph's
+    padding so an unfilled slot is exactly an ``empty_graph()``."""
+    n = max_nodes
+    return {
+        "context": ((n, CTX_DIM), np.float32, 0.0),
+        "metrics": ((n, N_METRICS), np.float32, 0.0),
+        "metrics_valid": ((n,), bool, False),
+        "a_raw": ((n,), np.float32, 1.0),
+        "z_raw": ((n,), np.float32, 1.0),
+        "r": ((n,), np.float32, 1.0),
+        "runtime": ((n,), np.float32, 0.0),
+        "runtime_valid": ((n,), bool, False),
+        "overhead": ((n,), np.float32, 0.0),
+        "overhead_valid": ((n,), bool, False),
+        "adj": ((n, n), bool, False),
+        "mask": ((n,), bool, False),
+        "is_summary": ((n,), bool, False),
+    }
+
+
+def node_extent(g: ComponentGraph) -> int:
+    """1 + index of the last real node slot (graphs fill slots from 0)."""
+    idx = np.flatnonzero(g.mask)
+    return int(idx.max()) + 1 if idx.size else 1
+
+
+def _fit_nodes(v: np.ndarray, key: str, n: int) -> np.ndarray:
+    """Slice or pad one graph attribute to ``n`` node slots."""
+    spec = _cache_spec(n)[key]
+    if key == "adj":
+        out = np.full(spec[0], spec[2], spec[1])
+        m = min(v.shape[0], n)
+        out[:m, :m] = v[:m, :m]
+        return out
+    if v.shape[0] == n:
+        return v.astype(spec[1], copy=False)
+    out = np.full(spec[0], spec[2], spec[1])
+    m = min(v.shape[0], n)
+    out[:m] = v[:m]
+    return out
+
+
+def compact_rows(graphs: Sequence[ComponentGraph],
+                 max_nodes: int) -> Dict[str, np.ndarray]:
+    """Stack only the given graphs, sliced or padded to ``max_nodes`` slots.
+
+    Runner graphs are padded to MAX_NODES but hold far fewer real nodes
+    (longest job: 5 stages + 2 summary predecessors); training on compact
+    8-slot rows quarters the N x N pair work with identical losses (the
+    dropped slots are fully masked).
+    """
+    return {k: np.stack([_fit_nodes(getattr(g, k), k, max_nodes)
+                         for g in graphs]) for k in STACK_KEYS}
+
+
+def ring_append(buffers: Dict[str, torch.Tensor],
+                rows: Dict[str, torch.Tensor], idx: torch.Tensor) -> None:
+    """Write ``rows`` into the ring ``buffers`` at slots ``idx``, in place
+    (the reference's functional ``.at[idx].set``)."""
+    for k, b in buffers.items():
+        b[idx] = rows[k].to(b.dtype)
+
+
+# float keys scanned by the cache's non-finite quarantine (bool keys cannot
+# be non-finite; adj is bool too)
+_FINITE_KEYS = ("context", "metrics", "a_raw", "z_raw", "r", "runtime",
+                "overhead")
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.bool if dtype is bool else torch.float32
+
+
+class TrainingCache:
+    """Device-resident ring buffer of stacked component graphs.
+
+    ``extend`` appends incrementally (newest overwrite oldest once full);
+    ``full_batch``/``latest_batch`` hand back resident tensors plus a
+    per-slot 0/1 weight vector for the loss.  Unfilled or padding slots are
+    all-masked empty graphs with weight 0, so the ring holds the same as a
+    one-shot :func:`stack_graphs` of the same graphs.
+
+    Quarantine: rows carrying non-finite values are replaced by empty-graph
+    rows and get weight 0 (``slot_ok``); weighting alone would not do, as
+    ``NaN * 0 == NaN``.  ``extend`` quarantines on the way in,
+    :meth:`quarantine_nonfinite` re-scans the resident rows.
+
+    Counterpart of ``repro.core.graph.TrainingCache`` on ``device``; the
+    ring state (``pos``, ``count``, ``latest``, ``slot_ok``,
+    ``quarantined``) matches it slot for slot.
+    """
+
+    def __init__(self, capacity: int, max_nodes: int = 8, *,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        self.capacity = int(capacity)
+        self.max_nodes = int(max_nodes)
+        self.buffers = self._empty(self.max_nodes)
+        self.pos = 0          # next write slot
+        self.count = 0        # filled slots
+        self.latest = np.zeros(0, np.int64)   # slots of the last extend()
+        self.slot_ok = np.ones(self.capacity, bool)  # quarantine mask
+        self.quarantined = 0  # rows replaced by empty graphs (lifetime)
+
+    def _empty(self, max_nodes: int) -> Dict[str, torch.Tensor]:
+        return {k: torch.full((self.capacity,) + shape, fill,
+                              dtype=_torch_dtype(dtype), device=self.device)
+                for k, (shape, dtype, fill) in _cache_spec(max_nodes).items()}
+
+    def _grow(self, new_nodes: int) -> None:
+        """Reallocate with more node slots, padding existing rows."""
+        grown = self._empty(new_nodes)
+        for k, b in grown.items():
+            old = self.buffers[k]
+            if k == "adj":
+                b[:, :old.shape[1], :old.shape[2]] = old
+            else:
+                b[:, :old.shape[1]] = old
+        self.buffers = grown
+        self.max_nodes = new_nodes
+
+    def _to_device(self, rows: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in rows.items()}
+
+    def extend(self, graphs: Sequence[ComponentGraph]) -> np.ndarray:
+        """Append graphs (newest kept if more than ``capacity``); returns the
+        ring slots written, also kept as ``latest`` for fine-tuning."""
+        graphs = list(graphs)[-self.capacity:]
+        if not graphs:
+            return np.zeros(0, np.int64)
+        need = max(node_extent(g) for g in graphs)
+        if need > self.max_nodes:
+            self._grow(pow2_bucket(need))
+        rows = compact_rows(graphs, self.max_nodes)
+        ok = self._rows_finite(rows)
+        if not ok.all():                # quarantine poisoned rows on entry
+            empty = compact_rows([empty_graph(self.max_nodes)],
+                                 self.max_nodes)
+            for k in rows:
+                rows[k][~ok] = empty[k][0]
+            self.quarantined += int((~ok).sum())
+        idx = (self.pos + np.arange(len(graphs))) % self.capacity
+        ring_append(self.buffers, self._to_device(rows),
+                    torch.as_tensor(idx, device=self.device))
+        self.pos = int((self.pos + len(graphs)) % self.capacity)
+        self.count = min(self.capacity, self.count + len(graphs))
+        self.latest = idx
+        self.slot_ok[idx] = ok
+        return idx
+
+    @staticmethod
+    def _rows_finite(rows: Dict[str, np.ndarray]) -> np.ndarray:
+        """(B,) bool: every float value of each stacked row is finite."""
+        ok = None
+        for k in _FINITE_KEYS:
+            v = np.asarray(rows[k])
+            fin = np.isfinite(v).all(axis=tuple(range(1, v.ndim)))
+            ok = fin if ok is None else (ok & fin)
+        return ok
+
+    def quarantine_nonfinite(self) -> int:
+        """Re-scan resident rows for non-finite values (one host fetch),
+        replace offenders with empty-graph rows and drop them from
+        ``slot_ok``.  Returns how many rows were newly quarantined."""
+        host = {k: self.buffers[k].cpu().numpy() for k in _FINITE_KEYS}
+        bad = ~self._rows_finite(host) & self.slot_ok
+        n = int(bad.sum())
+        if n == 0:
+            return 0
+        empty = compact_rows([empty_graph(self.max_nodes)], self.max_nodes)
+        idx = np.flatnonzero(bad)
+        ring_append(self.buffers,
+                    self._to_device({k: np.repeat(v, n, axis=0)
+                                     for k, v in empty.items()}),
+                    torch.as_tensor(idx, device=self.device))
+        self.slot_ok[idx] = False
+        self.quarantined += n
+        return n
+
+    def full_batch(self):
+        """(resident batch over all slots, per-slot weights) for scratch
+        fits; quarantined slots train with weight 0."""
+        w = np.zeros(self.capacity, np.float32)
+        w[:self.count] = 1.0
+        w *= self.slot_ok
+        return self.buffers, w
+
+    def latest_batch(self):
+        """(gathered batch, weights) over the newest extend(), padded to a
+        power-of-two row count; quarantined slots train with weight 0."""
+        m = len(self.latest)
+        b = pow2_bucket(max(m, 1))
+        idx = np.zeros(b, np.int64)
+        idx[:m] = self.latest
+        w = np.zeros(b, np.float32)
+        w[:m] = self.slot_ok[self.latest]
+        dev_idx = torch.as_tensor(idx, device=self.device)
+        return {k: v[dev_idx] for k, v in self.buffers.items()}, w
+
+    def stacked_host(self) -> Dict[str, np.ndarray]:
+        """Host copy of the filled slots, oldest -> newest (tests/debug)."""
+        if self.count < self.capacity:
+            order = np.arange(self.count)
+        else:
+            order = (self.pos + np.arange(self.capacity)) % self.capacity
+        return {k: v.cpu().numpy()[order] for k, v in self.buffers.items()}
 
 
 def summary_node(nodes: Sequence[NodeAttrs], name: str,

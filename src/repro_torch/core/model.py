@@ -16,8 +16,9 @@ takes stacked (B, N, ...) graphs; ``forward`` is the B = 1 case.
 
 Routing of eqs. 6-7 in :func:`forward_stacked`: CUDA tensors always go
 through :func:`repro_torch.kernels.graph_prop.ops.graph_prop` (the CUDA
-kernel).  On the CPU ``use_kernel`` picks between that op's plain version
-and the inline :func:`_propagate`; both are plain PyTorch there.
+kernel, differentiable through the backward kernel when grad is on).  On
+the CPU ``use_kernel`` picks between that op's plain version and the inline
+:func:`_propagate`; both are plain PyTorch there.
 """
 from __future__ import annotations
 

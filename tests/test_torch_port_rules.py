@@ -1,5 +1,5 @@
 """Rules of the PyTorch port: it stands alone, runs where it is told to, and
-its kernel wrapper refuses what the kernel cannot take.
+its kernel wrappers refuse what the kernels cannot take.
 
 The tests marked ``cuda`` need an NVIDIA card and ``nvcc``; they skip
 without them, naming what is missing, and run on a machine with a card via
@@ -56,15 +56,20 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.convert import enel_params_from_numpy
+    from repro_torch.core.graph import TrainingCache, empty_graph
     from repro_torch.core.model import init_enel
     from repro_torch.core.training import EnelTrainer
     from repro_torch.dataflow.context import ContextEncoder
+    from repro_torch.dataflow.runner import JobExperiment
     from repro_torch.dataflow.workloads import JOBS
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = [lambda: EnelTrainer(),
              lambda: ContextEncoder([JOBS["kmeans"]]),
              lambda: init_enel(torch.Generator()),
-             lambda: enel_params_from_numpy({"attn_a": np.zeros(16)})]
+             lambda: enel_params_from_numpy({"attn_a": np.zeros(16)}),
+             lambda: TrainingCache(8),
+             lambda: JobExperiment("kmeans"),
+             lambda: EnelTrainer(cache_capacity=8).fit([empty_graph()])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -86,9 +91,25 @@ def _params(device):
     return init_enel(torch.Generator().manual_seed(0), device=device)
 
 
+def _cotangents(b, n, device, seed=1):
+    rng = np.random.RandomState(seed)
+    return (torch.tensor(rng.randn(b, n, n).astype(np.float32), device=device),
+            torch.tensor(rng.randn(b, n, ops.N_METRICS).astype(np.float32),
+                         device=device))
+
+
+def _grad_inputs(p, x, m):
+    """Copies of the weights, x and m_obs that require grad."""
+    ws = [w.clone().requires_grad_(True) for w in ops._weights(p)]
+    return (ws, x.clone().requires_grad_(True),
+            m.clone().requires_grad_(True))
+
+
 def test_wrapper_refuses_mixed_devices_and_grad():
-    """A mix of devices raises; so does an input that requires grad off
-    the CPU (the meta device stands in for a card here)."""
+    """A mix of devices raises, and so does a device that is neither the CPU
+    nor a card (the meta device stands in for one here), with or without
+    grad.  On the CPU an input that requires grad goes through autograd of
+    the plain version: grads equal ``graph_prop_vjp_plain``, no launch."""
     p = _params("cpu")
     x, adj, m, valid = _inputs("cpu")
     with pytest.raises(ValueError, match="several devices"):
@@ -97,10 +118,19 @@ def test_wrapper_refuses_mixed_devices_and_grad():
                 if isinstance(v, list) else v.to("meta"))
             for k, v in p.items()}
     xm, adjm, mm, vm = (t.to("meta") for t in (x, adj, m, valid))
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="cpu or cuda"):
         ops.graph_prop(meta, xm.requires_grad_(), adjm, mm, vm, levels=2)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.graph_prop(meta, xm.detach(), adjm, mm, vm, levels=2)
+    ws, xg, mg = _grad_inputs(p, x, m)
+    before = (ops.LAUNCHES, ops.LAUNCHES_BWD)
+    e, mh = ops.graph_prop(ops._params(ws), xg, adj, mg, valid, levels=2)
+    g_e, g_m = _cotangents(*x.shape[:2], "cpu")
+    got = torch.autograd.grad((e, mh), [xg, mg] + ws, (g_e, g_m))
+    ref = ops.graph_prop_vjp_plain(p, x, adj, m, valid, g_e, g_m, levels=2)
+    assert (ops.LAUNCHES, ops.LAUNCHES_BWD) == before
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 @pytest.fixture
@@ -135,10 +165,91 @@ def test_kernel_matches_plain_on_card(card, n, b, levels):
 
 @pytest.mark.cuda
 def test_wrapper_refuses_mix_and_grad_on_card(card):
+    """On the card a mix of devices raises, with or without grad; an input
+    that requires grad goes through the autograd route: one forward and
+    one backward launch, grads equal to ``graph_prop_vjp_plain``."""
     p = _params(card)
     x, adj, m, valid = _inputs(card)
     with pytest.raises(ValueError, match="several devices"):
         ops.graph_prop(p, x, adj.cpu(), m, valid, levels=2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.graph_prop(p, x.clone().requires_grad_(), adj, m, valid,
-                       levels=2)
+    ws, xg, mg = _grad_inputs(p, x, m)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.graph_prop(ops._params(ws), xg, adj.cpu(), mg, valid, levels=2)
+    before = (ops.LAUNCHES, ops.LAUNCHES_BWD)
+    e, mh = ops.graph_prop(ops._params(ws), xg, adj, mg, valid, levels=2)
+    g_e, g_m = _cotangents(*x.shape[:2], card)
+    got = torch.autograd.grad((e, mh), [xg, mg] + ws, (g_e, g_m))
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    ref = ops.graph_prop_vjp_plain(p, x, adj, m, valid, g_e, g_m, levels=2)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,levels", [(4, 7, 1), (8, 96, 8), (16, 1, 3),
+                                        (16, 7, 8)])
+def test_bwd_kernel_matches_plain_vjp_on_card(card, n, b, levels):
+    """The backward kernel against the plain VJP (the reference's gradient
+    tolerance), and two launches on the same inputs agree bit for bit."""
+    p = _params(card)
+    x, adj, m, valid = _inputs(card, b=b, n=n, seed=n + b)
+    g_e, g_m = _cotangents(b, n, card, seed=levels)
+    launches = ops.LAUNCHES_BWD
+    got = ops._launch_bwd(x, adj, m, valid, ops._weights(p), g_e, g_m, levels)
+    again = ops._launch_bwd(x, adj, m, valid, ops._weights(p), g_e, g_m,
+                            levels)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BWD == launches + 2
+    ref = ops.graph_prop_vjp_plain(p, x, adj, m, valid, g_e, g_m,
+                                   levels=levels)
+    for g, g2, r in zip(got, again, ref):
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_fit_step_on_card_matches_cpu(card):
+    """One guarded Adam step through both kernels on the card against the
+    same step on the CPU route, from one state (the reference's fit
+    tolerance)."""
+    from repro_torch.core import training
+    rng = np.random.RandomState(3)
+    b, n = 16, 8
+    mask = rng.rand(b, n) < 0.8
+    mask[:, 0] = True
+    stacked = {
+        "context": np.tanh(rng.randn(b, n, 24)).astype(np.float32),
+        "metrics": rng.rand(b, n, 5).astype(np.float32),
+        "metrics_valid": (rng.rand(b, n) < 0.5) & mask,
+        "a_raw": rng.uniform(1, 36, (b, n)).astype(np.float32),
+        "z_raw": rng.uniform(1, 36, (b, n)).astype(np.float32),
+        "r": rng.uniform(0.5, 1.0, (b, n)).astype(np.float32),
+        "runtime": rng.uniform(1, 30, (b, n)).astype(np.float32),
+        "runtime_valid": (rng.rand(b, n) < 0.7) & mask,
+        "overhead": rng.uniform(0, 3, (b, n)).astype(np.float32),
+        "overhead_valid": (rng.rand(b, n) < 0.3) & mask,
+        "adj": np.tril(rng.rand(b, n, n) < 0.3, -1),
+        "mask": mask,
+        "is_summary": (rng.rand(b, n) < 0.2) & mask,
+    }
+    cpu = training.EnelTrainer(seed=0, device="cpu")
+    cpu_batch = {k: torch.tensor(v) for k, v in stacked.items()}
+    for _ in range(4):                   # leave the fresh Adam state
+        training._adam_update(cpu.params, cpu.opt, cpu_batch, cpu.lr)
+    move = lambda t: t.to(card)
+    params = training.map_params(move, cpu.params)
+    opt = (training.map_params(move, cpu.opt[0]),
+           training.map_params(move, cpu.opt[1]), cpu.opt[2].to(card))
+    before = (ops.LAUNCHES, ops.LAUNCHES_BWD)
+    loss, ok = training._adam_update(
+        params, opt, {k: v.to(card) for k, v in cpu_batch.items()}, cpu.lr)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES, ops.LAUNCHES_BWD) == (before[0] + 1, before[1] + 1)
+    c_loss, c_ok = training._adam_update(cpu.params, cpu.opt, cpu_batch,
+                                         cpu.lr)
+    assert bool(ok) and bool(c_ok)
+    torch.testing.assert_close(loss.cpu(), c_loss, atol=0, rtol=1e-5)
+    for a, c in zip(training.param_leaves(params),
+                    training.param_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-5, rtol=1e-4)
