@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``); no card -> exit 1;
-2. build every kernel (``graph_prop_fwd``, ``graph_prop_bwd``) with
-   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
+2. build every kernel (``graph_prop_fwd``, ``graph_prop_bwd``,
+   ``flash_attention_fwd``, ``flash_decode``) with ``nvcc`` for
+   ``sm_90a``, one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card: the forward
    at atol = rtol = 1e-5, the backward against ``graph_prop_vjp_plain`` at
    the reference's gradient tolerance (atol 1e-4, rtol 1e-3) and bit for
@@ -34,7 +35,29 @@ Phases (any failure exits non-zero; nothing is caught):
    (B = 96, N = 8, levels = 8) beside its bound and the plain VJP, fit wall
    seconds (scratch, fine-tune) per job with the device-busy share of one
    scratch fit, and each run's runtime against the target (Enel vs Ellis);
-8. a ``{"kernels": [...]}`` line, then the device line last.
+8. the LM attention kernels against their plain versions on the card:
+   ``mha`` on ``tests/test_kernels.py``'s sweep in float32 (atol = rtol =
+   2e-5) and bfloat16 (3e-2), plus qwen3-0.6b's shapes (B = 8, S up to
+   1024, H = 16, Kh = 8, D = 128, bf16) and a D = 256 case with window and
+   softcap; ``decode_attn`` on that file's decode sweep plus the model's
+   shapes (B = 8, cache 2048, pos near 0, mid-cache and at the end, with
+   and without a window); every case launched twice, bit for bit equal;
+9. the serving path: ``ServeEngine`` over the full qwen3-0.6b config (28
+   layers, bf16, seeded ``init_model`` weights, ``max_len`` = 2048) serves
+   two waves of 8 requests (prompt lengths in [128, 1024] from
+   ``np.random.RandomState(SEED)``, 64 new tokens each), each wave twice.
+   ``flash_attention_fwd`` must launch 28 times per prefill and
+   ``flash_decode`` 28 times per decode step; every token is in range and
+   both runs of a wave give the same tokens.  Then, teacher-forced, the
+   logits of ``decode_step`` at positions P..P+3 against ``forward``'s at
+   the same positions (relative to the largest logit: 5e-2 in bf16, and
+   the reference's 5e-3 with the weights in float32);
+10. timings of the serving path: each LM kernel at the main path's shapes
+   beside its bound, its plain version and one
+   ``scaled_dot_product_attention`` call (``library_ms``, a yardstick the
+   port never calls); prefill latency, decode ms per step, tokens/s and the
+   device-busy share of a prefill and of the decode loop;
+11. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -55,6 +78,7 @@ JOB_KEYS = ("lr", "mpc", "kmeans", "gbt")
 ATOL = RTOL = 1e-5          # float32: FMA contraction + shuffle-tree sums
 ATOL_BWD, RTOL_BWD = 1e-4, 1e-3   # the reference's gradient tolerance
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM, dense bf16 tensor cores
 HBM_BYTES = 3.35e12         # H100 SXM HBM3
 REPS = 30
 
@@ -390,6 +414,159 @@ def run_training(job_key, device, chaos=None):
             "skipped": tr.nonfinite_steps,
             "fallbacks": ex.enel.fallback_decisions}
 
+LM_ARCH = "qwen3-0.6b"
+LM_WAVES, LM_BATCH, LM_NEW, LM_MAX_LEN = 2, 8, 64, 2048
+LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels.py
+TF_TOL = {torch.bfloat16: 5e-2, torch.float32: 5e-3}   # decode vs forward
+TF_STEPS = 4
+# (B, S, H, Kh, D, causal, window, softcap): tests/test_kernels.py's sweep,
+# then qwen3-0.6b's prefill shapes and a gemma2-like D = 256 case
+MHA_SWEEP = [(2, 128, 4, 2, 32, True, 0, 0.0),
+             (1, 256, 4, 4, 64, True, 64, 50.0),
+             (2, 96, 8, 2, 32, False, 0, 0.0),
+             (1, 64, 2, 1, 128, True, 32, 0.0),
+             (1, 192, 6, 3, 32, True, 0, 30.0)]
+MHA_MODEL = [(8, 1024, 16, 8, 128, True, 0, 0.0),
+             (8, 777, 16, 8, 128, True, 0, 0.0),
+             (8, 128, 16, 8, 128, True, 0, 0.0),
+             (2, 512, 8, 4, 256, True, 128, 50.0)]
+# (B, S, H, Kh, D, pos, window, softcap): the decode sweep, then the model's
+DECODE_SWEEP = [(2, 256, 4, 2, 32, 100, 0, 0.0),
+                (1, 512, 8, 8, 64, 511, 128, 0.0),
+                (2, 128, 4, 1, 32, 0, 0, 0.0),
+                (1, 128, 2, 2, 128, 64, 32, 0.0)]
+DECODE_MODEL = [(8, 2048, 16, 8, 128, pos, win, 0.0)
+                for pos in (0, 1023, 2047) for win in (0, 256)] + \
+    [(2, 1024, 8, 4, 256, 700, 512, 50.0)]
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.tensor(rng.randn(*shape).astype(np.float32),
+                        device=device).to(dtype)
+
+
+def check_lm_kernels(device, fa, fd):
+    """Phase 8: each LM kernel against its plain version, twice bit-equal.
+    Returns the largest abs error of each kernel, by dtype."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(SEED)
+    errs = {"mha": {f32: 0.0, bf16: 0.0}, "decode": {f32: 0.0, bf16: 0.0}}
+    mha_cases = [(c, dt) for c in MHA_SWEEP for dt in (f32, bf16)] + \
+        [(c, bf16) for c in MHA_MODEL] + [(MHA_MODEL[-1], f32)]
+    for (b, s, h, kh, d, causal, win, cap), dt in mha_cases:
+        q = _randn(rng, (b, s, h, d), dt, device)
+        k, v = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
+        kw = dict(causal=causal, window=win, softcap=cap)
+        got, again = fa.mha(q, k, v, **kw), fa.mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = f"mha {dt} B={b} S={s} H={h} Kh={kh} D={d} {kw}"
+        assert torch.equal(got, again), f"{what}: not repeatable"
+        err = close(got.float(), fa.mha_plain(q, k, v, **kw).float(), what,
+                    LM_TOL[dt], LM_TOL[dt])
+        errs["mha"][dt] = max(errs["mha"][dt], err)
+        say(f"  {what}: max abs err {err:.3g}, repeat bit-equal")
+    dec_cases = [(c, dt) for c in DECODE_SWEEP for dt in (f32, bf16)] + \
+        [(c, bf16) for c in DECODE_MODEL] + [(DECODE_MODEL[-1], f32)]
+    for (b, s, h, kh, d, pos, win, cap), dt in dec_cases:
+        q = _randn(rng, (b, 1, h, d), dt, device)
+        ck, cv = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
+        kw = dict(window=win, softcap=cap)
+        got = fd.decode_attn(q, ck, cv, pos, **kw)
+        again = fd.decode_attn(q, ck, cv, pos, **kw)
+        torch.cuda.synchronize()
+        what = f"decode_attn {dt} B={b} S={s} H={h} Kh={kh} D={d} pos={pos} {kw}"
+        assert torch.equal(got, again), f"{what}: not repeatable"
+        err = close(got.float(),
+                    fd.decode_attn_plain(q, ck, cv, pos, **kw).float(), what,
+                    LM_TOL[dt], LM_TOL[dt])
+        errs["decode"][dt] = max(errs["decode"][dt], err)
+        say(f"  {what}: max abs err {err:.3g}, repeat bit-equal")
+    return errs
+
+
+def lm_waves(cfg):
+    """Two waves of LM_BATCH (prompt, max_new_tokens): chat-style prompts
+    of 128..1024 tokens from ``np.random.RandomState(SEED)``."""
+    rng = np.random.RandomState(SEED)
+    return [[(rng.randint(2, cfg.raw_vocab_size, rng.randint(128, 1025)),
+              LM_NEW) for _ in range(LM_BATCH)] for _ in range(LM_WAVES)]
+
+
+def padded(prompts) -> np.ndarray:
+    """The engine's left-padded token matrix of a wave."""
+    plen = max(len(p) for p, _ in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, (p, _) in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return toks
+
+
+def run_serving(cfg, params, device, fa, fd):
+    """Phase 9: each wave served twice; launch counts from 0."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, device=device)
+    waves = lm_waves(cfg)
+    fa.LAUNCHES = fd.LAUNCHES = 0
+    results = []
+    for w, prompts in enumerate(waves):
+        runs = []
+        for _ in range(2):
+            reqs = [Request(prompt=p, max_new_tokens=n) for p, n in prompts]
+            runs.append(([r.out_tokens for r in reqs], eng.serve_wave(reqs)))
+        assert runs[0][0] == runs[1][0], f"wave {w}: runs differ"
+        results.append(runs)
+    torch.cuda.synchronize()
+    launches = (fa.LAUNCHES, fd.LAUNCHES)
+    prefills = 2 * len(waves)
+    steps = sum(st.decode_steps for runs in results for _, st in runs)
+    assert launches == (cfg.n_layers * prefills, cfg.n_layers * steps), \
+        (launches, prefills, steps)
+    for runs in results:
+        for toks, st in runs:
+            assert all(len(t) == LM_NEW for t in toks)
+            assert all(0 <= x < cfg.vocab_size for t in toks for x in t)
+            assert st.decode_steps == LM_NEW
+    return waves, results, launches, prefills, steps
+
+
+def teacher_forced_err(params, cfg, toks: torch.Tensor, p: int) -> float:
+    """max over TF_STEPS decode steps of max|forward - decode_step| logits
+    at positions p..p+TF_STEPS-1, relative to the largest forward logit."""
+    from repro_torch.models import apply_model, decode_step, prefill
+    full, _ = apply_model(params, cfg, {"tokens": toks})
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :p]},
+                       cache_len=p + TF_STEPS)
+    errs = []
+    for t in range(TF_STEPS):
+        dec, cache = decode_step(params, cfg, cache, toks[:, p + t:p + t + 1],
+                                 p + t)
+        a, d = full[:, p + t].float(), dec[:, 0].float()
+        errs.append(float((a - d).abs().max() / a.abs().max()))
+    del full, cache
+    return max(errs)
+
+
+def prefill_work(b, s, h, kh, d, elt=2):
+    """(FLOPs, bytes) of causal attention: 4 * D FLOPs for each of the S(S +
+    1)/2 visible (query, key) pairs of each head (QK^T and PV); q, k, v read
+    once and the output written once."""
+    return (4 * b * h * d * s * (s + 1) // 2,
+            elt * b * s * d * (2 * h + 2 * kh))
+
+
+def decode_work(b, h, kh, d, pos, elt=2):
+    """(FLOPs, bytes) of one-token attention over positions 0..pos: 4 * D
+    FLOPs per key and query head; the pos + 1 cache rows of K and V read
+    once, q read and the output written once."""
+    n = pos + 1
+    return 4 * b * h * d * n, elt * (2 * b * kh * n * d + 2 * b * h * d)
+
+
+def bound(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -410,15 +587,19 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.core.model import init_enel
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.graph_prop import ops
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(ops._kernel_fn),
-                  pool.submit(ops._bwd_kernel_fn)]
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(fn) for fn in (ops._kernel_fn,
+                                             ops._bwd_kernel_fn,
+                                             fa._kernel_fn, fd._kernel_fn)]
         for fut in builds:
             fut.result()
     say(f"build: {time.perf_counter() - t0:.2f}s wall")
-    for kname in ("graph_prop_fwd", "graph_prop_bwd"):
+    for kname in ("graph_prop_fwd", "graph_prop_bwd", "flash_attention_fwd",
+                  "flash_decode"):
         info = build.BUILDS[kname]
         say(f"build {kname}: nvcc {info.seconds:.2f}s, "
             f"compiled={info.compiled}")
@@ -639,7 +820,162 @@ def main() -> int:
                         "fwd_ms": f_fwd, "bwd_ms": f_bwd,
                         "kernels_per_step": f_kernels / n_steps}}}))
 
-    # 8. results
+    # 8. the LM attention kernels vs plain
+    t0 = time.perf_counter()
+    lm_errs = check_lm_kernels(device, fa, fd)
+    say(f"LM kernels vs plain ({time.perf_counter() - t0:.1f}s): mha max abs "
+        f"err f32 {lm_errs['mha'][torch.float32]:.3g} (tol 2e-5), bf16 "
+        f"{lm_errs['mha'][torch.bfloat16]:.3g} (tol 3e-2); decode_attn f32 "
+        f"{lm_errs['decode'][torch.float32]:.3g}, bf16 "
+        f"{lm_errs['decode'][torch.bfloat16]:.3g}; every case bit-equal "
+        f"twice")
+
+    # 9. the serving path; only its launches count
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    torch.set_grad_enabled(False)
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    lm_params = init_model(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    say(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_dtype}; init "
+        f"{time.perf_counter() - t0:.1f}s")
+    waves, served, lm_launches, n_prefill, n_steps = run_serving(
+        cfg, lm_params, device, fa, fd)
+    fa_launches, fd_launches = lm_launches
+    say(f"serving path: {n_prefill} prefills, {n_steps} decode steps; "
+        f"flash_attention_fwd launched {fa_launches} times "
+        f"(= {cfg.n_layers} x {n_prefill}), flash_decode {fd_launches} "
+        f"(= {cfg.n_layers} x {n_steps}); both runs of each wave gave the "
+        f"same tokens")
+    toks0 = padded(waves[0])
+    p0 = toks0.shape[1]
+    gen0 = np.array(served[0][0][0])[:, :TF_STEPS]
+    tf_toks = torch.tensor(np.concatenate([toks0, gen0], axis=1),
+                           device=device)
+    tf_err = {torch.bfloat16: teacher_forced_err(lm_params, cfg, tf_toks, p0)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = {k: ([{n: ({m: t.float() for m, t in part.items()}
+                          if isinstance(part, dict) else part.float())
+                      for n, part in layer.items()} for layer in v]
+                    if k == "layers" else v.float())
+                for k, v in lm_params.items()}
+    tf_err[torch.float32] = teacher_forced_err(params32, cfg32, tf_toks, p0)
+    del params32
+    torch.cuda.empty_cache()
+    for dt, err in tf_err.items():
+        assert err < TF_TOL[dt], (dt, err)
+    say(f"teacher-forced decode_step vs forward logits at positions "
+        f"{p0}..{p0 + TF_STEPS - 1} (B = {LM_BATCH}): max rel err bf16 "
+        f"{tf_err[torch.bfloat16]:.3g} (tol {TF_TOL[torch.bfloat16]}), "
+        f"float32 weights {tf_err[torch.float32]:.3g} (tol "
+        f"{TF_TOL[torch.float32]})")
+
+    # 10. timings of the serving path
+    import torch.nn.functional as F
+    from repro_torch.models import decode_step, prefill
+    bf16 = torch.bfloat16
+    b, h, kh, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    trng = np.random.RandomState(SEED + 1)
+    q = _randn(trng, (b, p0, h, d), bf16, device)
+    k, v = (_randn(trng, (b, p0, kh, d), bf16, device) for _ in range(2))
+    out = torch.empty_like(q)
+    fa_launch = lambda: fa._launch(q, k, v, out, True, 0, 0.0, 0)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fa_ms = median_ms(fa_launch, burst=10)
+    fa_plain_ms = median_ms(lambda: fa.mha_plain(q, k, v), burst=2, reps=5)
+    fa_lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), burst=10)
+    fa_ms2 = median_ms(fa_launch, burst=10)
+    fl, nb = prefill_work(b, p0, h, kh, d)
+    fa_bound, fa_by = bound(fl, nb, BF16_FLOPS)
+    say(f"flash_attention_fwd at B={b} S={p0} H={h} Kh={kh} D={d} bf16 "
+        f"causal on {card}: kernel {fa_ms:.4f} ms (again {fa_ms2:.4f}), "
+        f"plain {fa_plain_ms:.4f} ms, SDPA {fa_lib_ms:.4f} ms, bound "
+        f"{fa_bound:.5f} ms by {fa_by} ({fl / 1e9:.2f} GFLOP, "
+        f"{nb / 1e6:.1f} MB)")
+    del q, k, v, out, qt, kt, vt
+    pos_main = p0 + LM_NEW - 1          # wave 0's last decode position
+    fd_times = {}
+    ck, cv = (_randn(trng, (b, LM_MAX_LEN, kh, d), bf16, device)
+              for _ in range(2))
+    qd = _randn(trng, (b, 1, h, d), bf16, device)
+    outd = torch.empty_like(qd)
+    for pos in (pos_main, LM_MAX_LEN - 1):
+        fd_launch = lambda: fd._launch(qd, ck, cv, outd, pos, 0, 0.0)
+        qdt = qd.transpose(1, 2).contiguous()
+        kc, vc = (x[:, :pos + 1].transpose(1, 2).contiguous()
+                  for x in (ck, cv))
+        t_k = median_ms(fd_launch, burst=50)
+        t_p = median_ms(lambda: fd.decode_attn_plain(qd, ck, cv, pos),
+                        burst=10)
+        t_l = median_ms(lambda: F.scaled_dot_product_attention(
+            qdt, kc, vc, enable_gqa=True), burst=50)
+        t_k2 = median_ms(fd_launch, burst=50)
+        fl, nb = decode_work(b, h, kh, d, pos)
+        t_b, by = bound(fl, nb, BF16_FLOPS)
+        fd_times[pos] = {"ms": t_k, "again": t_k2, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": t_b, "bound_by": by}
+        say(f"flash_decode at B={b} H={h} Kh={kh} D={d} cache "
+            f"{LM_MAX_LEN} pos={pos} bf16 on {card}: kernel {t_k:.4f} ms "
+            f"(again {t_k2:.4f}), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, "
+            f"bound {t_b:.5f} ms by {by} ({nb / 1e6:.2f} MB)")
+    del ck, cv, qd, outd, kc, vc
+    first = [runs[0][1] for runs in served]
+    for w, st in enumerate(first):
+        say(f"wave {w}: P={padded(waves[w]).shape[1]}, prefill "
+            f"{st.prefill_s * 1e3:.1f} ms, decode {st.decode_steps} steps "
+            f"{st.decode_s * 1e3 / st.decode_steps:.2f} ms/step, "
+            f"{st.tokens_out} tokens at {st.decode_tok_s:.1f} tok/s")
+    t0_dev = torch.tensor(toks0, device=device)
+    pf = lambda: (prefill(lm_params, cfg, {"tokens": t0_dev},
+                          cache_len=LM_MAX_LEN), torch.cuda.synchronize())
+    pf_wall = median_wall_ms(pf, reps=5, warmup=1)
+    pf_busy, pf_per, pf_kernels = profile_device(pf, reps=2,
+                                                 names=("fa_fwd",))
+    _, cache = prefill(lm_params, cfg, {"tokens": t0_dev},
+                       cache_len=LM_MAX_LEN)
+    n_loop = 16
+
+    def decode_loop():
+        tok = t0_dev[:, -1:]
+        for i in range(n_loop):
+            logits, _ = decode_step(lm_params, cfg, cache, tok, p0 + i)
+            tok = logits[:, -1:].argmax(dim=-1)
+            tok.tolist()                   # the engine's host fetch
+    dec_wall = median_wall_ms(decode_loop, reps=5, warmup=1) / n_loop
+    dec_busy, dec_per, dec_kernels = profile_device(decode_loop, reps=2,
+                                                    names=("fd_kernel",))
+    dec_busy, dec_kernels = dec_busy / n_loop, dec_kernels / n_loop
+    dec_fd = dec_per["fd_kernel"] / n_loop
+    say(f"prefill of wave 0 (B={b}, P={p0}): {pf_wall:.2f} ms wall, device "
+        f"busy {pf_busy:.2f} ms (flash_attention_fwd {pf_per['fa_fwd']:.2f} "
+        f"ms), idle share {1 - pf_busy / pf_wall:.3f}, {pf_kernels:.0f} "
+        f"kernels")
+    say(f"decode step (B={b}, pos {p0}..{p0 + n_loop - 1}): {dec_wall:.3f} "
+        f"ms wall, device busy {dec_busy:.3f} ms (flash_decode "
+        f"{dec_fd:.3f} ms), idle share {1 - dec_busy / dec_wall:.3f}, "
+        f"{dec_kernels:.0f} kernels per step")
+    del cache
+    say(json.dumps({"card": card, "serving": {
+        "arch": LM_ARCH, "batch": LM_BATCH, "new_tokens": LM_NEW,
+        "max_len": LM_MAX_LEN,
+        "waves": [{"P": int(padded(waves[w]).shape[1]),
+                   "prefill_ms": st.prefill_s * 1e3,
+                   "decode_ms_per_step": st.decode_s * 1e3 / st.decode_steps,
+                   "decode_tok_s": st.decode_tok_s}
+                  for w, st in enumerate(first)],
+        "teacher_forced_rel_err": {"bf16": tf_err[torch.bfloat16],
+                                   "float32": tf_err[torch.float32]},
+        "prefill": {"wall_ms": pf_wall, "busy_ms": pf_busy,
+                    "flash_attention_ms": pf_per["fa_fwd"]},
+        "decode_step": {"wall_ms": dec_wall, "busy_ms": dec_busy,
+                        "flash_decode_ms": dec_fd,
+                        "kernels": dec_kernels}}}))
+
+    # 11. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
@@ -655,9 +991,38 @@ def main() -> int:
         "name": "graph_prop_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
-        "launches": t_launches_bwd, "max_abs_err": max_err_bwd,
+        "launches": t_launches_bwd,
+        "launches_by_path": {"training": t_launches_bwd},
+        "max_abs_err": max_err_bwd,
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
+    }, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
+        "launches": fa_launches, "launches_by_path": {"serving": fa_launches},
+        "max_abs_err": max(lm_errs["mha"].values()),
+        "max_abs_err_f32": lm_errs["mha"][torch.float32],
+        "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
+        "bound_by": fa_by, "library_ms": fa_lib_ms,
+        "shape": {"B": b, "S": p0, "H": h, "Kh": kh, "D": d,
+                  "dtype": "bfloat16", "causal": True},
+    }, {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode/kernel.py:58",
+        "launches": fd_launches, "launches_by_path": {"serving": fd_launches},
+        "max_abs_err": max(lm_errs["decode"].values()),
+        "max_abs_err_f32": lm_errs["decode"][torch.float32],
+        "ms": fd_times[pos_main]["ms"],
+        "plain_ms": fd_times[pos_main]["plain_ms"],
+        "bound_ms": fd_times[pos_main]["bound_ms"],
+        "bound_by": fd_times[pos_main]["bound_by"],
+        "library_ms": fd_times[pos_main]["library_ms"],
+        "shape": {"B": b, "H": h, "Kh": kh, "D": d, "cache": LM_MAX_LEN,
+                  "pos": pos_main, "dtype": "bfloat16"},
+        "at_pos_end": fd_times[LM_MAX_LEN - 1],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

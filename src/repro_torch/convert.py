@@ -5,7 +5,9 @@ applies ``np.asarray`` to every leaf) and return the same structure as
 tensors on ``device``: the layout is already the port's, ``(in, out)``
 weights and 1-D biases, so nothing is transposed.  Besides the parameters,
 the Adam state and a training ring convert, so that both packages can start
-a fit from one state.
+a fit from one state.  For the LM, :func:`lm_params_from_numpy` and
+:func:`lm_cache_from_numpy` unstack the reference's scanned layer groups
+into the port's flat list of layers.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graph import TrainingCache
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -71,3 +74,51 @@ def training_cache_from_numpy(buffers: Mapping, *, capacity: int,
     cache.slot_ok = np.asarray(slot_ok, bool).copy()
     cache.quarantined = int(quarantined)
     return cache
+
+
+def _lm_tensor(v, dev: torch.device) -> torch.Tensor:
+    """A numpy leaf -> a tensor of the same dtype (bfloat16 leaves, which
+    numpy holds as ml_dtypes' bfloat16, go through float32 exactly)."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _lm_tree(tree, dev: torch.device, index=None):
+    """Nested dicts of numpy leaves -> the same of tensors, taking
+    ``leaf[index]`` of each leaf when ``index`` is given."""
+    if isinstance(tree, Mapping):
+        return {k: _lm_tree(v, dev, index) for k, v in tree.items()}
+    return _lm_tensor(tree if index is None else np.asarray(tree)[index], dev)
+
+
+def _unstack(groups: Mapping, tail: Sequence, cfg: ModelConfig,
+             dev: torch.device) -> List[Dict]:
+    """The reference's ``groups`` ({"p0".."p{period-1}"}, each leaf with a
+    leading group axis) and ``tail`` list -> one dict per layer, in layer
+    order (layer g * period + j is group g's "p{j}")."""
+    layers = [_lm_tree(groups[f"p{j}"], dev, g)
+              for g in range(cfg.n_groups) for j in range(cfg.layer_period)]
+    return layers + [_lm_tree(t, dev) for t in tail]
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device: DeviceLike = "cuda") -> Dict:
+    """The reference's ``init_model`` pytree (numpy leaves) -> the port's
+    parameters: ``embed``, ``final_norm``, ``unembed`` when untied, and
+    ``layers``."""
+    dev = resolve_device(device)
+    out = {k: _lm_tensor(tree[k], dev)
+           for k in ("embed", "final_norm", "unembed") if k in tree}
+    out["layers"] = _unstack(tree["groups"], tree.get("tail", []), cfg, dev)
+    return out
+
+
+def lm_cache_from_numpy(cache: Mapping, cfg: ModelConfig,
+                        device: DeviceLike = "cuda") -> Dict:
+    """The reference's prefill / decode cache (numpy leaves) -> the port's
+    ``{"layers": [{"k", "v"}, ...]}``."""
+    dev = resolve_device(device)
+    return {"layers": _unstack(cache["groups"], cache.get("tail", []), cfg,
+                               dev)}

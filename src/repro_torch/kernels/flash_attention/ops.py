@@ -1,0 +1,151 @@
+"""Flash attention (training / prefill) in the model's (B, S, H, D) layout.
+
+``mha`` is the entry the model calls.  On CUDA tensors it launches the
+hand-written kernel ``csrc/flash_attention_fwd.cu`` (built with ``nvcc`` at
+first use) or raises; it never falls back.  On CPU tensors it runs
+:func:`mha_plain`, the same function in plain PyTorch ops, which is also
+what the kernel is held against on the card.
+
+Counterpart of ``repro.kernels.flash_attention.ops.mha`` (whose kernel is
+``flash_attention``); unlike it, nothing is transposed or padded here: the
+kernel reads the model's layout through strides and masks the ragged tail.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
+NEG_INF = -1e30         # the mask value of the reference kernel
+MAX_HEAD_DIM = 256
+DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since import (or since the caller last reset them)
+LAUNCHES = 0
+
+_FN = None
+
+
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              kv_len: int = 0) -> torch.Tensor:
+    """Exact softmax attention with the kernel's masks, in float32.
+
+    Same arguments as :func:`mha`.  Masked logits are set to -1e30 (not
+    -inf) and the normaliser is floored at 1e-20, as in the reference
+    kernel, so a query row whose keys are all masked comes out as the mean
+    of V over every key.
+    """
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    group = h // kh
+    qf = q.float().permute(0, 2, 1, 3)                       # (B, H, Sq, D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = k_pos < (kv_len or sk)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & ((q_pos - k_pos) < window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    out = (p @ vf) / l
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _check(q, k, v, window: int, softcap: float, kv_len: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, S, H, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, _, h, d = q.shape
+    if tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} in batch or head dim")
+    if k.shape[1] == 0:
+        raise ValueError("k and v hold no keys")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim must be in 1..{MAX_HEAD_DIM}, got {d}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of {DTYPES}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window < 0 or softcap < 0 or not 0 <= kv_len <= k.shape[1]:
+        raise ValueError(f"bad window={window}, softcap={softcap} or "
+                         f"kv_len={kv_len} (keys: {k.shape[1]})")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v lie on several devices: "
+                         f"{sorted(str(d) for d in devices)}")
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        fn = build.load(SOURCE).flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 16
+                       + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _launch(q, k, v, out, causal: bool, window: int, softcap: float,
+            kv_len: int) -> None:
+    """One launch of ``flash_attention_fwd`` on checked CUDA tensors."""
+    global LAUNCHES
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    fn = _kernel_fn()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride(), *k.stride(), *v.stride(), *out.stride(),
+            b, sq, sk, h, kh, d, int(causal), int(window), int(kv_len or sk),
+            _DTYPE_CODE[q.dtype], float(1.0 / math.sqrt(d)),
+            float(softcap), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "
+                           f"{rc}")
+    LAUNCHES += 1
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: int = 0, softcap: float = 0.0,
+        kv_len: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, Kh, D) with H % Kh == 0 -> (B, Sq, H,
+    D) in q's dtype (float32 or bfloat16; float32 softmax state).
+
+    Query head h reads kv head ``h // (H // Kh)``.  Query i sees key j when
+    j < ``kv_len`` (0: every key), j <= i if ``causal``, and i - j <
+    ``window`` if ``window`` > 0; logits are scaled by 1/sqrt(D) and, with
+    ``softcap`` > 0, capped as ``softcap * tanh(s / softcap)``.
+
+    CPU tensors run :func:`mha_plain`; CUDA tensors launch the kernel.
+    """
+    _check(q, k, v, window, softcap, kv_len)
+    if q.device.type == "cpu":
+        return mha_plain(q, k, v, causal=causal, window=window,
+                         softcap=softcap, kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel():
+        _launch(q, k, v, out, causal, window, softcap, kv_len)
+    return out

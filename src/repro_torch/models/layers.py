@@ -1,0 +1,117 @@
+"""Primitive layers: inits, norms, FFNs, embeddings, rotary embeddings.
+
+Counterpart of ``repro.models.layers``.  Layers are functions over plain
+dicts of tensors with the reference's ``(in, out)`` weight layout.  Inits
+draw from a ``torch.Generator`` (the reference draws from ``jax.random``, so
+the values differ; the tests carry the reference's weights over instead).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def dense_init(gen: Optional[torch.Generator], in_dim: int, out_dim: int,
+               dtype: torch.dtype, device: torch.device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """N(0, 1) * scale (default 1/sqrt(in_dim)), drawn in float32."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn(in_dim, out_dim, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: Optional[torch.Generator], vocab: int, dim: int,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    w = torch.randn(vocab, dim, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * 0.02).to(dtype)
+
+
+def norm_init(dim: int, device: torch.device) -> torch.Tensor:
+    """A norm scale, stored as an offset from 1.0."""
+    return torch.zeros(dim, dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last dim in float32, scaled by (1 + scale)."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + scale.float())).to(x.dtype)
+
+
+head_rms_norm = rms_norm     # over the head dim of (..., H, Dh) q/k tensors
+
+
+# ----------------------------------------------------------------------- FFN
+def init_ffn(gen, cfg: ModelConfig, d_ff: int, device: torch.device) -> Dict:
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "w_gate": dense_init(gen, cfg.d_model, d_ff, dt, device),
+        "w_up": dense_init(gen, cfg.d_model, d_ff, dt, device),
+        "w_down": dense_init(gen, d_ff, cfg.d_model, dt, device,
+                             scale=1.0 / math.sqrt(d_ff)),
+    }
+
+
+def ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Gated FFN: SwiGLU, or GeGLU with the tanh gelu for gemma (the
+    default of ``jax.nn.gelu``)."""
+    gate = x @ params["w_gate"]
+    gate = F.gelu(gate, approximate="tanh") if cfg.embed_scale \
+        else F.silu(gate)
+    return (gate * (x @ params["w_up"])) @ params["w_down"]
+
+
+# -------------------------------------------------------------------- rotary
+def rope_frequencies(d_head: int, theta: float,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) int.  Split-halves rotation:
+    cos/sin are computed in float32 from the positions, cast to x's dtype and
+    applied in that dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs             # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# --------------------------------------------------------------------- embed
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    x = table[ids].to(DTYPES[cfg.dtype])
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap
+
+
+def unembed_logits(x: torch.Tensor, table: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, d) @ (V, d)^T -> (B, S, V) logits, with the optional final
+    softcap (applied in float32)."""
+    logits = x @ table.to(x.dtype).T
+    if cfg.final_logit_softcap:
+        logits = softcap(logits.float(), cfg.final_logit_softcap)
+    return logits

@@ -1,0 +1,47 @@
+"""Public model API: init / apply / prefill for the ported architectures.
+
+Counterpart of ``repro.models.model``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+init_model = tfm.init_model
+decode_step = tfm.decode_step
+init_cache = tfm.init_cache
+pad_cache_to = tfm.pad_cache_to
+
+
+def apply_model(params: Dict, cfg: ModelConfig, batch: Dict
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode forward: (logits, aux_loss)."""
+    logits, aux, _ = tfm.forward(params, cfg, batch, mode="train")
+    return logits, aux
+
+
+def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
+            cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+    """Prefill forward: (logits, cache), the cache padded to ``cache_len``."""
+    logits, _, cache = tfm.forward(params, cfg, batch, mode="prefill")
+    if cache_len is not None:
+        cache = tfm.pad_cache_to(cache, cfg, cache_len)
+    return logits, cache
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Total parameter count, from an init on the ``meta`` device (nothing
+    is allocated)."""
+    params = init_model(cfg, device="meta")
+    leaves = [params["embed"], params["final_norm"]] + \
+        ([params["unembed"]] if "unembed" in params else [])
+    for layer in params["layers"]:
+        for part in layer.values():
+            leaves += list(part.values()) if isinstance(part, dict) \
+                else [part]
+    return sum(math.prod(t.shape) for t in leaves)

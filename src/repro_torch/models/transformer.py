@@ -1,0 +1,174 @@
+"""Model assembly for the dense attention LMs: a flat list of layers.
+
+Counterpart of ``repro.models.transformer``.  The reference stacks its
+layers into groups of the config's layer period and scans over them; here
+``params["layers"]`` is a plain list with one dict per layer (``ln1``,
+``attn``, ``ln2``, ``ffn``) walked by a Python loop, and a cache is
+``{"layers": [{"k", "v"}, ...]}`` with one (B, S, Kh, Dh) pair per layer.
+Two full-sequence modes share one code path:
+
+  train    full-sequence forward, no cache
+  prefill  full-sequence forward, emits the KV cache (padded to cache_len)
+
+and :func:`decode_step` runs one token at a host int position ``pos``,
+writing its K/V into the cache in place.
+
+Ported so far: attention mixers (``attn``, ``attn_local``) with a dense
+FFN, for the ``dense`` family.  Mamba, mLSTM and sLSTM mixers, MoE FFNs and
+the audio and vlm families raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
+                                       init_ffn, norm_init, rms_norm,
+                                       unembed_logits)
+
+_NOT_PORTED = {
+    "mamba": "ROADMAP.md queue 1 item 12, mamba_scan through jamba's mamba "
+             "layers (queue 2 item 5)",
+    "mlstm": "ROADMAP.md queue 1 item 12, xlstm-350m serving with "
+             "mlstm_chunk (queue 2 item 6)",
+    "slstm": "ROADMAP.md queue 1 item 12, xlstm-350m serving",
+    "moe": "ROADMAP.md queue 1 item 12, the MoE FFN (models/moe.py)",
+    "moe+dense": "ROADMAP.md queue 1 item 12, the MoE FFN (models/moe.py)",
+    "audio": "ROADMAP.md queue 1 item 12, the audio family (whisper "
+             "encoder and cross-attention)",
+    "vlm": "ROADMAP.md queue 1 item 12, the vlm family (patch embeddings)",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
+                                  f"not ported yet: {_NOT_PORTED[cfg.family]}")
+    for i in range(cfg.n_layers):
+        for part in (cfg.layer_kind(i), cfg.ffn_kind(i)):
+            if part in _NOT_PORTED:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer {i} needs {part!r}, not ported yet: "
+                    f"{_NOT_PORTED[part]}")
+
+
+# ----------------------------------------------------------------------- init
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device: DeviceLike = "cuda") -> Dict:
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the ``meta`` device allocates nothing)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+    dt = DTYPES[cfg.param_dtype]
+    params: Dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
+                                        dev),
+                    "final_norm": norm_init(cfg.d_model, dev)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
+                                       dev)
+    params["layers"] = [{"ln1": norm_init(cfg.d_model, dev),
+                         "attn": attn_lib.init_attention(gen, cfg, dev),
+                         "ln2": norm_init(cfg.d_model, dev),
+                         "ffn": init_ffn(gen, cfg, cfg.d_ff, dev)}
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+# --------------------------------------------------------------------- layers
+def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                 mode: str, positions: Optional[torch.Tensor],
+                 cache: Optional[Dict], pos: Optional[int]
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One block: attention then the dense FFN, each pre-normed and added to
+    the residual.  Returns (x, cache entry)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    entry: Dict = {}
+    if mode == "decode":
+        y, entry = attn_lib.decode_attention(lp["attn"], cfg, h, cache, pos,
+                                             kind)
+    elif mode == "prefill":
+        y, (entry["k"], entry["v"]) = attn_lib.multi_head_attention(
+            lp["attn"], cfg, h, positions, kind, return_kv=True)
+    else:
+        y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind)
+    x = x + y
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + ffn(lp["ffn"], cfg, h), entry
+
+
+def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed_logits(x, table, cfg)
+
+
+def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Full-sequence forward over ``batch["tokens"]`` (B, S), positions
+    0..S-1.  Returns (logits (B, S, V), aux loss 0, cache or None)."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
+    check_supported(cfg)
+    x = embed_lookup(params["embed"], batch["tokens"], cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    entries: List[Dict] = []
+    for i, lp in enumerate(params["layers"]):
+        x, entry = _layer_apply(lp, cfg, cfg.layer_kind(i), x, mode,
+                                positions, None, None)
+        entries.append(entry)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache = {"layers": entries} if mode == "prefill" else None
+    return _logits(params, cfg, x), aux, cache
+
+
+def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
+    """Grow prefill KV entries (B, P, Kh, Dh) to (B, cache_len, Kh, Dh) with
+    zeros (new tensors, so decoding in place never writes the prefill's)."""
+    def grow(t: torch.Tensor) -> torch.Tensor:
+        if cache_len <= t.shape[1]:
+            return t
+        out = t.new_zeros((t.shape[0], cache_len) + tuple(t.shape[2:]))
+        out[:, :t.shape[1]] = t
+        return out
+
+    return {"layers": [{key: grow(t) for key, t in entry.items()}
+                       for entry in cache["layers"]]}
+
+
+# --------------------------------------------------------------------- decode
+def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
+                token: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, Dict]:
+    """token: (B, 1) int; pos: host int, shared by the batch.  Returns
+    (logits (B, 1, V), cache); the cache is updated in place."""
+    check_supported(cfg)
+    x = embed_lookup(params["embed"], token, cfg)
+    layers = cache["layers"]
+    for i, lp in enumerate(params["layers"]):
+        x, layers[i] = _layer_apply(lp, cfg, cfg.layer_kind(i), x, "decode",
+                                    None, layers[i], int(pos))
+    return _logits(params, cfg, x), cache
+
+
+def cache_seq_len(cfg: ModelConfig, cache: Dict) -> int:
+    layers = cache["layers"]
+    return int(layers[0]["k"].shape[1]) if layers else 0
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = "cuda") -> Dict:
+    """Zero cache matching :func:`decode_step`'s expectations."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return {"layers": [attn_lib.init_kv_cache(cfg, batch, seq, dtype, dev)
+                       for _ in range(cfg.n_layers)]}

@@ -1,0 +1,230 @@
+"""The port's attention kernels' plain versions against the reference's
+Pallas kernels (interpret mode) and jnp oracles, the wrappers' refusals, and
+(on a card) each CUDA kernel against its plain version.
+
+Inputs are seeded numpy arrays fed to both packages, float32 on the CPU, at
+the reference's own tolerance (``tests/test_kernels.py``: 2e-5 in float32,
+3e-2 in bfloat16).  The ``cuda``-marked tests need an NVIDIA card and
+``nvcc`` and skip without them, naming what is missing; on a machine with a
+card run them with ``python -m pytest -m cuda tests/test_torch_lm_kernels.py``
+(the reference is imported inside the CPU tests, so this file also loads
+where JAX is not installed).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_decode import ops as fd
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+# (B, S, H, Kh, D, causal, window, softcap): tests/test_kernels.py's sweep
+MHA_SWEEP = [(2, 128, 4, 2, 32, True, 0, 0.0),
+             (1, 256, 4, 4, 64, True, 64, 50.0),
+             (2, 96, 8, 2, 32, False, 0, 0.0),
+             (1, 64, 2, 1, 128, True, 32, 0.0),
+             (1, 192, 6, 3, 32, True, 0, 30.0)]
+# (B, S, H, Kh, D, pos, window): tests/test_kernels.py's decode sweep
+DECODE_SWEEP = [(2, 256, 4, 2, 32, 100, 0),
+                (1, 512, 8, 8, 64, 511, 128),
+                (2, 128, 4, 1, 32, 0, 0),
+                (1, 128, 2, 2, 128, 64, 32)]
+
+
+def _mha_inputs(b, s, h, kh, d, seed, sk=None):
+    rng = np.random.RandomState(seed)
+    sk = s if sk is None else sk
+    return (rng.randn(b, s, h, d).astype(np.float32),
+            rng.randn(b, sk, kh, d).astype(np.float32),
+            rng.randn(b, sk, kh, d).astype(np.float32))
+
+
+def _decode_inputs(b, s, h, kh, d, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, 1, h, d).astype(np.float32),
+            rng.randn(b, s, kh, d).astype(np.float32),
+            rng.randn(b, s, kh, d).astype(np.float32))
+
+
+def _t(*arrays, device="cpu", dtype=torch.float32):
+    return tuple(torch.tensor(a, device=device, dtype=dtype) for a in arrays)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,causal,win,cap", MHA_SWEEP)
+def test_mha_plain_matches_reference(b, s, h, kh, d, causal, win, cap):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ops import mha as ref_mha
+    from repro.kernels.flash_attention.ref import attention_ref
+    q, k, v = _mha_inputs(b, s, h, kh, d, seed=s + d)
+    got = fa.mha(*_t(q, k, v), causal=causal, window=win, softcap=cap)
+    pallas = ref_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, window=win, softcap=cap, block_q=64,
+                     block_k=64)
+    oracle = attention_ref(*(jnp.asarray(x).transpose(0, 2, 1, 3)
+                             for x in (q, k, v)), causal=causal, window=win,
+                           softcap=cap).transpose(0, 2, 1, 3)
+    for ref in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal,win,cap", [(True, 0, 0.0), (False, 48, 0.0),
+                                            (True, 40, 20.0)])
+def test_mha_plain_kv_len_matches_reference_kernel(causal, win, cap):
+    """The ``kv_len`` tail mask against the reference kernel's, with more
+    queries than keys so that some rows see no key at all (those come out
+    as the mean of V over every key in both)."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.kernel import flash_attention
+    b, sq, sk, h, kh, d, kv_len = 2, 192, 128, 4, 2, 32, 100
+    q, k, v = _mha_inputs(b, sq, h, kh, d, seed=7, sk=sk)
+    got = fa.mha(*_t(q, k, v), causal=causal, window=win, softcap=cap,
+                 kv_len=kv_len)
+    ref = flash_attention(*(jnp.asarray(x).transpose(0, 2, 1, 3)
+                            for x in (q, k, v)), causal=causal, window=win,
+                          softcap=cap, block_q=64, block_k=64, kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,pos,win", DECODE_SWEEP)
+def test_decode_attn_plain_matches_reference(b, s, h, kh, d, pos, win):
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode.ops import decode_attn as ref_decode_attn
+    from repro.kernels.flash_decode.ref import decode_ref
+    q, ck, cv = _decode_inputs(b, s, h, kh, d, seed=s + pos)
+    got = fd.decode_attn(*_t(q, ck, cv), pos, window=win)
+    pallas = ref_decode_attn(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+                             jnp.int32(pos), window=win, block_k=64)
+    oracle = decode_ref(jnp.asarray(q)[:, 0],
+                        jnp.asarray(ck).transpose(0, 2, 1, 3),
+                        jnp.asarray(cv).transpose(0, 2, 1, 3),
+                        jnp.int32(pos), window=win)[:, None]
+    for ref in (pallas, oracle):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (5, 0.0), (0, 20.0),
+                                        (6, 30.0)])
+def test_decode_plain_is_the_last_row_of_mha_plain(window, cap):
+    """Decoding position p against a cache holding keys 0..p gives row p of
+    full causal attention, with the same window and softcap (the model's
+    decode needs the cap, which the reference kernel lacks)."""
+    q, k, v = _t(*_mha_inputs(2, 12, 4, 2, 16, seed=5))
+    full = fa.mha_plain(q, k, v, window=window, softcap=cap)
+    for pos in (0, 7, 11):
+        row = fd.decode_attn_plain(q[:, pos:pos + 1], k, v, pos,
+                                   window=window, softcap=cap)
+        torch.testing.assert_close(row, full[:, pos:pos + 1], atol=2e-6,
+                                   rtol=2e-6)
+
+
+def test_wrappers_run_plain_on_cpu_without_a_launch():
+    q, k, v = _t(*_mha_inputs(1, 16, 4, 2, 16, seed=1))
+    qd, ck, cv = _t(*_decode_inputs(1, 16, 4, 2, 16, seed=1))
+    before = (fa.LAUNCHES, fd.LAUNCHES)
+    assert torch.equal(fa.mha(q, k, v, window=4, softcap=5.0),
+                       fa.mha_plain(q, k, v, window=4, softcap=5.0))
+    assert torch.equal(fd.decode_attn(qd, ck, cv, 9, window=3),
+                       fd.decode_attn_plain(qd, ck, cv, 9, window=3))
+    assert (fa.LAUNCHES, fd.LAUNCHES) == before
+
+
+def test_mha_wrapper_refuses_bad_inputs():
+    q, k, v = _t(*_mha_inputs(1, 16, 4, 2, 16, seed=2))
+    with pytest.raises(ValueError, match="several devices"):
+        fa.mha(q, k.to("meta"), v)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa.mha(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(TypeError, match="dtype"):
+        fa.mha(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="dtype"):
+        fa.mha(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.mha(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="differ"):
+        fa.mha(q, k, v[:, :8])
+    with pytest.raises(ValueError, match=r"\(B, S, H, D\)"):
+        fa.mha(q[0], k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 4, 2, 272)
+        fa.mha(big, big, big)
+    with pytest.raises(ValueError, match="kv_len"):
+        fa.mha(q, k, v, kv_len=17)
+
+
+def test_decode_wrapper_refuses_bad_inputs():
+    q, ck, cv = _t(*_decode_inputs(1, 16, 4, 2, 16, seed=3))
+    with pytest.raises(ValueError, match="several devices"):
+        fd.decode_attn(q, ck.to("meta"), cv, 3)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fd.decode_attn(q.to("meta"), ck.to("meta"), cv.to("meta"), 3)
+    with pytest.raises(TypeError, match="dtype"):
+        fd.decode_attn(q, ck.bfloat16(), cv.bfloat16(), 3)
+    with pytest.raises(ValueError, match="pos"):
+        fd.decode_attn(q, ck, cv, 16)
+    with pytest.raises(ValueError, match="pos"):
+        fd.decode_attn(q, ck, cv, -1)
+    with pytest.raises(ValueError, match=r"\(B, 1, H, D\)"):
+        fd.decode_attn(ck, ck, cv, 3)
+    with pytest.raises(ValueError, match="at most"):
+        wide = torch.zeros(1, 1, 18, 16)
+        fd.decode_attn(wide, ck, cv, 3)
+    with pytest.raises(ValueError, match="one"):
+        fd.decode_attn(q, ck, cv[:, :8], 3)
+
+
+@pytest.fixture
+def card():
+    """The CUDA card and nvcc, or a skip naming what is missing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
+                    "False")
+    try:
+        build.find_nvcc()
+    except RuntimeError as err:
+        pytest.skip(f"needs nvcc: {err}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d,causal,win,cap", MHA_SWEEP)
+def test_mha_kernel_matches_plain_on_card(card, b, s, h, kh, d, causal, win,
+                                          cap, dtype):
+    q, k, v = _t(*_mha_inputs(b, s, h, kh, d, seed=s + d), device=card,
+                 dtype=dtype)
+    launches = fa.LAUNCHES
+    got = fa.mha(q, k, v, causal=causal, window=win, softcap=cap)
+    again = fa.mha(q, k, v, causal=causal, window=win, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == launches + 2
+    assert torch.equal(got, again)
+    ref = fa.mha_plain(q, k, v, causal=causal, window=win, softcap=cap)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("b,s,h,kh,d,pos,win", DECODE_SWEEP)
+def test_decode_kernel_matches_plain_on_card(card, b, s, h, kh, d, pos, win,
+                                             cap, dtype):
+    q, ck, cv = _t(*_decode_inputs(b, s, h, kh, d, seed=s + pos),
+                   device=card, dtype=dtype)
+    launches = fd.LAUNCHES
+    got = fd.decode_attn(q, ck, cv, pos, window=win, softcap=cap)
+    again = fd.decode_attn(q, ck, cv, pos, window=win, softcap=cap)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == launches + 2
+    assert torch.equal(got, again)
+    ref = fd.decode_attn_plain(q, ck, cv, pos, window=win, softcap=cap)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])

@@ -37,10 +37,18 @@ def builder(k, a, z, preds):
 sc = EnelScaler(EnelTrainer(device="cpu"), (4, 36), candidate_stride=8)
 pick = sc.recommend(graph_builder=builder, next_comp=1, n_components=3,
                     elapsed=1.0, current_scaleout=8, target_runtime=5.0)[0]
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.models import init_model
+from repro_torch.serve.engine import Request, ServeEngine
+cfg = smoke_config(get_config("gemma2-2b"))
+eng = ServeEngine(cfg, init_model(cfg, device="cpu"), max_len=32,
+                  device="cpu")
+req = Request(prompt=np.arange(6) + 2, max_new_tokens=3)
+eng.serve_wave([req])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              or m.startswith("jax"))
-print(json.dumps({"pick": pick, "bad": bad}))
+print(json.dumps({"pick": pick, "tokens": req.out_tokens, "bad": bad}))
 """
 
 
@@ -52,6 +60,7 @@ def test_port_imports_no_jax_and_no_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert 4 <= got["pick"] <= 36
+    assert len(got["tokens"]) == 3
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -62,8 +71,22 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.dataflow.context import ContextEncoder
     from repro_torch.dataflow.runner import JobExperiment
     from repro_torch.dataflow.workloads import JOBS
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    cpu_params = init_model(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    calls = [lambda: EnelTrainer(),
+    calls = [lambda: init_model(cfg),
+             lambda: init_cache(cfg, 1, 8),
+             lambda: ServeEngine(cfg, cpu_params),
+             lambda: lm_params_from_numpy({"embed": np.zeros((4, 2)),
+                                           "groups": {}}, cfg),
+             lambda: lm_cache_from_numpy({"groups": {}}, cfg),
+             lambda: serve_main(["--arch", "qwen3-0.6b", "--smoke"]),
+             lambda: EnelTrainer(),
              lambda: ContextEncoder([JOBS["kmeans"]]),
              lambda: init_enel(torch.Generator()),
              lambda: enel_params_from_numpy({"attn_a": np.zeros(16)}),
