@@ -6,8 +6,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``); no card -> exit 1;
 2. build every kernel (``graph_prop_fwd``, ``graph_prop_bwd``,
-   ``flash_attention_fwd``, ``flash_decode``) with ``nvcc`` for
-   ``sm_90a``, one ``nvcc`` per source, all started together;
+   ``flash_attention_fwd``, ``flash_decode``, ``mlstm_chunk``) with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card: the forward
    at atol = rtol = 1e-5, the backward against ``graph_prop_vjp_plain`` at
    the reference's gradient tolerance (atol 1e-4, rtol 1e-3) and bit for
@@ -58,7 +58,35 @@ Phases (any failure exits non-zero; nothing is caught):
    ``scaled_dot_product_attention`` call (``library_ms``, a yardstick the
    port never calls); prefill latency, decode ms per step, tokens/s and the
    device-busy share of a prefill and of the decode loop;
-11. a ``{"kernels": [...]}`` line, then the device line last.
+11. the mLSTM kernel against its plain version on the card: ``mlstm`` on
+   ``tests/test_kernels.py``'s mLSTM sweep and a ragged last kernel chunk in
+   float32 and bfloat16, and at xlstm-350m's shapes (B = 8, S in {256,
+   768, 1024}, H = 4, D = 256, bf16; S = 768 also in float32), h and the
+   final state (C, n, m), every case launched twice, bit for bit equal;
+12. the xLSTM serving path: ``ServeEngine`` over the full xlstm-350m config
+   (24 layers: 21 mLSTM, 3 sLSTM; d 1024, 4 heads of 256, bf16, seeded
+   ``init_model`` weights, ``max_len`` = 2048) serves two waves of 8
+   requests (prompt lengths from ``np.random.RandomState(SEED)`` in [128,
+   1024], the longest 1024 in wave 0 and 768 in wave 1, since the mLSTM's
+   chunk contract needs a padded length of at most 256 or a multiple of
+   256; 64 new tokens each), each wave twice.  ``mlstm_chunk`` must launch
+   21 times per wave (per prefill, none in the decode steps) and no other
+   kernel at all; every token is in range and both runs of a wave give the
+   same tokens.  Then, teacher-forced over wave 0's 1024 tokens, the
+   logits of ``decode_step`` at positions 768..771 after a prefill of 768
+   against ``forward``'s, relative to the largest logit, in bf16 and with
+   the weights in float32: within the larger of 5e-2 / 5e-3 and twice the
+   difference between two forwards of the same tokens over 768 and 1024
+   positions (with random weights the model amplifies such rounding
+   differences over its depth); and, for the first mLSTM and the sLSTM layer
+   alone in float32, the step from the prefill state against the
+   full-sequence form within 1e-4;
+13. timings of the xLSTM path: ``mlstm_chunk`` at wave 0's prefill shape
+   beside its bound and its plain version (no PyTorch call computes the
+   chunkwise mLSTM, so no library time); prefill latency, decode ms per
+   step, tokens/s, kernels per prefill and per step and the device-busy
+   share of each;
+14. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -504,31 +532,42 @@ def padded(prompts) -> np.ndarray:
     return toks
 
 
-def run_serving(cfg, params, device, fa, fd):
-    """Phase 9: each wave served twice; launch counts from 0."""
+def serve_twice(cfg, params, device, waves, after_wave=None):
+    """Each wave served twice by one engine; both runs must give the same
+    tokens, LM_NEW in range for each request.  ``after_wave()`` runs after
+    each serve_wave call.  Returns [[(tokens, stats), (tokens, stats)],
+    ...]."""
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, device=device)
-    waves = lm_waves(cfg)
-    fa.LAUNCHES = fd.LAUNCHES = 0
     results = []
     for w, prompts in enumerate(waves):
         runs = []
         for _ in range(2):
             reqs = [Request(prompt=p, max_new_tokens=n) for p, n in prompts]
             runs.append(([r.out_tokens for r in reqs], eng.serve_wave(reqs)))
+            if after_wave is not None:
+                after_wave()
         assert runs[0][0] == runs[1][0], f"wave {w}: runs differ"
         results.append(runs)
     torch.cuda.synchronize()
-    launches = (fa.LAUNCHES, fd.LAUNCHES)
-    prefills = 2 * len(waves)
-    steps = sum(st.decode_steps for runs in results for _, st in runs)
-    assert launches == (cfg.n_layers * prefills, cfg.n_layers * steps), \
-        (launches, prefills, steps)
     for runs in results:
         for toks, st in runs:
             assert all(len(t) == LM_NEW for t in toks)
             assert all(0 <= x < cfg.vocab_size for t in toks for x in t)
             assert st.decode_steps == LM_NEW
+    return results
+
+
+def run_serving(cfg, params, device, fa, fd):
+    """Phase 9: each wave served twice; launch counts from 0."""
+    waves = lm_waves(cfg)
+    fa.LAUNCHES = fd.LAUNCHES = 0
+    results = serve_twice(cfg, params, device, waves)
+    launches = (fa.LAUNCHES, fd.LAUNCHES)
+    prefills = 2 * len(waves)
+    steps = sum(st.decode_steps for runs in results for _, st in runs)
+    assert launches == (cfg.n_layers * prefills, cfg.n_layers * steps), \
+        (launches, prefills, steps)
     return waves, results, launches, prefills, steps
 
 
@@ -546,6 +585,37 @@ def teacher_forced_err(params, cfg, toks: torch.Tensor, p: int) -> float:
         a, d = full[:, p + t].float(), dec[:, 0].float()
         errs.append(float((a - d).abs().max() / a.abs().max()))
     del full, cache
+    return max(errs)
+
+
+def forward_floor(params, cfg, toks: torch.Tensor, p: int) -> float:
+    """max over the TF_STEPS positions before p of max|forward over toks -
+    forward over toks[:, :p]| logits, relative to the largest: one function
+    of the same tokens, computed with matmuls of other shapes."""
+    from repro_torch.models import apply_model
+    full, _ = apply_model(params, cfg, {"tokens": toks})
+    part, _ = apply_model(params, cfg, {"tokens": toks[:, :p]})
+    a, b = full[:, p - TF_STEPS:p].float(), part[:, p - TF_STEPS:].float()
+    err = (a - b).abs().amax(dim=(0, 2)) / a.abs().amax(dim=(0, 2))
+    del full, part
+    return float(err.max())
+
+
+def mixer_continuation_err(layer, cfg, kind: str, u: torch.Tensor,
+                           p: int) -> float:
+    """One recurrent mixer: max over TF_STEPS steps, from the state of a
+    prefill over u[:, :p], of max|full-sequence form over u - step| at
+    positions p..p+TF_STEPS-1, relative to the largest output."""
+    from repro_torch.models import ssm
+    forward, step = {"mlstm": (ssm.mlstm_forward, ssm.mlstm_step),
+                     "slstm": (ssm.slstm_forward, ssm.slstm_step)}[kind]
+    full = forward(layer, cfg, u)
+    _, state = forward(layer, cfg, u[:, :p], return_state=True)
+    errs = []
+    for t in range(TF_STEPS):
+        y, state = step(layer, cfg, u[:, p + t:p + t + 1], state)
+        a = full[:, p + t]
+        errs.append(float((a - y[:, 0]).abs().max() / a.abs().max()))
     return max(errs)
 
 
@@ -571,6 +641,265 @@ def bound(flops, nbytes, peak):
                                        else "bytes")
 
 
+def as_float32(params):
+    """A copy of LM params with every leaf in float32."""
+    def leaf(x):
+        return {k: leaf(v) for k, v in x.items()} if isinstance(x, dict) \
+            else x.float()
+    return {k: [leaf(layer) for layer in v] if k == "layers" else leaf(v)
+            for k, v in params.items()}
+
+
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_TOP = (1024, 768)     # each wave's longest prompt: 256-multiples
+XLSTM_TF_PREFIX = 768       # teacher-forced: prefill 768 of wave 0's 1024
+# One mixer at full width in float32 (no depth to amplify anything): the
+# step from the prefill state against the full-sequence form, float32
+# summation orders only
+MIXER_TF_TOL = 1e-4
+# bf16 h: one bf16 step (2^-7 of the value) where the float32
+# results straddle a rounding boundary, plus the float32 tolerance below
+BF16_STEP = 2.0 ** -7
+# float32: the reference's 2e-4 between two chunk sizes (tests/test_kernels
+# .py:101); the kernel walks 32-row chunks, the plain version the caller's
+MLSTM_TOL = 2e-4
+# (B, S, H, D, chunk): tests/test_kernels.py's mLSTM sweep, a ragged last
+# kernel chunk, then xlstm-350m's prefill shapes
+MLSTM_SWEEP = [(2, 128, 2, 32, 32), (1, 256, 4, 64, 64), (1, 64, 1, 128, 16),
+               (2, 48, 3, 32, 16)]
+MLSTM_MODEL = [(8, s, 4, 256, 256) for s in (256, 768, 1024)]
+
+
+def mlstm_inputs(rng, b, s, h, d, dtype, device):
+    """q, k, v in ``dtype``; the log input gate and the forget gate before
+    its log-sigmoid in float32, drawn as tests/test_kernels.py draws them."""
+    q, k, v = (_randn(rng, (b, s, h, d), dtype, device) for _ in range(3))
+    i = _randn(rng, (b, s, h), torch.float32, device)
+    f = _randn(rng, (b, s, h), torch.float32, device) + 2
+    return q, k, v, i, f
+
+
+def check_mlstm_kernel(device, ml):
+    """Phase 11: the kernel against its plain version, h and the state,
+    twice bit-equal.  Returns the largest abs error of h by dtype and of
+    the state."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.RandomState(SEED + 2)
+    errs = {f32: 0.0, bf16: 0.0, "state": 0.0}
+    cases = [(c, dt) for c in MLSTM_SWEEP for dt in (f32, bf16)] + \
+        [(c, bf16) for c in MLSTM_MODEL] + [(MLSTM_MODEL[1], f32)]
+    for (b, s, h, d, chunk), dt in cases:
+        args = mlstm_inputs(rng, b, s, h, d, dt, device)
+        got, st = ml.mlstm(*args, chunk=chunk, return_state=True)
+        again, st2 = ml.mlstm(*args, chunk=chunk, return_state=True)
+        torch.cuda.synchronize()
+        what = f"mlstm {dt} B={b} S={s} H={h} D={d} chunk={chunk}"
+        assert torch.equal(got, again), f"{what}: not repeatable"
+        assert all(torch.equal(st[k], st2[k]) for k in st), \
+            f"{what}: state not repeatable"
+        ref, rst = ml.mlstm_plain(*args, chunk=chunk, return_state=True)
+        rtol = MLSTM_TOL if dt == f32 else BF16_STEP
+        err = close(got.float(), ref.float(), what, MLSTM_TOL, rtol)
+        errs[dt] = max(errs[dt], err)
+        for key in st:
+            errs["state"] = max(errs["state"], close(
+                st[key], rst[key], f"{what} state {key}", MLSTM_TOL,
+                MLSTM_TOL))
+        say(f"  {what}: h max abs err {err:.3g}, state within "
+            f"{MLSTM_TOL}, repeat bit-equal")
+    return errs
+
+
+def xlstm_waves(cfg):
+    """Two waves of LM_BATCH (prompt, LM_NEW): lengths in [128, top] from
+    ``np.random.RandomState(SEED)``, the longest set to the wave's top."""
+    rng = np.random.RandomState(SEED)
+    waves = []
+    for top in XLSTM_TOP:
+        lens = rng.randint(128, top + 1, LM_BATCH)
+        lens[np.argmax(lens)] = top
+        waves.append([(rng.randint(2, cfg.raw_vocab_size, n), LM_NEW)
+                      for n in lens])
+    return waves
+
+
+def run_xlstm_serving(cfg, params, device, ml, others):
+    """Phase 12: every count from 0; each wave (one prefill and its decode
+    steps) must launch ``mlstm_chunk`` once per mLSTM layer and no kernel
+    of ``others`` (the modules of the other kernels)."""
+    n_mlstm = sum(cfg.layer_kind(i) == "mlstm" for i in range(cfg.n_layers))
+    counts = [(m, n) for m in (ml,) + tuple(others)
+              for n in ("LAUNCHES", "LAUNCHES_BWD") if hasattr(m, n)]
+    for m, n in counts:
+        setattr(m, n, 0)
+    per_wave = []
+
+    def after_wave():
+        per_wave.append(ml.LAUNCHES - sum(per_wave))
+    results = serve_twice(cfg, params, device, xlstm_waves(cfg), after_wave)
+    assert per_wave == [n_mlstm] * len(per_wave), (per_wave, n_mlstm)
+    others_launched = sum(getattr(m, n) for m, n in counts if m is not ml)
+    assert others_launched == 0, others_launched
+    steps = sum(st.decode_steps for runs in results for _, st in runs)
+    return results, ml.LAUNCHES, len(per_wave), steps, n_mlstm
+
+
+def mlstm_work(b, s, h, d, elt=2):
+    """(FLOPs, bytes) that the chunkwise mLSTM needs at least: per token
+    and head the state's outer-product update (2 D^2) and the read-out q C
+    (2 D^2), the recurrent form's count, which no chunking lowers; q, k, v
+    and the two float32 gates read once, h written once, the float32 state
+    (C, n, m) written once."""
+    flops = 4 * b * h * s * d * d
+    nbytes = elt * 4 * b * s * h * d + 4 * 2 * b * s * h \
+        + 4 * b * h * (d * d + d + 1)
+    return flops, nbytes
+
+
+def xlstm_path(device, card, ml, others):
+    """Phases 12-13 on full-width xlstm-350m: serving with its launch
+    counts, the teacher-forced check, then timings.  Returns what the
+    ``kernels`` line reports of ``mlstm_chunk``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_model, prefill
+    bf16 = torch.bfloat16
+    n_loop = 16
+    # 12. the xLSTM serving path; only its launches count
+    xcfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    x_params = init_model(xcfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    say(f"{XLSTM_ARCH}: {xcfg.n_layers} layers, d_model {xcfg.d_model}, "
+        f"{xcfg.n_heads} heads of {xcfg.d_head}, vocab {xcfg.vocab_size}, "
+        f"{xcfg.param_dtype}; init {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    x_served, ml_launches, x_prefills, x_steps, n_mlstm = run_xlstm_serving(
+        xcfg, x_params, device, ml, others)
+    say(f"xLSTM serving path ({time.perf_counter() - t0:.1f}s): "
+        f"{x_prefills} prefills, {x_steps} decode steps; mlstm_chunk "
+        f"launched {ml_launches} times (= {n_mlstm} x {x_prefills}, none in "
+        f"decode), no other kernel; both runs of each wave gave the same "
+        f"tokens")
+    x_waves = xlstm_waves(xcfg)
+    x_toks0 = padded(x_waves[0])
+    assert x_toks0.shape[1] == XLSTM_TOP[0], x_toks0.shape
+    xt = torch.tensor(x_toks0, device=device)
+    # Teacher-forced.  With seeded random weights this model amplifies
+    # rounding differences over its 24 layers, so two forwards of the same
+    # tokens whose matmuls differ only in shape (forward_floor) already
+    # differ by more than TF_TOL; decode vs forward
+    # is held to the larger of TF_TOL and twice that floor (it compounds
+    # two such changes: the prefill's shapes and the per-token step), and
+    # each mixer alone, where nothing amplifies, to MIXER_TF_TOL.
+    x_params32 = as_float32(x_params)
+    xcfg32 = dataclasses.replace(xcfg, dtype="float32", param_dtype="float32")
+    x_tf, x_floor = {}, {}
+    for dt, prm, c in ((torch.bfloat16, x_params, xcfg),
+                       (torch.float32, x_params32, xcfg32)):
+        x_tf[dt] = teacher_forced_err(prm, c, xt, XLSTM_TF_PREFIX)
+        x_floor[dt] = forward_floor(prm, c, xt, XLSTM_TF_PREFIX)
+    urng = np.random.RandomState(SEED + 4)
+    u = _randn(urng, (LM_BATCH, x_toks0.shape[1], xcfg.d_model),
+               torch.float32, device)
+    x_mixer = {kind: mixer_continuation_err(
+        x_params32["layers"][i]["mixer"], xcfg32, kind, u, XLSTM_TF_PREFIX)
+        for kind, i in (("mlstm", 0), ("slstm", xcfg.slstm_index))}
+    del x_params32, u
+    torch.cuda.empty_cache()
+    say(f"xLSTM forward over {XLSTM_TF_PREFIX} vs over {xt.shape[1]} "
+        f"tokens at positions {XLSTM_TF_PREFIX - TF_STEPS}.."
+        f"{XLSTM_TF_PREFIX - 1}: max rel diff bf16 "
+        f"{x_floor[torch.bfloat16]:.3g}, float32 weights "
+        f"{x_floor[torch.float32]:.3g}")
+    say(f"xLSTM teacher-forced decode_step vs forward logits at positions "
+        f"{XLSTM_TF_PREFIX}..{XLSTM_TF_PREFIX + TF_STEPS - 1} (B = "
+        f"{LM_BATCH}, forward over {x_toks0.shape[1]}): max rel err bf16 "
+        f"{x_tf[torch.bfloat16]:.3g}, float32 weights "
+        f"{x_tf[torch.float32]:.3g} (tol max(TF_TOL, 2 x floor)); one "
+        f"mixer in float32: mLSTM {x_mixer['mlstm']:.3g}, sLSTM "
+        f"{x_mixer['slstm']:.3g} (tol {MIXER_TF_TOL})")
+    for dt, err in x_tf.items():
+        assert err < max(TF_TOL[dt], 2 * x_floor[dt]), \
+            (dt, err, x_floor[dt])
+    for kind, err in x_mixer.items():
+        assert err < MIXER_TF_TOL, (kind, err)
+
+    # 13. timings of the xLSTM path
+    xb, px, xh, xd = LM_BATCH, x_toks0.shape[1], xcfg.n_heads, xcfg.d_head
+    trng = np.random.RandomState(SEED + 3)
+    q, k, v, gi, gf = mlstm_inputs(trng, xb, px, xh, xd, bf16, device)
+    out = torch.empty_like(q)
+    st = (torch.empty((xb, xh, xd, xd), dtype=torch.float32, device=device),
+          torch.empty((xb, xh, xd), dtype=torch.float32, device=device),
+          torch.empty((xb, xh), dtype=torch.float32, device=device))
+    ml_launch = lambda: ml._launch(q, k, v, gi, gf, out, *st)
+    ml_ms = median_ms(ml_launch, burst=5, reps=10)
+    ml_plain_ms = median_ms(lambda: ml.mlstm_plain(
+        q, k, v, gi, gf, chunk=256, return_state=True), burst=2, reps=5)
+    ml_ms2 = median_ms(ml_launch, burst=5, reps=10)
+    fl, nb = mlstm_work(xb, px, xh, xd)
+    ml_bound, ml_by = bound(fl, nb, BF16_FLOPS)
+    say(f"mlstm_chunk at B={xb} S={px} H={xh} D={xd} bf16 on {card}: kernel "
+        f"{ml_ms:.4f} ms (again {ml_ms2:.4f}), plain {ml_plain_ms:.4f} ms, "
+        f"bound {ml_bound:.5f} ms by {ml_by} ({fl / 1e9:.2f} GFLOP, "
+        f"{nb / 1e6:.1f} MB), no library call")
+    del q, k, v, gi, gf, out, st
+    x_first = [runs[0][1] for runs in x_served]
+    for w, stt in enumerate(x_first):
+        say(f"xLSTM wave {w}: P={padded(x_waves[w]).shape[1]}, prefill "
+            f"{stt.prefill_s * 1e3:.1f} ms, decode {stt.decode_steps} steps "
+            f"{stt.decode_s * 1e3 / stt.decode_steps:.2f} ms/step, "
+            f"{stt.tokens_out} tokens at {stt.decode_tok_s:.1f} tok/s")
+    xpf = lambda: (prefill(x_params, xcfg, {"tokens": xt},
+                           cache_len=LM_MAX_LEN), torch.cuda.synchronize())
+    xpf_wall = median_wall_ms(xpf, reps=3, warmup=1)
+    xpf_busy, xpf_per, xpf_kernels = profile_device(
+        xpf, reps=1, names=("mlstm_kernel",))
+    _, x_cache = prefill(x_params, xcfg, {"tokens": xt}, cache_len=LM_MAX_LEN)
+
+    def x_decode_loop():
+        tok = xt[:, -1:]
+        for i in range(n_loop):
+            logits, _ = decode_step(x_params, xcfg, x_cache, tok, px + i)
+            tok = logits[:, -1:].argmax(dim=-1)
+            tok.tolist()                   # the engine's host fetch
+    x_dec_wall = median_wall_ms(x_decode_loop, reps=5, warmup=1) / n_loop
+    x_dec_busy, _, x_dec_kernels = profile_device(x_decode_loop, reps=2,
+                                                  names=("mlstm_kernel",))
+    x_dec_busy, x_dec_kernels = x_dec_busy / n_loop, x_dec_kernels / n_loop
+    say(f"xLSTM prefill of wave 0 (B={xb}, P={px}): {xpf_wall:.2f} ms wall, "
+        f"device busy {xpf_busy:.2f} ms (mlstm_chunk "
+        f"{xpf_per['mlstm_kernel']:.2f} ms), idle share "
+        f"{1 - xpf_busy / xpf_wall:.3f}, {xpf_kernels:.0f} kernels")
+    say(f"xLSTM decode step (B={xb}): {x_dec_wall:.3f} ms wall, device busy "
+        f"{x_dec_busy:.3f} ms, idle share {1 - x_dec_busy / x_dec_wall:.3f}, "
+        f"{x_dec_kernels:.0f} kernels per step")
+    del x_cache, x_params
+    say(json.dumps({"card": card, "serving_xlstm": {
+        "arch": XLSTM_ARCH, "batch": LM_BATCH, "new_tokens": LM_NEW,
+        "max_len": LM_MAX_LEN,
+        "waves": [{"P": int(padded(x_waves[w]).shape[1]),
+                   "prefill_ms": stt.prefill_s * 1e3,
+                   "decode_ms_per_step": stt.decode_s * 1e3 / stt.decode_steps,
+                   "decode_tok_s": stt.decode_tok_s}
+                  for w, stt in enumerate(x_first)],
+        "teacher_forced_rel_err": {"bf16": x_tf[torch.bfloat16],
+                                   "float32": x_tf[torch.float32]},
+        "forward_floor_rel": {"bf16": x_floor[torch.bfloat16],
+                              "float32": x_floor[torch.float32]},
+        "mixer_teacher_forced_rel_err": x_mixer,
+        "prefill": {"wall_ms": xpf_wall, "busy_ms": xpf_busy,
+                    "mlstm_chunk_ms": xpf_per["mlstm_kernel"],
+                    "kernels": xpf_kernels},
+        "decode_step": {"wall_ms": x_dec_wall, "busy_ms": x_dec_busy,
+                        "kernels": x_dec_kernels}}}))
+    return {"launches": ml_launches, "ms": ml_ms, "plain_ms": ml_plain_ms,
+            "bound_ms": ml_bound, "bound_by": ml_by,
+            "shape": {"B": xb, "S": px, "H": xh, "D": xd,
+                      "dtype": "bfloat16"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -593,16 +922,18 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.graph_prop import ops
+    from repro_torch.kernels.mlstm_chunk import ops as ml
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(fn) for fn in (ops._kernel_fn,
                                              ops._bwd_kernel_fn,
-                                             fa._kernel_fn, fd._kernel_fn)]
+                                             fa._kernel_fn, fd._kernel_fn,
+                                             ml._kernel_fn)]
         for fut in builds:
             fut.result()
     say(f"build: {time.perf_counter() - t0:.2f}s wall")
     for kname in ("graph_prop_fwd", "graph_prop_bwd", "flash_attention_fwd",
-                  "flash_decode"):
+                  "flash_decode", "mlstm_chunk"):
         info = build.BUILDS[kname]
         say(f"build {kname}: nvcc {info.seconds:.2f}s, "
             f"compiled={info.compiled}")
@@ -860,11 +1191,7 @@ def main() -> int:
                            device=device)
     tf_err = {torch.bfloat16: teacher_forced_err(lm_params, cfg, tf_toks, p0)}
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    params32 = {k: ([{n: ({m: t.float() for m, t in part.items()}
-                          if isinstance(part, dict) else part.float())
-                      for n, part in layer.items()} for layer in v]
-                    if k == "layers" else v.float())
-                for k, v in lm_params.items()}
+    params32 = as_float32(lm_params)
     tf_err[torch.float32] = teacher_forced_err(params32, cfg32, tf_toks, p0)
     del params32
     torch.cuda.empty_cache()
@@ -983,8 +1310,22 @@ def main() -> int:
         "decode_step": {"wall_ms": dec_wall, "busy_ms": dec_busy,
                         "flash_decode_ms": dec_fd,
                         "kernels": dec_kernels}}}))
+    del lm_params
+    torch.cuda.empty_cache()
 
-    # 11. results
+    # 11. the mLSTM kernel vs plain
+    t0 = time.perf_counter()
+    ml_errs = check_mlstm_kernel(device, ml)
+    say(f"mLSTM kernel vs plain ({time.perf_counter() - t0:.1f}s): h max "
+        f"abs err f32 {ml_errs[torch.float32]:.3g} (tol {MLSTM_TOL}), bf16 "
+        f"{ml_errs[torch.bfloat16]:.3g} (atol {MLSTM_TOL}, rtol "
+        f"{BF16_STEP:.3g}); state {ml_errs['state']:.3g} (tol {MLSTM_TOL}); "
+        f"every case bit-equal twice")
+
+    # 12-13. the xLSTM serving path (only its launches count), timings
+    xl = xlstm_path(device, card, ml, (ops, fa, fd))
+
+    # 14. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
@@ -1032,6 +1373,18 @@ def main() -> int:
         "shape": {"B": b, "H": h, "Kh": kh, "D": d, "cache": LM_MAX_LEN,
                   "pos": pos_main, "dtype": "bfloat16"},
         "at_pos_end": fd_times[LM_MAX_LEN - 1],
+    }, {
+        "name": "mlstm_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:69",
+        "launches": xl["launches"],
+        "launches_by_path": {"serving_xlstm": xl["launches"]},
+        "max_abs_err": max(ml_errs[torch.float32], ml_errs[torch.bfloat16]),
+        "max_abs_err_f32": ml_errs[torch.float32],
+        "max_abs_err_state": ml_errs["state"],
+        "ms": xl["ms"], "plain_ms": xl["plain_ms"],
+        "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
+        "library_ms": None, "shape": xl["shape"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

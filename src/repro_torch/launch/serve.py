@@ -1,6 +1,7 @@
 """Serving launcher: batched request waves against a (reduced) model.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --smoke --device cpu
 

@@ -1,0 +1,185 @@
+"""Recurrent mixers of xLSTM: mLSTM (matrix memory) and sLSTM.
+
+Counterpart of the mLSTM and sLSTM parts of ``repro.models.ssm``.  Each
+mixer has a full-sequence form (train / prefill) and a one-token decode
+form carrying an explicit state dict.  The mLSTM's full-sequence form is
+the hand-written kernel's work: :func:`mlstm_forward` goes through
+:func:`repro_torch.kernels.mlstm_chunk.ops.mlstm`, which launches the CUDA
+kernel on CUDA tensors and runs its plain version (the reference's
+``mlstm_chunk_scan``, chunk 256) on CPU tensors.  The sLSTM has no kernel
+in either package: its full-sequence form is a Python loop over time, as
+the reference's ``lax.scan``.  The Mamba mixer is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mlstm_chunk.ops import M_INIT, log_sigmoid, mlstm
+from repro_torch.models.layers import DTYPES, dense_init
+
+CHUNK = 256             # the reference's chunk (repro/models/ssm.py:167)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x)."""
+    return x * torch.sigmoid(x)
+
+
+# ======================================================================= mLSTM
+def init_mlstm(gen, cfg: ModelConfig, device: torch.device) -> Dict:
+    dt = DTYPES[cfg.param_dtype]
+    d, h = cfg.d_model, cfg.n_heads
+    hid = h * cfg.d_head
+    f32 = torch.float32
+    return {
+        "wq": dense_init(gen, d, hid, dt, device),
+        "wk": dense_init(gen, d, hid, dt, device),
+        "wv": dense_init(gen, d, hid, dt, device),
+        "w_gate": dense_init(gen, d, d, dt, device),
+        "w_i": dense_init(gen, d, h, f32, device),
+        "b_i": torch.zeros(h, dtype=f32, device=device),
+        "w_f": dense_init(gen, d, h, f32, device),
+        "b_f": torch.full((h,), 3.0, dtype=f32, device=device),  # open gates
+        "w_out": dense_init(gen, hid, d, dt, device),
+    }
+
+
+def _mlstm_proj(p: Dict, cfg: ModelConfig, u: torch.Tensor):
+    """q, unscaled k, v (B, S, H, Dh) in u's dtype; the log input gate i and
+    the forget gate f before its log-sigmoid, (B, S, H) float32 (the gate
+    projections run in float32 when ``ssm_io_f32``)."""
+    b, s, _ = u.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    q = (u @ p["wq"]).reshape(b, s, h, dh)
+    k = (u @ p["wk"]).reshape(b, s, h, dh)
+    v = (u @ p["wv"]).reshape(b, s, h, dh)
+    gdt = torch.float32 if cfg.ssm_io_f32 else u.dtype
+    ug = u.to(gdt)
+    i = (ug @ p["w_i"].to(gdt)).float() + p["b_i"]
+    f = (ug @ p["w_f"].to(gdt)).float() + p["b_f"]
+    return q, k, v, i, f
+
+
+def _gate_out(p: Dict, u: torch.Tensor, h_out: torch.Tensor) -> torch.Tensor:
+    """h (B, S, H, Dh) -> silu-gated, projected (B, S, d)."""
+    gate = silu(u @ p["w_gate"])
+    return (h_out.reshape(*u.shape[:2], -1) * gate) @ p["w_out"]
+
+
+def mlstm_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
+                  return_state: bool = False):
+    """Mixer body (u is already normed), u: (B, S, d).  S must be at most
+    256 or a multiple of 256 (the reference's chunk contract)."""
+    q, k, v, i, f = _mlstm_proj(p, cfg, u)
+    h_out, state = mlstm(q, k, v, i, f, chunk=CHUNK, return_state=True)
+    out = _gate_out(p, u, h_out)
+    return (out, state) if return_state else out
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> Dict:
+    h, dh = cfg.n_heads, cfg.d_head
+    f32 = torch.float32
+    return {"C": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
+            "n": torch.zeros((batch, h, dh), dtype=f32, device=device),
+            "m": torch.full((batch, h), M_INIT, dtype=f32, device=device)}
+
+
+def mlstm_step(p: Dict, cfg: ModelConfig, u: torch.Tensor,
+               state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Single-token recurrence, u: (B, 1, d) -> (B, 1, d), new state."""
+    q, k, v, i, f = _mlstm_proj(p, cfg, u)
+    k = k / math.sqrt(cfg.d_head)
+    q0, k0, v0 = (t[:, 0].float() for t in (q, k, v))        # (B, H, Dh)
+    i0, lf0 = i[:, 0], log_sigmoid(f[:, 0])                  # (B, H)
+    m_new = torch.maximum(lf0 + state["m"], i0)
+    fg = torch.exp(lf0 + state["m"] - m_new)
+    ig = torch.exp(i0 - m_new)
+    C = fg[:, :, None, None] * state["C"] + \
+        ig[:, :, None, None] * (k0[..., :, None] * v0[..., None, :])
+    n = fg[:, :, None] * state["n"] + ig[:, :, None] * k0
+    num = torch.einsum("bhd,bhde->bhe", q0, C)
+    den = torch.einsum("bhd,bhd->bh", q0, n)
+    h_out = (num / torch.clamp_min(den.abs(), 1.0)[..., None]).to(u.dtype)
+    return _gate_out(p, u, h_out), {"C": C, "n": n, "m": m_new}
+
+
+# ======================================================================= sLSTM
+def init_slstm(gen, cfg: ModelConfig, device: torch.device) -> Dict:
+    dt = DTYPES[cfg.param_dtype]
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    hid = h * dh
+    f32 = torch.float32
+    w = torch.randn(d, 4 * hid, generator=gen, dtype=f32,
+                    device=device) / math.sqrt(d)
+    r = torch.randn(4, h, dh, dh, generator=gen, dtype=f32,
+                    device=device) / math.sqrt(dh)
+    b = torch.zeros(4 * hid, dtype=f32, device=device)
+    b[2 * hid:3 * hid] = 3.0                                 # forget gates
+    return {"w": w, "r": r, "b": b,
+            "w_out": dense_init(gen, hid, d, dt, device)}
+
+
+def _slstm_cell(p: Dict, cfg: ModelConfig, xw_t: torch.Tensor,
+                carry: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """One timestep.  xw_t: (B, 4 * hid) float32 input projection; carry
+    (h, c, n, m), each (B, H, Dh) float32."""
+    h_, c_, n_, m_ = carry
+    hh, dh = cfg.n_heads, cfg.d_head
+    rec = torch.einsum("bhd,ghde->bghe", h_, p["r"])         # (B, 4, H, Dh)
+    pre = xw_t.reshape(-1, 4, hh, dh) + rec + p["b"].reshape(4, hh, dh)
+    z = torch.tanh(pre[:, 0])
+    o = torch.sigmoid(pre[:, 3])
+    lf = log_sigmoid(pre[:, 2])
+    pi = pre[:, 1]
+    m_new = torch.maximum(lf + m_, pi)
+    ig = torch.exp(pi - m_new)
+    fg = torch.exp(lf + m_ - m_new)
+    c_new = fg * c_ + ig * z
+    n_new = fg * n_ + ig
+    h_new = o * c_new / torch.clamp_min(n_new, 1.0)
+    return h_new, c_new, n_new, m_new
+
+
+def slstm_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
+                  return_state: bool = False):
+    """u: (B, S, d); a strictly sequential loop over time (one cell per
+    token, each a handful of small kernels: no kernel fuses it)."""
+    b, s, _ = u.shape
+    state = slstm_init_state(cfg, b, u.device)
+    xdt = torch.float32 if cfg.ssm_io_f32 else u.dtype
+    xw = u.to(xdt) @ p["w"].to(xdt)                          # (B, S, 4 hid)
+    carry = (state["h"], state["c"], state["n"], state["m"])
+    hs = []
+    for t in range(s):
+        carry = _slstm_cell(p, cfg, xw[:, t].float(), carry)
+        hs.append(carry[0])
+    h_seq = torch.stack(hs, dim=1).reshape(b, s, -1).to(u.dtype)
+    out = h_seq @ p["w_out"]
+    if return_state:
+        return out, dict(zip(("h", "c", "n", "m"), carry))
+    return out
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> Dict:
+    shape = (batch, cfg.n_heads, cfg.d_head)
+    f32 = torch.float32
+    return {"h": torch.zeros(shape, dtype=f32, device=device),
+            "c": torch.zeros(shape, dtype=f32, device=device),
+            "n": torch.zeros(shape, dtype=f32, device=device),
+            "m": torch.full(shape, M_INIT, dtype=f32, device=device)}
+
+
+def slstm_step(p: Dict, cfg: ModelConfig, u: torch.Tensor,
+               state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """u: (B, 1, d) -> (B, 1, d), new state."""
+    xw = u[:, 0].float() @ p["w"].float()
+    carry = _slstm_cell(p, cfg, xw,
+                        (state["h"], state["c"], state["n"], state["m"]))
+    out = (carry[0].reshape(u.shape[0], -1).to(u.dtype) @ p["w_out"])[:, None]
+    return out, dict(zip(("h", "c", "n", "m"), carry))

@@ -1,32 +1,37 @@
-"""Model assembly for the dense attention LMs: a flat list of layers.
+"""Model assembly: a flat list of layers.
 
 Counterpart of ``repro.models.transformer``.  The reference stacks its
 layers into groups of the config's layer period and scans over them; here
-``params["layers"]`` is a plain list with one dict per layer (``ln1``,
-``attn``, ``ln2``, ``ffn``) walked by a Python loop, and a cache is
-``{"layers": [{"k", "v"}, ...]}`` with one (B, S, Kh, Dh) pair per layer.
-Two full-sequence modes share one code path:
+``params["layers"]`` is a plain list with one dict per layer walked by a
+Python loop: ``ln1`` and the mixer (``attn`` for attention layers,
+``mixer`` for mLSTM and sLSTM layers), then ``ln2`` and ``ffn`` unless the
+layer has no FFN (xLSTM).  A cache is ``{"layers": [entry, ...]}``: an
+attention layer's entry is its (B, S, Kh, Dh) ``k``/``v`` pair, an mLSTM's
+its state ``{C, n, m}``, an sLSTM's ``{h, c, n, m}``.  Two full-sequence
+modes share one code path:
 
   train    full-sequence forward, no cache
-  prefill  full-sequence forward, emits the KV cache (padded to cache_len)
+  prefill  full-sequence forward, emits the cache (KV padded to cache_len)
 
 and :func:`decode_step` runs one token at a host int position ``pos``,
-writing its K/V into the cache in place.
+writing its K/V into the cache in place (a recurrent layer's entry is
+replaced by its new state).
 
 Ported so far: attention mixers (``attn``, ``attn_local``) with a dense
-FFN, for the ``dense`` family.  Mamba, mLSTM and sLSTM mixers, MoE FFNs and
-the audio and vlm families raise ``NotImplementedError`` naming their
-ROADMAP item.
+FFN, for the ``dense`` family, and the mLSTM and sLSTM mixers of the
+``ssm`` family (xLSTM).  Mamba mixers, MoE FFNs and the audio and vlm
+families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
                                        init_ffn, norm_init, rms_norm,
                                        unembed_logits)
@@ -34,9 +39,6 @@ from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
 _NOT_PORTED = {
     "mamba": "ROADMAP.md queue 1 item 12, mamba_scan through jamba's mamba "
              "layers (queue 2 item 5)",
-    "mlstm": "ROADMAP.md queue 1 item 12, xlstm-350m serving with "
-             "mlstm_chunk (queue 2 item 6)",
-    "slstm": "ROADMAP.md queue 1 item 12, xlstm-350m serving",
     "moe": "ROADMAP.md queue 1 item 12, the MoE FFN (models/moe.py)",
     "moe+dense": "ROADMAP.md queue 1 item 12, the MoE FFN (models/moe.py)",
     "audio": "ROADMAP.md queue 1 item 12, the audio family (whisper "
@@ -74,24 +76,59 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                        dev)
-    params["layers"] = [{"ln1": norm_init(cfg.d_model, dev),
-                         "attn": attn_lib.init_attention(gen, cfg, dev),
-                         "ln2": norm_init(cfg.d_model, dev),
-                         "ffn": init_ffn(gen, cfg, cfg.d_ff, dev)}
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [_init_layer(gen, cfg, cfg.layer_kind(i),
+                                    cfg.ffn_kind(i), dev)
+                        for i in range(cfg.n_layers)]
     return params
 
 
+class _Recurrent(NamedTuple):
+    """A recurrent mixer's functions (``models/ssm.py``)."""
+    init: Callable
+    forward: Callable          # full sequence, optionally with its state
+    step: Callable             # one token from a state
+    init_state: Callable
+
+
+_RECURRENT = {
+    "mlstm": _Recurrent(ssm_lib.init_mlstm, ssm_lib.mlstm_forward,
+                        ssm_lib.mlstm_step, ssm_lib.mlstm_init_state),
+    "slstm": _Recurrent(ssm_lib.init_slstm, ssm_lib.slstm_forward,
+                        ssm_lib.slstm_step, ssm_lib.slstm_init_state)}
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, fkind: str,
+                dev: torch.device) -> Dict:
+    p: Dict = {"ln1": norm_init(cfg.d_model, dev)}
+    if kind in _RECURRENT:
+        p["mixer"] = _RECURRENT[kind].init(gen, cfg, dev)
+    else:
+        p["attn"] = attn_lib.init_attention(gen, cfg, dev)
+    if fkind != "none":
+        p["ln2"] = norm_init(cfg.d_model, dev)
+        p["ffn"] = init_ffn(gen, cfg, cfg.d_ff, dev)
+    return p
+
+
 # --------------------------------------------------------------------- layers
-def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                 mode: str, positions: Optional[torch.Tensor],
-                 cache: Optional[Dict], pos: Optional[int]
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """One block: attention then the dense FFN, each pre-normed and added to
-    the residual.  Returns (x, cache entry)."""
+def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
+                 x: torch.Tensor, mode: str,
+                 positions: Optional[torch.Tensor], cache: Optional[Dict],
+                 pos: Optional[int]) -> Tuple[torch.Tensor, Dict]:
+    """One block: the mixer, then the dense FFN unless ``fkind`` is
+    "none", each pre-normed and added to the residual.  Returns (x, cache
+    entry)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     entry: Dict = {}
-    if mode == "decode":
+    if kind in _RECURRENT:
+        mixer = _RECURRENT[kind]
+        if mode == "decode":
+            y, entry = mixer.step(lp["mixer"], cfg, h, cache)
+        elif mode == "prefill":
+            y, entry = mixer.forward(lp["mixer"], cfg, h, return_state=True)
+        else:
+            y = mixer.forward(lp["mixer"], cfg, h)
+    elif mode == "decode":
         y, entry = attn_lib.decode_attention(lp["attn"], cfg, h, cache, pos,
                                              kind)
     elif mode == "prefill":
@@ -100,6 +137,8 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
     else:
         y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind)
     x = x + y
+    if fkind == "none":
+        return x, entry
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + ffn(lp["ffn"], cfg, h), entry
 
@@ -122,8 +161,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries: List[Dict] = []
     for i, lp in enumerate(params["layers"]):
-        x, entry = _layer_apply(lp, cfg, cfg.layer_kind(i), x, mode,
-                                positions, None, None)
+        x, entry = _layer_apply(lp, cfg, cfg.layer_kind(i), cfg.ffn_kind(i),
+                                x, mode, positions, None, None)
         entries.append(entry)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {"layers": entries} if mode == "prefill" else None
@@ -132,7 +171,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
 
 def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
     """Grow prefill KV entries (B, P, Kh, Dh) to (B, cache_len, Kh, Dh) with
-    zeros (new tensors, so decoding in place never writes the prefill's)."""
+    zeros (new tensors, so decoding in place never writes the prefill's).
+    Recurrent states have no sequence axis and pass unchanged."""
     def grow(t: torch.Tensor) -> torch.Tensor:
         if cache_len <= t.shape[1]:
             return t
@@ -140,7 +180,8 @@ def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
         out[:, :t.shape[1]] = t
         return out
 
-    return {"layers": [{key: grow(t) for key, t in entry.items()}
+    return {"layers": [{key: grow(t) if key in ("k", "v") else t
+                        for key, t in entry.items()}
                        for entry in cache["layers"]]}
 
 
@@ -154,21 +195,32 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     x = embed_lookup(params["embed"], token, cfg)
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
-        x, layers[i] = _layer_apply(lp, cfg, cfg.layer_kind(i), x, "decode",
-                                    None, layers[i], int(pos))
+        x, layers[i] = _layer_apply(lp, cfg, cfg.layer_kind(i),
+                                    cfg.ffn_kind(i), x, "decode", None,
+                                    layers[i], int(pos))
     return _logits(params, cfg, x), cache
 
 
 def cache_seq_len(cfg: ModelConfig, cache: Dict) -> int:
-    layers = cache["layers"]
-    return int(layers[0]["k"].shape[1]) if layers else 0
+    """The KV cache's length; 0 for a model with no attention layer."""
+    for entry in cache["layers"]:
+        if "k" in entry:
+            return int(entry["k"].shape[1])
+    return 0
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = "cuda") -> Dict:
-    """Zero cache matching :func:`decode_step`'s expectations."""
+    """Zero cache matching :func:`decode_step`'s expectations (recurrent
+    states are float32 whatever ``dtype``, as in the reference)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return {"layers": [attn_lib.init_kv_cache(cfg, batch, seq, dtype, dev)
-                       for _ in range(cfg.n_layers)]}
+
+    def entry(kind: str) -> Dict:
+        if kind in _RECURRENT:
+            return _RECURRENT[kind].init_state(cfg, batch, dev)
+        return attn_lib.init_kv_cache(cfg, batch, seq, dtype, dev)
+
+    return {"layers": [entry(cfg.layer_kind(i))
+                       for i in range(cfg.n_layers)]}

@@ -1,8 +1,12 @@
 """The port's LM serving path against the JAX reference, at smoke size in
 float32 on the CPU: configs, layers, prefill logits and caches, chained
 decode steps and ``ServeEngine`` waves, with the reference's weights carried
-over by ``lm_params_from_numpy``.  Attention runs through the kernels'
-plain versions here (the wrappers take them for CPU tensors)."""
+over by ``lm_params_from_numpy``.  Attention and the mLSTM run through the
+kernels' plain versions here (the wrappers take them for CPU tensors).
+xlstm-350m's states and logits are held at 2e-4, the reference's tolerance
+between two chunkwise forms of the mLSTM (``tests/test_kernels.py:101``):
+its 16 recurrent layers carry each layer's summation-order differences
+into the next."""
 import dataclasses
 
 import jax
@@ -24,10 +28,11 @@ from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.models import (apply_model, decode_step, init_cache,
                                 init_model, param_count, prefill)
 from repro_torch.models import layers
-from repro_torch.models.transformer import cache_seq_len
+from repro_torch.models.transformer import cache_seq_len, pad_cache_to
 from repro_torch.serve.engine import Request, ServeEngine
 
 TOL = 1e-5
+SSM_TOL = 2e-4
 
 
 def _np_tree(tree):
@@ -94,7 +99,7 @@ def test_layers_match_reference(arch):
 
 
 @pytest.fixture(scope="module", params=["qwen3-0.6b", "gemma2-2b",
-                                        "gemma2-2b-window"])
+                                        "gemma2-2b-window", "xlstm-350m"])
 def pair(request):
     """(cfg, port params, reference cfg, reference params) for one arch."""
     cfg = _cfg(request.param)
@@ -104,8 +109,15 @@ def pair(request):
     return cfg, params, rcfg, rparams
 
 
+def _tol(cfg):
+    return TOL if cfg.has_attention() else SSM_TOL
+
+
 def test_prefill_and_decode_match_reference(pair):
+    """Prefill logits and every layer's cache entry (K/V, or the mLSTM's
+    C, n, m and the sLSTM's h, c, n, m), then chained decode steps."""
     cfg, params, rcfg, rparams = pair
+    tol = _tol(cfg)
     b, p, n_new, cache_len = 2, 11, 4, 20
     toks = np.random.RandomState(1).randint(0, cfg.raw_vocab_size,
                                             (b, p + n_new))
@@ -114,17 +126,21 @@ def test_prefill_and_decode_match_reference(pair):
     rlogits, rcache = ref_prefill(rparams, rcfg,
                                   {"tokens": jnp.asarray(toks[:, :p])},
                                   cache_len=cache_len)
-    np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits), atol=TOL,
-                               rtol=TOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits), atol=tol,
+                               rtol=tol)
     ref_layers_cache = lm_cache_from_numpy(_np_tree(rcache), cfg, "cpu")
     assert len(cache["layers"]) == cfg.n_layers
-    assert cache_seq_len(cfg, cache) == cache_len
-    for got, ref in zip(cache["layers"], ref_layers_cache["layers"]):
-        for key in ("k", "v"):
-            assert got[key].shape == (b, cache_len, cfg.n_kv_heads,
-                                      cfg.d_head)
+    assert cache_seq_len(cfg, cache) == \
+        (cache_len if cfg.has_attention() else 0)
+    entry_keys = {"attn": {"k", "v"}, "attn_local": {"k", "v"},
+                  "mlstm": {"C", "n", "m"}, "slstm": {"h", "c", "n", "m"}}
+    for i, (got, ref) in enumerate(zip(cache["layers"],
+                                       ref_layers_cache["layers"])):
+        assert set(got) == set(ref) == entry_keys[cfg.layer_kind(i)]
+        for key in got:
+            assert got[key].shape == ref[key].shape
             np.testing.assert_allclose(got[key].numpy(), ref[key].numpy(),
-                                       atol=TOL, rtol=TOL)
+                                       atol=tol, rtol=tol)
     for t in range(n_new):
         tok = toks[:, p + t:p + t + 1]
         logits, cache = decode_step(params, cfg, cache, torch.tensor(tok),
@@ -132,7 +148,7 @@ def test_prefill_and_decode_match_reference(pair):
         rlogits, rcache = ref_decode_step(rparams, rcfg, rcache,
                                           jnp.asarray(tok), jnp.int32(p + t))
         np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits),
-                                   atol=TOL, rtol=TOL)
+                                   atol=tol, rtol=tol)
 
 
 def test_decode_from_reference_cache(pair):
@@ -146,8 +162,8 @@ def test_decode_from_reference_cache(pair):
     logits, _ = decode_step(params, cfg, cache, torch.tensor(toks[:, 8:]), 8)
     rlogits, _ = ref_decode_step(rparams, rcfg, rcache,
                                  jnp.asarray(toks[:, 8:]), jnp.int32(8))
-    np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits), atol=TOL,
-                               rtol=TOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(rlogits),
+                               atol=_tol(cfg), rtol=_tol(cfg))
 
 
 def test_serve_wave_matches_reference_tokens(pair):
@@ -195,16 +211,17 @@ def test_serve_engine_refuses_params_elsewhere():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "gemma3-27b",
-                                  "qwen2.5-14b"])
+                                  "qwen2.5-14b", "xlstm-350m"])
 def test_param_count_matches_reference(arch):
     assert param_count(get_config(arch)) == ref_param_count(
         ref_get_config(arch))
-    if arch == "qwen3-0.6b":
-        assert param_count(get_config(arch)) == 596_049_920
+    published = {"qwen3-0.6b": 596_049_920, "xlstm-350m": 232_207_528}
+    if arch in published:
+        assert param_count(get_config(arch)) == published[arch]
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b-window",
-                                  "gemma3-27b", "qwen2.5-14b"])
+                                  "gemma3-27b", "qwen2.5-14b", "xlstm-350m"])
 def test_prefill_decode_matches_forward(arch):
     """Port only: teacher-forced decode steps reproduce the full forward's
     logits (the reference's invariant, ``tests/test_cache_consistency.py``,
@@ -224,9 +241,47 @@ def test_prefill_decode_matches_forward(arch):
         assert np.max(np.abs(a - d)) / (np.max(np.abs(a)) + 1e-9) < 5e-3
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-350m",
-                                  "olmoe-1b-7b", "arctic-480b",
-                                  "whisper-medium", "pixtral-12b"])
+def test_pad_cache_to_leaves_recurrent_states():
+    """Only K/V entries grow: an mLSTM state C (B, H, D, D) has no sequence
+    axis (growing its dim 1 would pad the head axis), nor has n, m or the
+    sLSTM's state; each passes through as the same tensor."""
+    cfg = _cfg("xlstm-350m")
+    params = init_model(cfg, seed=2, device="cpu")
+    toks = torch.tensor(np.random.RandomState(5).randint(
+        0, cfg.raw_vocab_size, (2, 6)))
+    _, cache = prefill(params, cfg, {"tokens": toks})
+    grown = pad_cache_to(cache, cfg, 64)
+    for entry, before in zip(grown["layers"], cache["layers"]):
+        assert set(entry) == set(before)
+        assert all(entry[k] is before[k] for k in entry)
+    assert cache["layers"][0]["C"].shape == (2, cfg.n_heads, cfg.d_head,
+                                             cfg.d_head)
+    assert cache_seq_len(cfg, grown) == 0
+
+
+def test_init_cache_matches_reference_states():
+    """xlstm-350m's zero cache equals the reference's (C, n zero, m at
+    -1e30; the sLSTM's h, c, n zero, m at -1e30), and a decode step from it
+    at pos 0 gives a one-token forward's logits."""
+    from repro.models import init_cache as ref_init_cache
+    cfg = _cfg("xlstm-350m")
+    cache = init_cache(cfg, 2, 6, dtype=torch.float32, device="cpu")
+    ref = lm_cache_from_numpy(_np_tree(ref_init_cache(_ref_cfg(cfg), 2, 6)),
+                              cfg, "cpu")
+    for got, want in zip(cache["layers"], ref["layers"]):
+        assert set(got) == set(want)
+        for key in got:
+            assert torch.equal(got[key], want[key])
+    params = init_model(cfg, seed=1, device="cpu")
+    tok = torch.tensor([[3], [7]])
+    dec, _ = decode_step(params, cfg, cache, tok, 0)
+    full, _ = apply_model(params, cfg, {"tokens": tok})
+    torch.testing.assert_close(dec, full, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "olmoe-1b-7b",
+                                  "arctic-480b", "whisper-medium",
+                                  "pixtral-12b"])
 def test_unported_families_raise(arch):
     cfg = smoke_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
