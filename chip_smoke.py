@@ -6,8 +6,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. the card's name and power limit (``nvidia-smi``); no card -> exit 1;
 2. build every kernel (``graph_prop_fwd``, ``graph_prop_bwd``,
-   ``flash_attention_fwd``, ``flash_decode``, ``mlstm_chunk``) with
-   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
+   ``flash_attention_fwd``, ``flash_decode``, ``mlstm_chunk``,
+   ``mamba_scan``) with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+   all started together;
 3. each kernel against its plain PyTorch version on the card: the forward
    at atol = rtol = 1e-5, the backward against ``graph_prop_vjp_plain`` at
    the reference's gradient tolerance (atol 1e-4, rtol 1e-3) and bit for
@@ -38,10 +39,11 @@ Phases (any failure exits non-zero; nothing is caught):
 8. the LM attention kernels against their plain versions on the card:
    ``mha`` on ``tests/test_kernels.py``'s sweep in float32 (atol = rtol =
    2e-5) and bfloat16 (3e-2), plus qwen3-0.6b's shapes (B = 8, S up to
-   1024, H = 16, Kh = 8, D = 128, bf16) and a D = 256 case with window and
-   softcap; ``decode_attn`` on that file's decode sweep plus the model's
-   shapes (B = 8, cache 2048, pos near 0, mid-cache and at the end, with
-   and without a window); every case launched twice, bit for bit equal;
+   1024, H = 16, Kh = 8, D = 128, bf16), jamba's (H = 32, Kh = 8, D =
+   128) and a D = 256 case with window and softcap; ``decode_attn`` on
+   that file's decode sweep plus the models' shapes (B = 8, cache 2048, pos
+   near 0, mid-cache and at the end, with and without a window; H = 16 and
+   32); every case launched twice, bit for bit equal;
 9. the serving path: ``ServeEngine`` over the full qwen3-0.6b config (28
    layers, bf16, seeded ``init_model`` weights, ``max_len`` = 2048) serves
    two waves of 8 requests (prompt lengths in [128, 1024] from
@@ -90,7 +92,39 @@ Phases (any failure exits non-zero; nothing is caught):
    chunkwise mLSTM, so no library time); prefill latency, decode ms per
    step, tokens/s, kernels per prefill and per step and the device-busy
    share of each;
-14. a ``{"kernels": [...]}`` line, then the device line last.
+14. the Mamba scan kernel against its plain version on the card:
+   ``selective_scan`` on ``tests/test_new_substrate.py``'s sweep (decay in
+   (0.5, 1)) and at jamba's prefill shapes (B = 8, S in {768, 1024}, D =
+   8192, N = 16) with dt up to 1.0, where the TPU kernel's chunk form
+   overflows; x in float32 and bf16; y and the final h within 1e-5 of
+   their largest value; every case launched twice, bit for bit equal;
+15. the jamba serving path, on jamba-v0.1-52b cut to one period (8 of 32
+   layers: Mamba at 0-3 and 5-7, attention at 4, MoE FFNs at the odd
+   layers; every other field as published; bf16, seeded ``init_model``
+   weights, ``max_len`` = 2048; the whole 52 B model does not fit one
+   card).  First, with no bf16 model resident, the first 5 layers in
+   float32: teacher-forced ``decode_step`` logits at 768..771 after a
+   prefill of 768 against ``forward``'s over 1024 tokens (B = 2, capacity
+   factor 16 so that nothing is dropped) within the reference's 5e-3 of
+   the largest logit.  Then ``ServeEngine`` serves two waves of 8 requests
+   (the longest prompt 1024 and 896: the MoE's routing groups need a
+   padded length of at most 1024 or a multiple of it; 64 new tokens
+   each), each twice: ``mamba_scan`` must launch 7 times per wave (per
+   prefill, none in decode), ``flash_attention_fwd`` once per prefill,
+   ``flash_decode`` once per step, no other kernel; every token in range
+   and both runs of a wave alike; peak device memory printed.  Then each
+   of the 7 Mamba mixers alone on its real inputs steps from its prefill
+   state over 768 tokens within 1e-4 (float32) / 2^-6 (bf16) of its
+   largest full-sequence output, and the bf16 model's teacher-forced
+   logits (all 8 layers, B = 2, capacity 16) hold 5e-2 at the rows whose
+   top-2 experts agree in every MoE layer between decode and forward (a
+   bf16 rounding difference can flip two nearly tied experts; at most a
+   quarter of the rows may be left out, and the flips are printed);
+16. timings of the jamba path: ``mamba_scan`` at wave 0's prefill shape
+   beside its bound and its plain version (no PyTorch call computes the
+   selective scan); prefill latency, decode ms per step, tokens/s, the
+   kernels of one prefill and one step and the device-busy share of each;
+17. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -239,6 +273,24 @@ def profile_device(fn, reps: int = 10, names=("graph_prop",)):
                 per[nm] += t
     return (busy / 1e3 / reps, {nm: t / 1e3 / reps for nm, t in per.items()},
             kernels / reps)
+
+
+def top_device_kernels(fn, k: int = 6):
+    """The ``k`` device kernels that take the most time in one call of
+    ``fn`` (a torch.profiler trace): [(name cut to 70 characters, ms,
+    launches)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key[:70], float(ev.self_device_time_total) / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    return sorted(rows, key=lambda r: -r[1])[:k]
 
 
 XD, HID, ED, NM = 30, 32, 16, 5     # f3 input per node, hidden, edge, metrics
@@ -462,6 +514,7 @@ MHA_SWEEP = [(2, 128, 4, 2, 32, True, 0, 0.0),
              (1, 64, 2, 1, 128, True, 32, 0.0),
              (1, 192, 6, 3, 32, True, 0, 30.0)]
 MHA_MODEL = [(8, 1024, 16, 8, 128, True, 0, 0.0),
+             (8, 1024, 32, 8, 128, True, 0, 0.0),
              (8, 777, 16, 8, 128, True, 0, 0.0),
              (8, 128, 16, 8, 128, True, 0, 0.0),
              (2, 512, 8, 4, 256, True, 128, 50.0)]
@@ -472,6 +525,7 @@ DECODE_SWEEP = [(2, 256, 4, 2, 32, 100, 0, 0.0),
                 (1, 128, 2, 2, 128, 64, 32, 0.0)]
 DECODE_MODEL = [(8, 2048, 16, 8, 128, pos, win, 0.0)
                 for pos in (0, 1023, 2047) for win in (0, 256)] + \
+    [(8, 2048, 32, 8, 128, pos, 0, 0.0) for pos in (0, 1087, 2047)] + \
     [(2, 1024, 8, 4, 256, 700, 512, 50.0)]
 
 
@@ -611,7 +665,8 @@ def mixer_continuation_err(layer, cfg, kind: str, u: torch.Tensor,
     prefill over u[:, :p], of max|full-sequence form over u - step| at
     positions p..p+TF_STEPS-1, relative to the largest output."""
     from repro_torch.models import ssm
-    forward, step = {"mlstm": (ssm.mlstm_forward, ssm.mlstm_step),
+    forward, step = {"mamba": (ssm.mamba_forward, ssm.mamba_step),
+                     "mlstm": (ssm.mlstm_forward, ssm.mlstm_step),
                      "slstm": (ssm.slstm_forward, ssm.slstm_step)}[kind]
     full = forward(layer, cfg, u)
     _, state = forward(layer, cfg, u[:, :p], return_state=True)
@@ -635,8 +690,8 @@ def layer_continuation_errs(params, cfg, toks: torch.Tensor,
         kind = cfg.layer_kind(i)
         errs.append(mixer_continuation_err(
             lp["mixer"], cfg, kind, rms_norm(x, lp["ln1"], cfg.norm_eps), p))
-        x, _ = tr._layer_apply(lp, cfg, kind, cfg.ffn_kind(i), x, "train",
-                               None, None, None)
+        x, _, _ = tr._layer_apply(lp, cfg, kind, cfg.ffn_kind(i), x,
+                                  "train", None, None, None)
     return errs
 
 
@@ -741,12 +796,13 @@ def check_mlstm_kernel(device, ml):
     return errs
 
 
-def xlstm_waves(cfg):
-    """Two waves of LM_BATCH (prompt, LM_NEW): lengths in [128, top] from
-    ``np.random.RandomState(SEED)``, the longest set to the wave's top."""
+def capped_waves(cfg, tops):
+    """One wave of LM_BATCH (prompt, LM_NEW) per entry of ``tops``: lengths
+    in [128, top] from ``np.random.RandomState(SEED)``, the longest set to
+    the wave's top."""
     rng = np.random.RandomState(SEED)
     waves = []
-    for top in XLSTM_TOP:
+    for top in tops:
         lens = rng.randint(128, top + 1, LM_BATCH)
         lens[np.argmax(lens)] = top
         waves.append([(rng.randint(2, cfg.raw_vocab_size, n), LM_NEW)
@@ -767,7 +823,8 @@ def run_xlstm_serving(cfg, params, device, ml, others):
 
     def after_wave():
         per_wave.append(ml.LAUNCHES - sum(per_wave))
-    results = serve_twice(cfg, params, device, xlstm_waves(cfg), after_wave)
+    results = serve_twice(cfg, params, device, capped_waves(cfg, XLSTM_TOP),
+                          after_wave)
     assert per_wave == [n_mlstm] * len(per_wave), (per_wave, n_mlstm)
     others_launched = sum(getattr(m, n) for m, n in counts if m is not ml)
     assert others_launched == 0, others_launched
@@ -812,7 +869,7 @@ def xlstm_path(device, card, ml, others):
         f"launched {ml_launches} times (= {n_mlstm} x {x_prefills}, none in "
         f"decode), no other kernel; both runs of each wave gave the same "
         f"tokens")
-    x_waves = xlstm_waves(xcfg)
+    x_waves = capped_waves(xcfg, XLSTM_TOP)
     x_toks0 = padded(x_waves[0])
     assert x_toks0.shape[1] == XLSTM_TOP[0], x_toks0.shape
     xt = torch.tensor(x_toks0, device=device)
@@ -932,6 +989,378 @@ def xlstm_path(device, card, ml, others):
                       "dtype": "bfloat16"}}
 
 
+JAMBA_ARCH = "jamba-v0.1-52b"
+# One period of the published 32 layers (7 Mamba, attention at 4, MoE FFNs
+# at the odd layers), every other field as published: ~13.3 B parameters,
+# 26.6 GB in bf16.  The 52 B model (~103 GB) does not fit one 80 GB card.
+JAMBA_LAYERS = 8
+JAMBA_TOP = (1024, 896)     # each wave's longest prompt: the MoE's routing
+#                             groups need at most moe_group or a multiple
+JAMBA_TF_PREFIX = 768       # teacher-forced: prefill 768 of 1024 tokens
+JAMBA_TF_BATCH = 2          # keeps the capacity-16 expert products ~2 GB
+JAMBA_TF_DEPTH_F32 = 5      # float32: layers 0-4, through the attention layer
+JAMBA_TF_CAPACITY = 16.0    # no drops, as tests/test_cache_consistency.py
+JAMBA_MAX_EXCLUDED = 0.25   # of the teacher-forced rows, for flipped routes
+# kernel vs plain: float32 both, so FMA contraction of decay h + drive and
+# the shuffle tree's order over N, relative to the largest |y| (|h|)
+MAMBA_TOL = 1e-5
+# (B, S, D, N, dt range): tests/test_new_substrate.py's sweep at its decay
+# range (exp(dt a) in (0.5, 1) with a = -(1..N)), then jamba's prefill
+# shapes with dt up to 1.0, where the TPU kernel's chunk form overflows
+MAMBA_SWEEP = [(2, 128, 64, 8, (0.01, 0.04)), (1, 64, 128, 16, (0.01, 0.04)),
+               (1, 96, 32, 4, (0.01, 0.04))]
+MAMBA_MODEL = [(8, s, 8192, 16, (0.0, 1.0)) for s in (768, 1024)]
+
+
+def mamba_inputs(rng, b, s, d, n, dt_range, x_dtype, device):
+    """dt (B, S, D) uniform in ``dt_range``, a = -(1..N) per channel as
+    ``init_mamba`` makes it, x (B, S, D) in ``x_dtype``, B and C (B, S,
+    N)."""
+    dt = rng.uniform(*dt_range, (b, s, d)).astype(np.float32)
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float32), (d, 1))
+    return (torch.tensor(dt, device=device), torch.tensor(a, device=device),
+            _randn(rng, (b, s, d), x_dtype, device),
+            _randn(rng, (b, s, n), torch.float32, device),
+            _randn(rng, (b, s, n), torch.float32, device))
+
+
+def check_mamba_kernel(device, ms):
+    """Phase 14: ``selective_scan`` against its plain version, y and the
+    final h, x in float32 and bf16, twice bit-equal.  Returns the largest
+    abs error of y and of h."""
+    rng = np.random.RandomState(SEED + 4)
+    errs = {"y": 0.0, "h": 0.0}
+    for (b, s, d, n, dtr), xdt in itertools.product(
+            MAMBA_SWEEP + MAMBA_MODEL, (torch.float32, torch.bfloat16)):
+        args = mamba_inputs(rng, b, s, d, n, dtr, xdt, device)
+        y, h = ms.selective_scan(*args, return_state=True)
+        y2, h2 = ms.selective_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        what = f"selective_scan x {xdt} B={b} S={s} D={d} N={n} dt in {dtr}"
+        assert torch.equal(y, y2) and torch.equal(h, h2), \
+            f"{what}: not repeatable"
+        ry, rh = ms.selective_scan_plain(*args, return_state=True)
+        assert torch.isfinite(y).all() and torch.isfinite(h).all(), what
+        err = {}
+        for key, got, ref in (("y", y, ry), ("h", h, rh)):
+            tol = MAMBA_TOL * float(ref.abs().max())
+            err[key] = close(got, ref, f"{what} {key}", tol, 0.0)
+            errs[key] = max(errs[key], err[key])
+        say(f"  {what}: max abs err y {err['y']:.3g}, h {err['h']:.3g} "
+            f"(1e-5 of max |y| {float(ry.abs().max()):.3g}, |h| "
+            f"{float(rh.abs().max()):.3g}), repeat bit-equal")
+        del args, y, h, y2, h2, ry, rh
+    return errs
+
+
+def mamba_work(b, s, d, n, x_elt=2):
+    """(FLOPs, bytes) that the selective scan needs at least: per state
+    update exp(dt a) (a product and an exp), the drive's product with B_t,
+    decay h + drive (2) and h C_t into y (2), plus dt x once per channel;
+    dt, x, B, C and a read once, y and the final h written once."""
+    flops = 7 * b * s * d * n + b * s * d
+    nbytes = 4 * b * s * d + x_elt * b * s * d + 2 * 4 * b * s * n \
+        + 4 * d * n + 4 * b * s * d + 4 * b * d * n
+    return flops, nbytes
+
+
+def run_jamba_serving(cfg, params, device, ms, fa, fd, others):
+    """Phase 15's serving: every count from 0; each wave (one prefill and
+    its LM_NEW decode steps) must launch ``mamba_scan`` once per Mamba
+    layer, ``flash_attention_fwd`` once per attention layer, ``flash_decode``
+    once per attention layer and step, and no kernel of ``others``."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    counts = [(m, n) for m in (ms, fa, fd) + tuple(others)
+              for n in ("LAUNCHES", "LAUNCHES_BWD") if hasattr(m, n)]
+    for m, n in counts:
+        setattr(m, n, 0)
+    per_wave, last = [], [0, 0, 0]
+
+    def after_wave():
+        now = [ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES]
+        per_wave.append(tuple(a - b for a, b in zip(now, last)))
+        last[:] = now
+    results = serve_twice(cfg, params, device, capped_waves(cfg, JAMBA_TOP),
+                          after_wave)
+    want = (n_mamba, n_attn, n_attn * LM_NEW)
+    assert per_wave == [want] * len(per_wave), (per_wave, want)
+    others_launched = sum(getattr(m, n) for m, n in counts
+                          if m not in (ms, fa, fd))
+    assert others_launched == 0, others_launched
+    steps = sum(st.decode_steps for runs in results for _, st in runs)
+    return (results, (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES), len(per_wave),
+            steps, want)
+
+
+def jamba_mixer_errs(params, cfg, toks: torch.Tensor, p: int):
+    """mixer_continuation_err of every Mamba mixer on the inputs that a
+    forward over ``toks`` gives it, in bf16 and with the mixer's weights
+    and inputs in float32: {dtype: [(layer, err), ...]}."""
+    import dataclasses
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import embed_lookup, rms_norm
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    x = embed_lookup(params["embed"], toks, cfg)
+    b, s = toks.shape
+    positions = torch.arange(s, device=toks.device).expand(b, s)
+    errs = {torch.bfloat16: [], torch.float32: []}
+    for i, lp in enumerate(params["layers"]):
+        kind = cfg.layer_kind(i)
+        if kind == "mamba":
+            u = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            errs[torch.bfloat16].append((i, mixer_continuation_err(
+                lp["mamba"], cfg, kind, u, p)))
+            p32 = {k: v.float() for k, v in lp["mamba"].items()}
+            errs[torch.float32].append((i, mixer_continuation_err(
+                p32, cfg32, kind, u.float(), p)))
+            del u, p32
+        x, _, _ = tr._layer_apply(lp, cfg, kind, cfg.ffn_kind(i), x, "train",
+                                  positions, None, None)
+    return errs
+
+
+def routed_teacher_forced(params, cfg, toks: torch.Tensor, p: int):
+    """decode_step's logits at p..p+TF_STEPS-1 after a prefill over p
+    tokens against forward's, with each MoE layer's top-k experts taken in
+    both (``moe.route`` on the same inputs as ``moe_ffn``).  Returns (rel
+    err of each (step, row), relative to the step's largest forward logit;
+    for each (step, row), whether any MoE layer routed it to other experts
+    in decode than in forward; the number of (step, row, layer) routings
+    that differ)."""
+    from repro_torch.models import apply_model, decode_step, moe, prefill
+    routes = []
+    inner = moe.moe_ffn
+
+    def recording(pm, c, x):
+        b, s, d = x.shape
+        idx = moe.route(pm, c, x.reshape(-1, min(s, c.moe_group), d))[2]
+        routes.append(idx.reshape(b, s, -1).sort(dim=-1).values)
+        return inner(pm, c, x)
+    moe.moe_ffn = recording
+    try:
+        full, _ = apply_model(params, cfg, {"tokens": toks})
+        fwd_routes = list(routes)
+        _, cache = prefill(params, cfg, {"tokens": toks[:, :p]},
+                           cache_len=p + TF_STEPS)
+        errs, flipped, flips = [], [], 0
+        for t in range(TF_STEPS):
+            del routes[:]
+            dec, cache = decode_step(params, cfg, cache,
+                                     toks[:, p + t:p + t + 1], p + t)
+            a, d = full[:, p + t].float(), dec[:, 0].float()
+            errs.append((a - d).abs().amax(dim=-1) / a.abs().max())
+            assert len(routes) == len(fwd_routes) > 0
+            diff = torch.stack([(fr[:, p + t] != dr[:, 0]).any(dim=-1)
+                                for fr, dr in zip(fwd_routes, routes)])
+            flips += int(diff.sum())
+            flipped.append(diff.any(dim=0))
+    finally:
+        moe.moe_ffn = inner
+    del full, cache
+    return torch.stack(errs).cpu(), torch.stack(flipped).cpu(), flips
+
+
+def jamba_path(device, card, ms, fa, fd, others, cfg=None):
+    """Phases 15-16 on jamba cut to one period at full width: the float32
+    teacher-forced check on its first layers (before the bf16 model is
+    resident), serving with its launch counts, the Mamba mixers'
+    continuation and the bf16 teacher-forced check, then timings.  Returns
+    what the ``kernels`` line reports of ``mamba_scan`` and of the flash
+    kernels' jamba launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_model, prefill
+    cfg = cfg or dataclasses.replace(get_config(JAMBA_ARCH),
+                                     n_layers=JAMBA_LAYERS)
+    bf16, f32 = torch.bfloat16, torch.float32
+    say(f"{JAMBA_ARCH} cut to its first period: n_layers {cfg.n_layers} of "
+        f"32 (dataclasses.replace), d_model {cfg.d_model}, {cfg.n_heads} "
+        f"query / {cfg.n_kv_heads} kv heads of {cfg.d_head}, {cfg.n_experts}"
+        f" experts top-{cfg.top_k} of {cfg.moe_d_ff}, d_ff {cfg.d_ff}, Mamba "
+        f"d_state {cfg.mamba_d_state} expand {cfg.mamba_expand}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_dtype}; layers "
+        + " ".join(f"{cfg.layer_kind(i)}/{cfg.ffn_kind(i)}"
+                   for i in range(cfg.n_layers)))
+    waves = capped_waves(cfg, JAMBA_TOP)
+    toks0 = padded(waves[0])
+    assert toks0.shape[1] == JAMBA_TOP[0], toks0.shape
+    tf_toks = torch.tensor(toks0[:JAMBA_TF_BATCH], device=device)
+
+    # 15a. float32 teacher-forced on the first layers, with no bf16 model
+    # resident: init_model draws the layers in order, so these are the
+    # first layers of the served model, widened
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    k32 = JAMBA_TF_DEPTH_F32
+    cut = dataclasses.replace(cfg, n_layers=k32)
+    params = init_model(cut, seed=SEED, device=device)
+    probe = float(params["layers"][k32 - 1]["attn"]["wq"].float().sum())
+    params = as_float32(params)
+    cfg32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32",
+                                capacity_factor=JAMBA_TF_CAPACITY)
+    tf32, flip32, nflip32 = routed_teacher_forced(params, cfg32, tf_toks,
+                                                  JAMBA_TF_PREFIX)
+    del params
+    torch.cuda.empty_cache()
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    span = f"{JAMBA_TF_PREFIX}..{JAMBA_TF_PREFIX + TF_STEPS - 1}"
+    say(f"jamba float32, first {k32} layers, B={JAMBA_TF_BATCH}, capacity "
+        f"{JAMBA_TF_CAPACITY:g} ({time.perf_counter() - t0:.1f}s, peak "
+        f"{peak32:.1f} GiB): decode_step vs forward logits at {span}: max "
+        f"rel err {float(tf32.max()):.3g} (tol {TF_TOL[f32]}); {nflip32} "
+        f"routings differ")
+    assert float(tf32.max()) < TF_TOL[f32], float(tf32.max())
+
+    # 15b. serving; only its launches count
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    assert float(params["layers"][k32 - 1]["attn"]["wq"].float().sum()) \
+        == probe
+    say(f"jamba init {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    served, launches, prefills, steps, per_wave = run_jamba_serving(
+        cfg, params, device, ms, fa, fd, others)
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"jamba serving path ({serve_s:.1f}s, peak {peak:.1f} GiB): "
+        f"{prefills} prefills, {steps} decode steps; per wave mamba_scan "
+        f"{per_wave[0]} (one per Mamba layer, none in decode), "
+        f"flash_attention_fwd {per_wave[1]}, flash_decode {per_wave[2]} "
+        f"(= {per_wave[1]} x {LM_NEW} steps); totals {launches}; no other "
+        f"kernel; both runs of each wave gave the same tokens")
+
+    # 15c. each Mamba mixer on its real inputs (wave 0, B = 8), then the
+    # bf16 teacher-forced check over all layers
+    t0 = time.perf_counter()
+    xt = torch.tensor(toks0, device=device)
+    mixer = jamba_mixer_errs(params, cfg, xt, JAMBA_TF_PREFIX)
+    for dt, name in ((bf16, "bf16"), (f32, "float32")):
+        worst = max(mixer[dt], key=lambda e: e[1])
+        say(f"jamba {name}: each of the {len(mixer[dt])} Mamba mixers, step "
+            f"vs full-sequence form on its real inputs at {span}: max rel "
+            f"err {worst[1]:.3g} (layer {worst[0]}; tol "
+            f"{MIXER_TF_TOL[dt]:.3g}); "
+            + ", ".join(f"{i}: {e:.3g}" for i, e in mixer[dt]))
+        for i, err in mixer[dt]:
+            assert err < MIXER_TF_TOL[dt], (dt, i, err)
+    cfg16 = dataclasses.replace(cfg, capacity_factor=JAMBA_TF_CAPACITY)
+    tf16, flip16, nflip16 = routed_teacher_forced(params, cfg16, tf_toks,
+                                                  JAMBA_TF_PREFIX)
+    kept = ~flip16
+    n_rows, n_out = flip16.numel(), int(flip16.sum())
+    tf16_err = float(tf16[kept].max()) if kept.any() else float("inf")
+    say(f"jamba bf16, all {cfg.n_layers} layers, B={JAMBA_TF_BATCH}, "
+        f"capacity {JAMBA_TF_CAPACITY:g} ({time.perf_counter() - t0:.1f}s "
+        f"with the mixers): decode_step vs forward logits at {span}: max "
+        f"rel err {tf16_err:.3g} over the {n_rows - n_out} of {n_rows} rows "
+        f"routed alike (tol {TF_TOL[bf16]}); {nflip16} (step, row, layer) "
+        f"routings flipped, {n_out} rows left out (all rows: "
+        f"{float(tf16.max()):.3g})")
+    assert n_out <= JAMBA_MAX_EXCLUDED * n_rows, (n_out, n_rows)
+    assert tf16_err < TF_TOL[bf16], tf16_err
+
+    # 16. timings of the jamba path
+    b, p0 = LM_BATCH, toks0.shape[1]
+    di, n = cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    trng = np.random.RandomState(SEED + 5)
+    dt_, a_, x_, b_, c_ = mamba_inputs(trng, b, p0, di, n, (0.0, 1.0), bf16,
+                                       device)
+    y_ = torch.empty((b, p0, di), dtype=f32, device=device)
+    h_ = torch.empty((b, di, n), dtype=f32, device=device)
+    ms_launch = lambda: ms._launch(dt_, a_, x_, b_, c_, y_, h_)
+    ms_ms = median_ms(ms_launch, burst=10, reps=10)
+    ms_plain_ms = median_ms(lambda: ms.selective_scan_plain(
+        dt_, a_, x_, b_, c_, return_state=True), burst=1, reps=3, warmup=1)
+    ms_ms2 = median_ms(ms_launch, burst=10, reps=10)
+    fl, nb = mamba_work(b, p0, di, n)
+    ms_bound, ms_by = bound(fl, nb, FP32_FLOPS)
+    say(f"mamba_scan at B={b} S={p0} D={di} N={n} (x bf16) on {card}: "
+        f"kernel {ms_ms:.4f} ms (again {ms_ms2:.4f}), plain "
+        f"{ms_plain_ms:.4f} ms, bound {ms_bound:.5f} ms by {ms_by} "
+        f"({fl / 1e9:.3f} GFLOP fp32, {nb / 1e6:.1f} MB), no library call")
+    del dt_, a_, x_, b_, c_, y_, h_
+    first = [runs[0][1] for runs in served]
+    for w, stt in enumerate(first):
+        say(f"jamba wave {w}: P={padded(waves[w]).shape[1]}, prefill "
+            f"{stt.prefill_s * 1e3:.1f} ms, decode {stt.decode_steps} steps "
+            f"{stt.decode_s * 1e3 / stt.decode_steps:.2f} ms/step, "
+            f"{stt.tokens_out} tokens at {stt.decode_tok_s:.1f} tok/s")
+    names = ("mamba_scan", "fa_fwd", "fd_kernel")
+    pf = lambda: (prefill(params, cfg, {"tokens": xt}, cache_len=LM_MAX_LEN),
+                  torch.cuda.synchronize())
+    pf_wall = median_wall_ms(pf, reps=3, warmup=1)
+    pf_busy, pf_per, pf_kernels = profile_device(pf, reps=1, names=names)
+    before = (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES)
+    _, cache = prefill(params, cfg, {"tokens": xt}, cache_len=LM_MAX_LEN)
+    mid = (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES)
+    decode_step(params, cfg, cache, xt[:, -1:], p0)
+    after = (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES)
+    one_prefill = tuple(m - a for m, a in zip(mid, before))
+    one_step = tuple(z - m for z, m in zip(after, mid))
+    assert one_prefill == per_wave[:2] + (0,), one_prefill
+    assert one_step == (0, 0, per_wave[1]), one_step
+    n_loop = 16
+
+    def decode_loop():
+        tok = xt[:, -1:]
+        for i in range(n_loop):
+            logits, _ = decode_step(params, cfg, cache, tok, p0 + 1 + i)
+            tok = logits[:, -1:].argmax(dim=-1)
+            tok.tolist()                   # the engine's host fetch
+    dec_wall = median_wall_ms(decode_loop, reps=3, warmup=1) / n_loop
+    dec_busy, dec_per, dec_kernels = profile_device(decode_loop, reps=1,
+                                                    names=names)
+    dec_busy, dec_kernels = dec_busy / n_loop, dec_kernels / n_loop
+    pf_top = top_device_kernels(pf)
+    dec_top = top_device_kernels(lambda: decode_step(
+        params, cfg, cache, xt[:, -1:], p0 + 1))
+    for what, top in (("prefill", pf_top), ("decode step", dec_top)):
+        say(f"jamba {what}, most device time: " + "; ".join(
+            f"{nm} {t:.2f} ms x{c}" for nm, t, c in top))
+    say(f"jamba prefill of wave 0 (B={b}, P={p0}): {pf_wall:.2f} ms wall, "
+        f"device busy {pf_busy:.2f} ms (mamba_scan "
+        f"{pf_per['mamba_scan']:.2f} ms, flash_attention_fwd "
+        f"{pf_per['fa_fwd']:.2f} ms), idle share {1 - pf_busy / pf_wall:.3f},"
+        f" {pf_kernels:.0f} kernels; one prefill launches (mamba_scan, "
+        f"flash_attention_fwd, flash_decode) {one_prefill}")
+    say(f"jamba decode step (B={b}): {dec_wall:.3f} ms wall, device busy "
+        f"{dec_busy:.3f} ms (flash_decode {dec_per['fd_kernel'] / n_loop:.3f}"
+        f" ms), idle share {1 - dec_busy / dec_wall:.3f}, "
+        f"{dec_kernels:.0f} kernels per step; one step launches {one_step}")
+    del cache, params
+    torch.cuda.empty_cache()
+    say(json.dumps({"card": card, "serving_jamba": {
+        "arch": JAMBA_ARCH, "n_layers": cfg.n_layers, "batch": LM_BATCH,
+        "new_tokens": LM_NEW, "max_len": LM_MAX_LEN,
+        "peak_gib": {"serving": peak, "float32_check": peak32},
+        "waves": [{"P": int(padded(waves[w]).shape[1]),
+                   "prefill_ms": stt.prefill_s * 1e3,
+                   "decode_ms_per_step": stt.decode_s * 1e3 / stt.decode_steps,
+                   "decode_tok_s": stt.decode_tok_s}
+                  for w, stt in enumerate(first)],
+        "mixer_teacher_forced_rel_err": {
+            "bf16": mixer[bf16], "float32": mixer[f32]},
+        f"teacher_forced_rel_err_{k32}_layers_float32": float(tf32.max()),
+        "teacher_forced_rel_err_bf16": tf16_err,
+        "teacher_forced_routings_flipped_bf16": nflip16,
+        "teacher_forced_rows_left_out_bf16": n_out,
+        "prefill": {"wall_ms": pf_wall, "busy_ms": pf_busy,
+                    "mamba_scan_ms": pf_per["mamba_scan"],
+                    "flash_attention_ms": pf_per["fa_fwd"],
+                    "kernels": pf_kernels},
+        "decode_step": {"wall_ms": dec_wall, "busy_ms": dec_busy,
+                        "flash_decode_ms": dec_per["fd_kernel"] / n_loop,
+                        "kernels": dec_kernels},
+        "top_kernels": {"prefill": pf_top, "decode_step": dec_top}}}))
+    return {"launches": launches, "ms": ms_ms, "plain_ms": ms_plain_ms,
+            "bound_ms": ms_bound, "bound_by": ms_by,
+            "shape": {"B": b, "S": p0, "D": di, "N": n,
+                      "x_dtype": "bfloat16"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -954,18 +1383,19 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.graph_prop import ops
+    from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.mlstm_chunk import ops as ml
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = [pool.submit(fn) for fn in (ops._kernel_fn,
                                              ops._bwd_kernel_fn,
                                              fa._kernel_fn, fd._kernel_fn,
-                                             ml._kernel_fn)]
+                                             ml._kernel_fn, ms._kernel_fn)]
         for fut in builds:
             fut.result()
     say(f"build: {time.perf_counter() - t0:.2f}s wall")
     for kname in ("graph_prop_fwd", "graph_prop_bwd", "flash_attention_fwd",
-                  "flash_decode", "mlstm_chunk"):
+                  "flash_decode", "mlstm_chunk", "mamba_scan"):
         info = build.BUILDS[kname]
         say(f"build {kname}: nvcc {info.seconds:.2f}s, "
             f"compiled={info.compiled}")
@@ -1355,9 +1785,19 @@ def main() -> int:
         f"every case bit-equal twice")
 
     # 12-13. the xLSTM serving path (only its launches count), timings
-    xl = xlstm_path(device, card, ml, (ops, fa, fd))
+    xl = xlstm_path(device, card, ml, (ops, fa, fd, ms))
 
-    # 14. results
+    # 14. the Mamba scan kernel vs plain
+    t0 = time.perf_counter()
+    ms_errs = check_mamba_kernel(device, ms)
+    say(f"Mamba scan kernel vs plain ({time.perf_counter() - t0:.1f}s): max "
+        f"abs err y {ms_errs['y']:.3g}, h {ms_errs['h']:.3g} (each within "
+        f"{MAMBA_TOL} of its largest value); every case bit-equal twice")
+
+    # 15-16. the jamba serving path (only its launches count), timings
+    jb = jamba_path(device, card, ms, fa, fd, (ops, ml))
+
+    # 17. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
@@ -1383,7 +1823,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
-        "launches": fa_launches, "launches_by_path": {"serving": fa_launches},
+        "launches": fa_launches + jb["launches"][1],
+        "launches_by_path": {"serving": fa_launches,
+                             "serving_jamba": jb["launches"][1]},
         "max_abs_err": max(lm_errs["mha"].values()),
         "max_abs_err_f32": lm_errs["mha"][torch.float32],
         "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
@@ -1394,7 +1836,9 @@ def main() -> int:
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:58",
-        "launches": fd_launches, "launches_by_path": {"serving": fd_launches},
+        "launches": fd_launches + jb["launches"][2],
+        "launches_by_path": {"serving": fd_launches,
+                             "serving_jamba": jb["launches"][2]},
         "max_abs_err": max(lm_errs["decode"].values()),
         "max_abs_err_f32": lm_errs["decode"][torch.float32],
         "ms": fd_times[pos_main]["ms"],
@@ -1417,6 +1861,16 @@ def main() -> int:
         "ms": xl["ms"], "plain_ms": xl["plain_ms"],
         "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
         "library_ms": None, "shape": xl["shape"],
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:49",
+        "launches": jb["launches"][0],
+        "launches_by_path": {"serving_jamba": jb["launches"][0]},
+        "max_abs_err": ms_errs["y"], "max_abs_err_state": ms_errs["h"],
+        "ms": jb["ms"], "plain_ms": jb["plain_ms"],
+        "bound_ms": jb["bound_ms"], "bound_by": jb["bound_by"],
+        "library_ms": None, "shape": jb["shape"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

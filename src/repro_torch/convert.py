@@ -118,7 +118,8 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
 def lm_cache_from_numpy(cache: Mapping, cfg: ModelConfig,
                         device: DeviceLike = "cuda") -> Dict:
     """The reference's prefill / decode cache (numpy leaves) -> the port's
-    ``{"layers": [{"k", "v"}, ...]}``."""
+    ``{"layers": [entry, ...]}``, each entry as the reference keeps it
+    (``{k, v}``, a Mamba layer's ``{h, conv}``, ...)."""
     dev = resolve_device(device)
     return {"layers": _unstack(cache["groups"], cache.get("tail", []), cfg,
                                dev)}

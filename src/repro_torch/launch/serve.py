@@ -4,10 +4,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --smoke --device cpu
 
 Counterpart of ``repro.launch.serve``.  Weights are random, from a
 ``torch.Generator`` seeded with ``--seed``; prompts come from
 ``np.random.RandomState(--seed)``.  Runs on the card unless ``--device cpu``.
+A wave of an MoE model (jamba, olmoe, arctic) must pad to at most the
+config's ``moe_group`` (1024) tokens or a multiple of it.  The published
+jamba-v0.1-52b (about 103 GB of bf16 weights) does not fit one 80 GB card;
+``chip_smoke.py`` serves one period of it (8 layers) at full width.
 """
 from __future__ import annotations
 

@@ -1,14 +1,17 @@
-"""Recurrent mixers of xLSTM: mLSTM (matrix memory) and sLSTM.
+"""State-space / recurrent mixers: Mamba (jamba), mLSTM and sLSTM (xLSTM).
 
-Counterpart of the mLSTM and sLSTM parts of ``repro.models.ssm``.  Each
-mixer has a full-sequence form (train / prefill) and a one-token decode
-form carrying an explicit state dict.  The mLSTM's full-sequence form is
-the hand-written kernel's work: :func:`mlstm_forward` goes through
-:func:`repro_torch.kernels.mlstm_chunk.ops.mlstm`, which launches the CUDA
-kernel on CUDA tensors and runs its plain version (the reference's
-``mlstm_chunk_scan``, chunk 256) on CPU tensors.  The sLSTM has no kernel
+Counterpart of ``repro.models.ssm``.  Each mixer has a full-sequence form
+(train / prefill) and a one-token decode form carrying an explicit state
+dict.  The Mamba mixer's full-sequence scan is the hand-written kernel's
+work: :func:`mamba_forward` goes through
+:func:`repro_torch.kernels.mamba_scan.ops.selective_scan`, which launches
+the CUDA kernel on CUDA tensors and runs its plain version (the strict
+recurrence) on CPU tensors; its decode step is plain ops, as in the
+reference.  The mLSTM's full-sequence form likewise goes through
+:func:`repro_torch.kernels.mlstm_chunk.ops.mlstm` (the reference's
+``mlstm_chunk_scan``, chunk 256, on CPU tensors).  The sLSTM has no kernel
 in either package: its full-sequence form is a Python loop over time, as
-the reference's ``lax.scan``.  The Mamba mixer is not ported yet.
+the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,10 @@ from typing import Dict, Tuple
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.mlstm_chunk.ops import M_INIT, log_sigmoid, mlstm
 from repro_torch.models.layers import DTYPES, dense_init
 
@@ -27,6 +33,121 @@ CHUNK = 256             # the reference's chunk (repro/models/ssm.py:167)
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x * sigmoid(x)."""
     return x * torch.sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0).  (``F.softplus`` switches to x
+    above its threshold of 20, which this does not.)"""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# ======================================================================= Mamba
+def mamba_dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """(d_inner, dt_rank)."""
+    d_inner = cfg.mamba_expand * cfg.d_model
+    dt_rank = max(1, math.ceil(cfg.d_model / 16))
+    return d_inner, dt_rank
+
+
+def init_mamba(gen, cfg: ModelConfig, device: torch.device) -> Dict:
+    dt = DTYPES[cfg.param_dtype]
+    di, r = mamba_dims(cfg)
+    n, dconv = cfg.mamba_d_state, cfg.mamba_d_conv
+    f32 = torch.float32
+    a = torch.arange(1, n + 1, dtype=f32, device=device).repeat(di, 1)
+    conv_w = torch.randn(dconv, di, generator=gen, dtype=f32,
+                         device=device) / math.sqrt(dconv)
+    p = {"in_proj": dense_init(gen, cfg.d_model, 2 * di, dt, device),
+         "conv_w": conv_w.to(dt),
+         "conv_b": torch.zeros(di, dtype=dt, device=device),
+         "x_proj": dense_init(gen, di, r + 2 * n, dt, device),
+         "dt_proj": dense_init(gen, r, di, dt, device)}
+    # softplus^-1 of U(1e-3, 1e-1)
+    u = torch.rand(di, generator=gen, dtype=f32, device=device) * \
+        (1e-1 - 1e-3) + 1e-3
+    p.update({"dt_bias": torch.log(torch.expm1(u)), "A_log": torch.log(a),
+              "D": torch.ones(di, dtype=f32, device=device),
+              "out_proj": dense_init(gen, di, cfg.d_model, dt, device)})
+    return p
+
+
+def _mamba_conv_full(p: Dict, x1: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv along S, x1: (B, S, dI): the shifted products
+    summed in the reference's order, then the bias."""
+    dconv, s = p["conv_w"].shape[0], x1.shape[1]
+    w = p["conv_w"].to(x1.dtype)
+    out = torch.zeros_like(x1)
+    for i in range(dconv):
+        shift = dconv - 1 - i
+        out = out + F.pad(x1, (0, 0, shift, 0))[:, :s] * w[i]
+    return out + p["conv_b"].to(x1.dtype)
+
+
+def _mamba_core(p: Dict, cfg: ModelConfig, x1: torch.Tensor):
+    """The scan's per-token inputs, x1: (B, S, dI) post-conv post-silu:
+    dt (B, S, dI) through softplus, a = -exp(A_log) (dI, N), and B, C
+    (B, S, N), all float32.  Unlike the reference, decay and drive are not
+    formed here: over (B, S, dI, N) they would not fit the card."""
+    _, r = mamba_dims(cfg)
+    n = cfg.mamba_d_state
+    dbc = x1 @ p["x_proj"]
+    dt_raw, bc, cc = torch.split(dbc, [r, n, n], dim=-1)
+    dt = softplus((dt_raw @ p["dt_proj"]).float() + p["dt_bias"])
+    a = -torch.exp(p["A_log"])
+    return dt, a, bc.float().contiguous(), cc.float().contiguous()
+
+
+def _mamba_out(p: Dict, x: torch.Tensor, x1: torch.Tensor, y: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    """The D x skip term, the silu(z) gate and the out projection."""
+    y = (y + p["D"] * x1.float()).to(x.dtype)
+    return (y * silu(z)) @ p["out_proj"]
+
+
+def mamba_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  return_state: bool = False):
+    """x: (B, S, d) -> (B, S, d) [, final state {"h": (B, dI, N) float32,
+    "conv": the last dconv - 1 rows of the pre-conv x1}]."""
+    di, _ = mamba_dims(cfg)
+    x1_pre, z = torch.split(x @ p["in_proj"], di, dim=-1)
+    x1 = silu(_mamba_conv_full(p, x1_pre))
+    dt, a, bc, cc = _mamba_core(p, cfg, x1)
+    y, h = selective_scan(dt, a, x1, bc, cc, return_state=True)
+    out = _mamba_out(p, x, x1, y, z)
+    if not return_state:
+        return out
+    dconv = p["conv_w"].shape[0]
+    # a copy: a view would keep the whole (B, S, 2 dI) product alive
+    conv = x1_pre[:, -(dconv - 1):].contiguous()
+    return out, {"h": h, "conv": conv}
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> Dict:
+    di, _ = mamba_dims(cfg)
+    return {"h": torch.zeros((batch, di, cfg.mamba_d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.mamba_d_conv - 1, di),
+                                dtype=dtype, device=device)}
+
+
+def mamba_step(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+               state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Single-token decode, x: (B, 1, d) -> (B, 1, d), new state.  Plain
+    ops: one step of the recurrence launches no scan."""
+    di, _ = mamba_dims(cfg)
+    x1_pre, z = torch.split((x @ p["in_proj"])[:, 0], di, dim=-1)  # (B, dI)
+    window = torch.cat([state["conv"].to(x1_pre.dtype), x1_pre[:, None]],
+                       dim=1)                                 # (B, dconv, dI)
+    x1 = torch.einsum("bcd,cd->bd", window, p["conv_w"].to(x1_pre.dtype))
+    x1 = silu(x1 + p["conv_b"].to(x1.dtype))[:, None]         # (B, 1, dI)
+    dt, a, bc, cc = _mamba_core(p, cfg, x1)
+    decay = torch.exp(dt[:, 0, :, None] * a)                  # (B, dI, N)
+    drive = (dt[:, 0] * x1[:, 0].float())[..., None] * bc[:, 0, None, :]
+    h = decay * state["h"] + drive
+    y = torch.einsum("bdn,bn->bd", h, cc[:, 0])
+    out = _mamba_out(p, x, x1[:, 0], y, z)[:, None]
+    return out, {"h": h, "conv": window[:, 1:]}
 
 
 # ======================================================================= mLSTM

@@ -4,11 +4,12 @@ Counterpart of ``repro.models.transformer``.  The reference stacks its
 layers into groups of the config's layer period and scans over them; here
 ``params["layers"]`` is a plain list with one dict per layer walked by a
 Python loop: ``ln1`` and the mixer (``attn`` for attention layers,
-``mixer`` for mLSTM and sLSTM layers), then ``ln2`` and ``ffn`` unless the
-layer has no FFN (xLSTM).  A cache is ``{"layers": [entry, ...]}``: an
-attention layer's entry is its (B, S, Kh, Dh) ``k``/``v`` pair, an mLSTM's
-its state ``{C, n, m}``, an sLSTM's ``{h, c, n, m}``.  Two full-sequence
-modes share one code path:
+``mamba`` for Mamba layers, ``mixer`` for mLSTM and sLSTM layers), then
+``ln2`` and the FFN block: ``ffn`` (dense), ``moe``, or both for
+"moe+dense"; none for xLSTM.  A cache is ``{"layers": [entry, ...]}``: an
+attention layer's entry is its (B, S, Kh, Dh) ``k``/``v`` pair, a Mamba
+layer's its state ``{h, conv}``, an mLSTM's ``{C, n, m}``, an sLSTM's ``{h,
+c, n, m}``.  Two full-sequence modes share one code path:
 
   train    full-sequence forward, no cache
   prefill  full-sequence forward, emits the cache (KV padded to cache_len)
@@ -17,10 +18,11 @@ and :func:`decode_step` runs one token at a host int position ``pos``,
 writing its K/V into the cache in place (a recurrent layer's entry is
 replaced by its new state).
 
-Ported so far: attention mixers (``attn``, ``attn_local``) with a dense
-FFN, for the ``dense`` family, and the mLSTM and sLSTM mixers of the
-``ssm`` family (xLSTM).  Mamba mixers, MoE FFNs and the audio and vlm
-families raise ``NotImplementedError`` naming their ROADMAP item.
+Ported so far: attention mixers (``attn``, ``attn_local``), the Mamba
+mixer and the mLSTM and sLSTM mixers, with dense, MoE and MoE + dense FFNs:
+the ``dense``, ``moe``, ``hybrid`` (jamba) and ``ssm`` (xLSTM) families.
+The audio and vlm families raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,16 +33,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
                                        init_ffn, norm_init, rms_norm,
                                        unembed_logits)
 
 _NOT_PORTED = {
-    "mamba": "ROADMAP.md queue 1 item 12, mamba_scan through jamba's mamba "
-             "layers (queue 2 item 5)",
-    "moe": "ROADMAP.md queue 1 item 12, the MoE FFN (models/moe.py)",
-    "moe+dense": "ROADMAP.md queue 1 item 12, the MoE FFN (models/moe.py)",
     "audio": "ROADMAP.md queue 1 item 12, the audio family (whisper "
              "encoder and cross-attention)",
     "vlm": "ROADMAP.md queue 1 item 12, the vlm family (patch embeddings)",
@@ -83,7 +82,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 class _Recurrent(NamedTuple):
-    """A recurrent mixer's functions (``models/ssm.py``)."""
+    """A recurrent mixer's functions (``models/ssm.py``) and the key of its
+    parameters in the layer dict (the reference's)."""
+    key: str
     init: Callable
     forward: Callable          # full sequence, optionally with its state
     step: Callable             # one token from a state
@@ -91,9 +92,11 @@ class _Recurrent(NamedTuple):
 
 
 _RECURRENT = {
-    "mlstm": _Recurrent(ssm_lib.init_mlstm, ssm_lib.mlstm_forward,
+    "mamba": _Recurrent("mamba", ssm_lib.init_mamba, ssm_lib.mamba_forward,
+                        ssm_lib.mamba_step, ssm_lib.mamba_init_state),
+    "mlstm": _Recurrent("mixer", ssm_lib.init_mlstm, ssm_lib.mlstm_forward,
                         ssm_lib.mlstm_step, ssm_lib.mlstm_init_state),
-    "slstm": _Recurrent(ssm_lib.init_slstm, ssm_lib.slstm_forward,
+    "slstm": _Recurrent("mixer", ssm_lib.init_slstm, ssm_lib.slstm_forward,
                         ssm_lib.slstm_step, ssm_lib.slstm_init_state)}
 
 
@@ -101,12 +104,16 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, fkind: str,
                 dev: torch.device) -> Dict:
     p: Dict = {"ln1": norm_init(cfg.d_model, dev)}
     if kind in _RECURRENT:
-        p["mixer"] = _RECURRENT[kind].init(gen, cfg, dev)
+        mixer = _RECURRENT[kind]
+        p[mixer.key] = mixer.init(gen, cfg, dev)
     else:
         p["attn"] = attn_lib.init_attention(gen, cfg, dev)
     if fkind != "none":
         p["ln2"] = norm_init(cfg.d_model, dev)
-        p["ffn"] = init_ffn(gen, cfg, cfg.d_ff, dev)
+        if fkind in ("dense", "moe+dense"):
+            p["ffn"] = init_ffn(gen, cfg, cfg.d_ff, dev)
+        if fkind in ("moe", "moe+dense"):
+            p["moe"] = moe_lib.init_moe(gen, cfg, dev)
     return p
 
 
@@ -114,20 +121,23 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, fkind: str,
 def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
                  x: torch.Tensor, mode: str,
                  positions: Optional[torch.Tensor], cache: Optional[Dict],
-                 pos: Optional[int]) -> Tuple[torch.Tensor, Dict]:
-    """One block: the mixer, then the dense FFN unless ``fkind`` is
-    "none", each pre-normed and added to the residual.  Returns (x, cache
-    entry)."""
+                 pos: Optional[int]
+                 ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """One block: the mixer, then the FFN block unless ``fkind`` is "none"
+    (the dense FFN, the MoE FFN, or their sum for "moe+dense"), each
+    pre-normed and added to the residual.  Returns (x, cache entry, the
+    MoE's aux loss or None)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     entry: Dict = {}
     if kind in _RECURRENT:
         mixer = _RECURRENT[kind]
+        mp = lp[mixer.key]
         if mode == "decode":
-            y, entry = mixer.step(lp["mixer"], cfg, h, cache)
+            y, entry = mixer.step(mp, cfg, h, cache)
         elif mode == "prefill":
-            y, entry = mixer.forward(lp["mixer"], cfg, h, return_state=True)
+            y, entry = mixer.forward(mp, cfg, h, return_state=True)
         else:
-            y = mixer.forward(lp["mixer"], cfg, h)
+            y = mixer.forward(mp, cfg, h)
     elif mode == "decode":
         y, entry = attn_lib.decode_attention(lp["attn"], cfg, h, cache, pos,
                                              kind)
@@ -138,9 +148,16 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
         y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind)
     x = x + y
     if fkind == "none":
-        return x, entry
+        return x, entry, None
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + ffn(lp["ffn"], cfg, h), entry
+    y, aux = None, None
+    if "ffn" in lp:
+        y = ffn(lp["ffn"], cfg, h)
+    if "moe" in lp:
+        r = moe_lib.moe_ffn(lp["moe"], cfg, h)
+        y = r["out"] if y is None else y + r["out"]
+        aux = r["aux_loss"]
+    return x + y, entry, aux
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +169,8 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward over ``batch["tokens"]`` (B, S), positions
-    0..S-1.  Returns (logits (B, S, V), aux loss 0, cache or None)."""
+    0..S-1.  Returns (logits (B, S, V), the MoE layers' summed aux loss
+    (float32; 0 without MoE), cache or None)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
     check_supported(cfg)
@@ -160,11 +178,14 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries: List[Dict] = []
-    for i, lp in enumerate(params["layers"]):
-        x, entry = _layer_apply(lp, cfg, cfg.layer_kind(i), cfg.ffn_kind(i),
-                                x, mode, positions, None, None)
-        entries.append(entry)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        x, entry, a = _layer_apply(lp, cfg, cfg.layer_kind(i),
+                                   cfg.ffn_kind(i), x, mode, positions, None,
+                                   None)
+        entries.append(entry)
+        if a is not None:
+            aux = aux + a
     cache = {"layers": entries} if mode == "prefill" else None
     return _logits(params, cfg, x), aux, cache
 
@@ -172,7 +193,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
 def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
     """Grow prefill KV entries (B, P, Kh, Dh) to (B, cache_len, Kh, Dh) with
     zeros (new tensors, so decoding in place never writes the prefill's).
-    Recurrent states have no sequence axis and pass unchanged."""
+    Recurrent states (and a Mamba layer's conv window) have no sequence
+    axis and pass unchanged."""
     def grow(t: torch.Tensor) -> torch.Tensor:
         if cache_len <= t.shape[1]:
             return t
@@ -195,9 +217,9 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     x = embed_lookup(params["embed"], token, cfg)
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
-        x, layers[i] = _layer_apply(lp, cfg, cfg.layer_kind(i),
-                                    cfg.ffn_kind(i), x, "decode", None,
-                                    layers[i], int(pos))
+        x, layers[i], _ = _layer_apply(lp, cfg, cfg.layer_kind(i),
+                                       cfg.ffn_kind(i), x, "decode", None,
+                                       layers[i], int(pos))
     return _logits(params, cfg, x), cache
 
 
@@ -213,11 +235,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = "cuda") -> Dict:
     """Zero cache matching :func:`decode_step`'s expectations (recurrent
-    states are float32 whatever ``dtype``, as in the reference)."""
+    states are float32 whatever ``dtype``, as in the reference, except a
+    Mamba layer's conv rows, which take ``dtype``)."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def entry(kind: str) -> Dict:
+        if kind == "mamba":
+            return ssm_lib.mamba_init_state(cfg, batch, dev, dtype)
         if kind in _RECURRENT:
             return _RECURRENT[kind].init_state(cfg, batch, dev)
         return attn_lib.init_kv_cache(cfg, batch, seq, dtype, dev)

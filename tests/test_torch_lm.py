@@ -1,12 +1,18 @@
 """The port's LM serving path against the JAX reference, at smoke size in
 float32 on the CPU: configs, layers, prefill logits and caches, chained
 decode steps and ``ServeEngine`` waves, with the reference's weights carried
-over by ``lm_params_from_numpy``.  Attention and the mLSTM run through the
-kernels' plain versions here (the wrappers take them for CPU tensors).
-xlstm-350m's states and logits are held at 2e-4, the reference's tolerance
-between two chunkwise forms of the mLSTM (``tests/test_kernels.py:101``):
-its 16 recurrent layers carry each layer's summation-order differences
-into the next."""
+over by ``lm_params_from_numpy``.  Attention, the mLSTM and the Mamba scan
+run through the kernels' plain versions here (the wrappers take them for
+CPU tensors).  xlstm-350m's states and logits are held at 2e-4, the
+reference's tolerance between two chunkwise forms of the mLSTM
+(``tests/test_kernels.py:101``): its 16 recurrent layers carry each layer's
+summation-order differences into the next.  jamba-v0.1-52b (16 smoke
+layers: Mamba, attention, MoE and dense FFNs) is held at 2e-4 too: the
+reference's model runs an associative scan where the port runs the strict
+recurrence, the pair ``tests/test_new_substrate.py:51-52`` holds at 2e-4
+(a value cached after 12 layers differs by 1.4e-5).  olmoe-1b-7b and
+arctic-480b (attention with MoE, arctic's beside a dense FFN) are held at
+1e-5."""
 import dataclasses
 
 import jax
@@ -98,8 +104,12 @@ def test_layers_match_reference(arch):
                                rtol=TOL)
 
 
+MOE_ARCHS = ["jamba-v0.1-52b", "olmoe-1b-7b", "arctic-480b"]
+
+
 @pytest.fixture(scope="module", params=["qwen3-0.6b", "gemma2-2b",
-                                        "gemma2-2b-window", "xlstm-350m"])
+                                        "gemma2-2b-window", "xlstm-350m"]
+                + MOE_ARCHS)
 def pair(request):
     """(cfg, port params, reference cfg, reference params) for one arch."""
     cfg = _cfg(request.param)
@@ -110,7 +120,10 @@ def pair(request):
 
 
 def _tol(cfg):
-    return TOL if cfg.has_attention() else SSM_TOL
+    """1e-5 for attention-only models, 2e-4 for those with a scan."""
+    scans = any(cfg.layer_kind(i) in ("mamba", "mlstm", "slstm")
+                for i in range(cfg.n_layers))
+    return SSM_TOL if scans else TOL
 
 
 def test_prefill_and_decode_match_reference(pair):
@@ -133,7 +146,8 @@ def test_prefill_and_decode_match_reference(pair):
     assert cache_seq_len(cfg, cache) == \
         (cache_len if cfg.has_attention() else 0)
     entry_keys = {"attn": {"k", "v"}, "attn_local": {"k", "v"},
-                  "mlstm": {"C", "n", "m"}, "slstm": {"h", "c", "n", "m"}}
+                  "mamba": {"h", "conv"}, "mlstm": {"C", "n", "m"},
+                  "slstm": {"h", "c", "n", "m"}}
     for i, (got, ref) in enumerate(zip(cache["layers"],
                                        ref_layers_cache["layers"])):
         assert set(got) == set(ref) == entry_keys[cfg.layer_kind(i)]
@@ -211,22 +225,31 @@ def test_serve_engine_refuses_params_elsewhere():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "gemma3-27b",
-                                  "qwen2.5-14b", "xlstm-350m"])
+                                  "qwen2.5-14b", "xlstm-350m"] + MOE_ARCHS)
 def test_param_count_matches_reference(arch):
+    """On the meta device; the MoE's (E, d, f) leaves and the Mamba
+    mixer's leaves sit one level down, as the attention's do."""
     assert param_count(get_config(arch)) == ref_param_count(
         ref_get_config(arch))
     published = {"qwen3-0.6b": 596_049_920, "xlstm-350m": 232_207_528}
     if arch in published:
         assert param_count(get_config(arch)) == published[arch]
+    if arch == "jamba-v0.1-52b":          # tests/test_models_smoke.py:84
+        assert round(param_count(get_config(arch)) / 1e9, 1) == 51.6
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b-window",
-                                  "gemma3-27b", "qwen2.5-14b", "xlstm-350m"])
+                                  "gemma3-27b", "qwen2.5-14b", "xlstm-350m"]
+                         + MOE_ARCHS)
 def test_prefill_decode_matches_forward(arch):
     """Port only: teacher-forced decode steps reproduce the full forward's
     logits (the reference's invariant, ``tests/test_cache_consistency.py``,
-    at its 5e-3 relative to the largest logit)."""
+    at its 5e-3 relative to the largest logit).  MoE archs run with
+    capacity factor 16, as there: capacity drops legitimately differ
+    between routing groups of other lengths."""
     cfg = _cfg(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
     params = init_model(cfg, seed=3, device="cpu")
     b, p, n_new = 2, 10, 3
     toks = torch.tensor(np.random.RandomState(4).randint(
@@ -279,9 +302,116 @@ def test_init_cache_matches_reference_states():
     torch.testing.assert_close(dec, full, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "olmoe-1b-7b",
-                                  "arctic-480b", "whisper-medium",
-                                  "pixtral-12b"])
+def test_converters_carry_jamba_pytrees():
+    """``lm_params_from_numpy`` and ``lm_cache_from_numpy`` unstack jamba's
+    groups (p0..p7: "mamba" or "attn", "ffn" or "moe") and its cache ({h,
+    conv}, {k, v}) into one dict per layer, leaf for leaf: layer g * 8 + j
+    is group g's "p{j}"."""
+    cfg = _cfg("jamba-v0.1-52b")
+    rcfg = _ref_cfg(cfg)
+    rparams = ref_init_model(jax.random.PRNGKey(3), rcfg)
+    tree = _np_tree(rparams)
+    params = lm_params_from_numpy(tree, cfg, device="cpu")
+    toks = jnp.asarray(np.random.RandomState(7).randint(
+        0, cfg.raw_vocab_size, (2, 5)))
+    cache = _np_tree(ref_prefill(rparams, rcfg, {"tokens": toks},
+                                 cache_len=8)[1])
+    layers = lm_cache_from_numpy(cache, cfg, "cpu")["layers"]
+    period = cfg.layer_period
+    assert period == 8 and len(params["layers"]) == len(layers) == 16
+    for i, (lp, entry) in enumerate(zip(params["layers"], layers)):
+        g, j = divmod(i, period)
+        mixer = "mamba" if cfg.layer_kind(i) == "mamba" else "attn"
+        ffn_key = "moe" if cfg.ffn_kind(i) == "moe" else "ffn"
+        assert set(lp) == {"ln1", mixer, "ln2", ffn_key}
+        for part in (mixer, ffn_key):
+            assert set(lp[part]) == set(tree["groups"][f"p{j}"][part])
+            for key, leaf in lp[part].items():
+                want = tree["groups"][f"p{j}"][part][key][g]
+                assert torch.equal(leaf, torch.from_numpy(np.array(want)))
+        assert set(entry) == ({"h", "conv"} if mixer == "mamba"
+                              else {"k", "v"})
+        for key, leaf in entry.items():
+            want = cache["groups"][f"p{j}"][key][g]
+            assert torch.equal(leaf, torch.from_numpy(np.array(want)))
+
+
+def test_pad_cache_to_leaves_mamba_states():
+    """A Mamba layer's h (B, dI, N) and conv rows (B, dconv - 1, dI) pass
+    through as the same tensors; the attention layers' K/V grow."""
+    cfg = _cfg("jamba-v0.1-52b")
+    params = init_model(cfg, seed=2, device="cpu")
+    toks = torch.tensor(np.random.RandomState(5).randint(
+        0, cfg.raw_vocab_size, (2, 6)))
+    _, cache = prefill(params, cfg, {"tokens": toks})
+    grown = pad_cache_to(cache, cfg, 64)
+    di = cfg.mamba_expand * cfg.d_model
+    for i, (entry, before) in enumerate(zip(grown["layers"],
+                                            cache["layers"])):
+        assert set(entry) == set(before)
+        if cfg.layer_kind(i) == "mamba":
+            assert all(entry[k] is before[k] for k in entry)
+            assert entry["h"].shape == (2, di, cfg.mamba_d_state)
+            assert entry["conv"].shape == (2, cfg.mamba_d_conv - 1, di)
+        else:
+            assert entry["k"].shape[1] == 64 and before["k"].shape[1] == 6
+    assert cache_seq_len(cfg, grown) == 64
+
+
+def test_init_cache_matches_reference_mamba_states():
+    """jamba's zero cache equals the reference's (Mamba h float32, conv in
+    the cache dtype; K/V), and a decode step from it at pos 0 gives a
+    one-token forward's logits."""
+    from repro.models import init_cache as ref_init_cache
+    cfg = _cfg("jamba-v0.1-52b")
+    cache = init_cache(cfg, 2, 6, dtype=torch.float32, device="cpu")
+    ref = lm_cache_from_numpy(_np_tree(ref_init_cache(
+        _ref_cfg(cfg), 2, 6, dtype=jnp.float32)), cfg, "cpu")
+    for got, want in zip(cache["layers"], ref["layers"]):
+        assert set(got) == set(want)
+        for key in got:
+            assert got[key].dtype == want[key].dtype
+            assert torch.equal(got[key], want[key])
+    assert init_cache(cfg, 1, 4, device="cpu")["layers"][0]["conv"].dtype \
+        == torch.bfloat16
+    params = init_model(cfg, seed=1, device="cpu")
+    tok = torch.tensor([[3], [7]])
+    dec, _ = decode_step(params, cfg, cache, tok, 0)
+    full, _ = apply_model(params, cfg, {"tokens": tok})
+    torch.testing.assert_close(dec, full, atol=TOL, rtol=TOL)
+
+
+def test_forward_sums_the_moe_aux_loss(pair):
+    """``apply_model``'s aux is the MoE layers' summed load-balancing loss,
+    the reference's; 0 without MoE."""
+    from repro.models import apply_model as ref_apply_model
+    cfg, params, rcfg, rparams = pair
+    toks = np.random.RandomState(6).randint(0, cfg.raw_vocab_size, (2, 12))
+    _, aux = apply_model(params, cfg, {"tokens": torch.tensor(toks)})
+    _, raux = ref_apply_model(rparams, rcfg, {"tokens": jnp.asarray(toks)})
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(float(aux), float(raux), atol=TOL, rtol=TOL)
+    assert (float(aux) > 0) == bool(cfg.n_experts)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_group_contract_raises(arch):
+    """A prompt longer than moe_group must be a multiple of it
+    (``repro/models/moe.py:44-46``): the prefill and the engine raise
+    ``ValueError``; a length at the group or a multiple of it serves."""
+    cfg = dataclasses.replace(_cfg(arch), moe_group=8)
+    params = init_model(cfg, seed=0, device="cpu")
+    eng = ServeEngine(cfg, params, max_len=40, device="cpu")
+    with pytest.raises(ValueError, match="moe.py:44-46"):
+        prefill(params, cfg, {"tokens": torch.ones((1, 12), dtype=torch.long)})
+    with pytest.raises(ValueError, match="moe.py:44-46"):
+        eng.serve_wave([Request(prompt=np.arange(12) + 2, max_new_tokens=2)])
+    req = Request(prompt=np.arange(16) + 2, max_new_tokens=2)
+    eng.serve_wave([req])
+    assert len(req.out_tokens) == 2
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "pixtral-12b"])
 def test_unported_families_raise(arch):
     cfg = smoke_config(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -49,11 +49,16 @@ xcfg = smoke_config(get_config("xlstm-350m"))
 xreq = Request(prompt=np.arange(7) + 2, max_new_tokens=3)
 ServeEngine(xcfg, init_model(xcfg, device="cpu"), max_len=32,
             device="cpu").serve_wave([xreq])
+jcfg = smoke_config(get_config("jamba-v0.1-52b"))
+jreq = Request(prompt=np.arange(5) + 2, max_new_tokens=3)
+ServeEngine(jcfg, init_model(jcfg, device="cpu"), max_len=32,
+            device="cpu").serve_wave([jreq])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              or m.startswith("jax"))
 print(json.dumps({"pick": pick, "tokens": req.out_tokens,
-                  "xlstm_tokens": xreq.out_tokens, "bad": bad}))
+                  "xlstm_tokens": xreq.out_tokens,
+                  "jamba_tokens": jreq.out_tokens, "bad": bad}))
 """
 
 
@@ -67,6 +72,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert 4 <= got["pick"] <= 36
     assert len(got["tokens"]) == 3
     assert len(got["xlstm_tokens"]) == 3
+    assert len(got["jamba_tokens"]) == 3
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -93,6 +99,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: lm_cache_from_numpy({"groups": {}}, cfg),
              lambda: serve_main(["--arch", "qwen3-0.6b", "--smoke"]),
              lambda: serve_main(["--arch", "xlstm-350m", "--smoke"]),
+             lambda: serve_main(["--arch", "jamba-v0.1-52b", "--smoke"]),
              lambda: EnelTrainer(),
              lambda: ContextEncoder([JOBS["kmeans"]]),
              lambda: init_enel(torch.Generator()),
