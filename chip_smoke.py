@@ -40,10 +40,14 @@ Phases (any failure exits non-zero; nothing is caught):
    ``mha`` on ``tests/test_kernels.py``'s sweep in float32 (atol = rtol =
    2e-5) and bfloat16 (3e-2), plus qwen3-0.6b's shapes (B = 8, S up to
    1024, H = 16, Kh = 8, D = 128, bf16), jamba's (H = 32, Kh = 8, D =
-   128) and a D = 256 case with window and softcap; ``decode_attn`` on
-   that file's decode sweep plus the models' shapes (B = 8, cache 2048, pos
-   near 0, mid-cache and at the end, with and without a window; H = 16 and
-   32); every case launched twice, bit for bit equal;
+   128), a D = 256 case with window and softcap, and the tensor-core
+   route's own cases (S = 812 and 1000, ragged against its 128-row and
+   128-key tiles; kv_len < S); ``decode_attn`` on that file's decode sweep
+   plus the models' shapes (B = 8, cache 2048, pos near 0, mid-cache and at
+   the end, with and without a window; H = 16 and 32) and split-K's own
+   cases (1023, 1024 and 1025 visible keys around a chunk boundary of
+   ``split_plan``; windows that end inside a chunk); every case launched
+   twice, bit for bit equal;
 9. the serving path: ``ServeEngine`` over the full qwen3-0.6b config (28
    layers, bf16, seeded ``init_model`` weights, ``max_len`` = 2048) serves
    two waves of 8 requests (prompt lengths in [128, 1024] from
@@ -58,7 +62,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (the decode kernel with its caches cold in L2, as the loop finds them)
    beside its bound, its plain version and one
    ``scaled_dot_product_attention`` call (``library_ms``, a yardstick the
-   port never calls); prefill latency, decode ms per step, tokens/s and the
+   port never calls), as CUDA events over back-to-back calls and over the
+   replay of a CUDA graph of them (the kernel's own time when the host's
+   launch cost exceeds it), with each kernel's registers and spills from
+   ``ptxas -v``; prefill latency, decode ms per step, tokens/s and the
    device-busy share of a prefill and of the decode loop;
 11. the mLSTM kernel against its plain version on the card: ``mlstm`` on
    ``tests/test_kernels.py``'s mLSTM sweep and a ragged last kernel chunk in
@@ -132,6 +139,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -273,6 +281,20 @@ def profile_device(fn, reps: int = 10, names=("graph_prop",)):
                 per[nm] += t
     return (busy / 1e3 / reps, {nm: t / 1e3 / reps for nm, t in per.items()},
             kernels / reps)
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed between CUDA events (median of ``reps``), so that the
+    host's launch cost, which can exceed a short kernel's run, is not
+    counted.  (A profiler trace is no substitute: it can drop kernels.)"""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, burst=1, reps=reps) / calls
 
 
 def top_device_kernels(fn, k: int = 6):
@@ -527,6 +549,19 @@ DECODE_MODEL = [(8, 2048, 16, 8, 128, pos, win, 0.0)
                 for pos in (0, 1023, 2047) for win in (0, 256)] + \
     [(8, 2048, 32, 8, 128, pos, 0, 0.0) for pos in (0, 1087, 2047)] + \
     [(2, 1024, 8, 4, 256, 700, 512, 50.0)]
+# the bf16 tensor-core route of mha: S ragged against the 128-row q-tile and
+# the 128-key tile (qwen3's S = 812, and 1000) and kv_len < S; (..., kv_len)
+MHA_TC = [(8, 812, 16, 8, 128, True, 0, 0.0, 0),
+          (8, 1000, 16, 8, 128, True, 0, 0.0, 0),
+          (8, 812, 16, 8, 128, True, 0, 0.0, 775),
+          (2, 300, 4, 2, 64, False, 0, 0.0, 263)]
+# split-K decode at the model's shape: 1023, 1024 and 1025 visible keys sit
+# just below, at and above a chunk boundary of split_plan (8 chunks of 128,
+# then 9); windows of 100 and 300 keys end inside a chunk
+DECODE_SPLIT = [(8, 2048, 16, 8, 128, pos, 0, 0.0)
+                for pos in (1022, 1023, 1024)] + \
+    [(8, 2048, 16, 8, 128, 1023, 100, 0.0),
+     (8, 2048, 16, 8, 128, 1500, 300, 0.0)]
 
 
 def _randn(rng, shape, dtype, device):
@@ -541,11 +576,12 @@ def check_lm_kernels(device, fa, fd):
     rng = np.random.RandomState(SEED)
     errs = {"mha": {f32: 0.0, bf16: 0.0}, "decode": {f32: 0.0, bf16: 0.0}}
     mha_cases = [(c, dt) for c in MHA_SWEEP for dt in (f32, bf16)] + \
-        [(c, bf16) for c in MHA_MODEL] + [(MHA_MODEL[-1], f32)]
-    for (b, s, h, kh, d, causal, win, cap), dt in mha_cases:
+        [(c, bf16) for c in MHA_MODEL + MHA_TC] + [(MHA_MODEL[-1], f32)]
+    for (b, s, h, kh, d, causal, win, cap, *kv_len), dt in mha_cases:
         q = _randn(rng, (b, s, h, d), dt, device)
         k, v = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
-        kw = dict(causal=causal, window=win, softcap=cap)
+        kw = dict(causal=causal, window=win, softcap=cap,
+                  kv_len=kv_len[0] if kv_len else 0)
         got, again = fa.mha(q, k, v, **kw), fa.mha(q, k, v, **kw)
         torch.cuda.synchronize()
         what = f"mha {dt} B={b} S={s} H={h} Kh={kh} D={d} {kw}"
@@ -554,7 +590,8 @@ def check_lm_kernels(device, fa, fd):
                     LM_TOL[dt], LM_TOL[dt])
         errs["mha"][dt] = max(errs["mha"][dt], err)
         say(f"  {what}: max abs err {err:.3g}, repeat bit-equal")
-    dec_cases = [(c, dt) for c in DECODE_SWEEP for dt in (f32, bf16)] + \
+    dec_cases = [(c, dt) for c in DECODE_SWEEP + DECODE_SPLIT
+                 for dt in (f32, bf16)] + \
         [(c, bf16) for c in DECODE_MODEL] + [(DECODE_MODEL[-1], f32)]
     for (b, s, h, kh, d, pos, win, cap), dt in dec_cases:
         q = _randn(rng, (b, 1, h, d), dt, device)
@@ -563,7 +600,9 @@ def check_lm_kernels(device, fa, fd):
         got = fd.decode_attn(q, ck, cv, pos, **kw)
         again = fd.decode_attn(q, ck, cv, pos, **kw)
         torch.cuda.synchronize()
-        what = f"decode_attn {dt} B={b} S={s} H={h} Kh={kh} D={d} pos={pos} {kw}"
+        kbeg = max(0, pos - win + 1) if win else 0
+        what = (f"decode_attn {dt} B={b} S={s} H={h} Kh={kh} D={d} pos={pos} "
+                f"{kw}, (chunk, chunks) {fd.split_plan(b, kh, kbeg, pos)}")
         assert torch.equal(got, again), f"{what}: not repeatable"
         err = close(got.float(),
                     fd.decode_attn_plain(q, ck, cv, pos, **kw).float(), what,
@@ -716,6 +755,24 @@ def decode_work(b, h, kh, d, pos, elt=2):
     once, q read and the output written once."""
     n = pos + 1
     return 4 * b * h * d * n, elt * (2 * b * kh * n * d + 2 * b * h * d)
+
+
+def ptxas_usage(kname: str, symbol: str) -> dict:
+    """{registers, spill_stores, spill_loads} (bytes) of the instantiation
+    of kernel ``kname`` whose mangled name holds ``symbol``, from the
+    ``ptxas -v`` log of this process's build; {"ptxas": "not built in this
+    process"} when the library came from ``build/kernels``."""
+    from repro_torch.kernels import build
+    info = build.BUILDS.get(kname)
+    lines = info.log.splitlines() if info is not None else []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and symbol in line:
+            text = " ".join(lines[i + 1:i + 4])
+            num = lambda pat: int(re.search(pat, text).group(1))
+            return {"registers": num(r"Used (\d+) registers"),
+                    "spill_stores": num(r"(\d+) bytes spill stores"),
+                    "spill_loads": num(r"(\d+) bytes spill loads")}
+    return {"ptxas": "not built in this process"}
 
 
 def bound(flops, nbytes, peak):
@@ -1681,13 +1738,19 @@ def main() -> int:
     fa_lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), burst=10)
     fa_ms2 = median_ms(fa_launch, burst=10)
+    fa_dev = graph_ms(fa_launch)
+    fa_lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
     fl, nb = prefill_work(b, p0, h, kh, d)
     fa_bound, fa_by = bound(fl, nb, BF16_FLOPS)
+    fa_regs = ptxas_usage("flash_attention_fwd", f"fa_fwd_tcILi{d}E")
     say(f"flash_attention_fwd at B={b} S={p0} H={h} Kh={kh} D={d} bf16 "
-        f"causal on {card}: kernel {fa_ms:.4f} ms (again {fa_ms2:.4f}), "
-        f"plain {fa_plain_ms:.4f} ms, SDPA {fa_lib_ms:.4f} ms, bound "
+        f"causal on {card}: kernel {fa_ms:.4f} ms (again {fa_ms2:.4f}; in "
+        f"a CUDA graph {fa_dev:.4f}), plain {fa_plain_ms:.4f} ms, SDPA "
+        f"{fa_lib_ms:.4f} ms (in a CUDA graph {fa_lib_dev:.4f}), bound "
         f"{fa_bound:.5f} ms by {fa_by} ({fl / 1e9:.2f} GFLOP, "
-        f"{nb / 1e6:.1f} MB)")
+        f"{nb / 1e6:.1f} MB; {1.5 * fl / fa_dev / 1e9:.0f} TFLOP/s of "
+        f"tensor-core work with P split in hi + lo); ptxas {fa_regs}")
     del q, k, v, out, qt, kt, vt
     pos_main = p0 + LM_NEW - 1          # wave 0's last decode position
     fd_times = {}
@@ -1711,15 +1774,30 @@ def main() -> int:
         t_l = median_ms(lambda: F.scaled_dot_product_attention(
             qdt, *rows[next(turn)], enable_gqa=True), burst=50)
         t_k2 = median_ms(fd_launch, burst=50)
+        t_dev = graph_ms(fd_launch, calls=48)
+        t_l_dev = graph_ms(lambda: F.scaled_dot_product_attention(
+            qdt, *rows[next(turn)], enable_gqa=True), calls=48)
         del rows
         fl, nb = decode_work(b, h, kh, d, pos)
         t_b, by = bound(fl, nb, BF16_FLOPS)
-        fd_times[pos] = {"ms": t_k, "again": t_k2, "plain_ms": t_p,
-                         "library_ms": t_l, "bound_ms": t_b, "bound_by": by}
+        plan = fd.split_plan(b, kh, 0, pos)
+        fd_times[pos] = {"ms": t_dev, "back_to_back_ms": t_k, "again": t_k2,
+                         "plain_ms": t_p, "library_ms": t_l_dev,
+                         "library_back_to_back_ms": t_l, "bound_ms": t_b,
+                         "bound_by": by, "split_plan": plan}
         say(f"flash_decode at B={b} H={h} Kh={kh} D={d} cache "
-            f"{LM_MAX_LEN} pos={pos} bf16, L2 cold, on {card}: kernel "
-            f"{t_k:.4f} ms (again {t_k2:.4f}), plain {t_p:.4f} ms, SDPA "
-            f"{t_l:.4f} ms, bound {t_b:.5f} ms by {by} ({nb / 1e6:.2f} MB)")
+            f"{LM_MAX_LEN} pos={pos} bf16, L2 cold, on {card}: kernel in a "
+            f"CUDA graph {t_dev:.4f} ms (back-to-back calls {t_k:.4f}, again "
+            f"{t_k2:.4f}: host-bound), plain {t_p:.4f} ms, SDPA in a CUDA "
+            f"graph {t_l_dev:.4f} ms (back-to-back {t_l:.4f}), bound "
+            f"{t_b:.5f} ms by {by} ({nb / 1e6:.2f} MB; "
+            f"{nb / t_dev / 1e6:.0f} GB/s); "
+            f"(chunk, chunks) {plan}, {b * kh * plan[1]} blocks")
+    fd_regs = {g: ptxas_usage("flash_decode",
+                              f"fd_kernelI13__nv_bfloat16Li128ELi{g}E")
+               for g in (2, 4)}
+    say(f"flash_decode ptxas at D = 128, bf16: group 2 (qwen3) "
+        f"{fd_regs[2]}, group 4 (jamba) {fd_regs[4]}")
     del caches, qd, qdt, outd
     first = [runs[0][1] for runs in served]
     for w, st in enumerate(first):
@@ -1828,8 +1906,9 @@ def main() -> int:
                              "serving_jamba": jb["launches"][1]},
         "max_abs_err": max(lm_errs["mha"].values()),
         "max_abs_err_f32": lm_errs["mha"][torch.float32],
-        "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
-        "bound_by": fa_by, "library_ms": fa_lib_ms,
+        "ms": fa_dev, "back_to_back_ms": fa_ms, "plain_ms": fa_plain_ms,
+        "bound_ms": fa_bound, "bound_by": fa_by, "library_ms": fa_lib_dev,
+        "library_back_to_back_ms": fa_lib_ms, "ptxas": fa_regs,
         "shape": {"B": b, "S": p0, "H": h, "Kh": kh, "D": d,
                   "dtype": "bfloat16", "causal": True},
     }, {
@@ -1846,6 +1925,9 @@ def main() -> int:
         "bound_ms": fd_times[pos_main]["bound_ms"],
         "bound_by": fd_times[pos_main]["bound_by"],
         "library_ms": fd_times[pos_main]["library_ms"],
+        "back_to_back_ms": fd_times[pos_main]["back_to_back_ms"],
+        "split_plan": fd_times[pos_main]["split_plan"],
+        "ptxas": fd_regs,
         "shape": {"B": b, "H": h, "Kh": kh, "D": d, "cache": LM_MAX_LEN,
                   "pos": pos_main, "dtype": "bfloat16"},
         "at_pos_end": fd_times[LM_MAX_LEN - 1],

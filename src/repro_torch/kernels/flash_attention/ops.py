@@ -6,9 +6,17 @@ first use) or raises; it never falls back.  On CPU tensors it runs
 :func:`mha_plain`, the same function in plain PyTorch ops, which is also
 what the kernel is held against on the card.
 
+The kernel has two routes: bfloat16 runs on the tensor cores (``wgmma``, fed
+by 16-byte ``cp.async``), float32 on the CUDA cores.  Both read the model's
+layout through strides and mask the ragged tail of S themselves.  The
+bfloat16 route needs 16-byte rows: unit innermost stride, the other strides
+multiples of 8 elements, 16-byte aligned data, D a multiple of 8.  An input
+that breaks this is copied first (contiguous, and D zero-padded to a
+multiple of 8); no configuration under ``configs/`` (D 64, 128, 256) needs
+a copy.
+
 Counterpart of ``repro.kernels.flash_attention.ops.mha`` (whose kernel is
-``flash_attention``); unlike it, nothing is transposed or padded here: the
-kernel reads the model's layout through strides and masks the ragged tail.
+``flash_attention``), which transposes and pads every call.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import math
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -107,9 +116,26 @@ def _kernel_fn():
     return _FN
 
 
+def _rows_16b(x: torch.Tensor) -> bool:
+    """Whether the bfloat16 route can read ``x`` with 16-byte copies."""
+    return (x.shape[-1] % 8 == 0 and x.stride(-1) == 1
+            and all(st % 8 == 0 for st in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0)
+
+
+def _for_tensor_cores(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """``x`` as the bfloat16 route reads it: itself where its layout allows,
+    else a contiguous copy, zero-padded to ``d_pad`` columns."""
+    if x.shape[-1] != d_pad:
+        return F.pad(x, (0, d_pad - x.shape[-1]))
+    return x if _rows_16b(x) else x.contiguous()
+
+
 def _launch(q, k, v, out, causal: bool, window: int, softcap: float,
-            kv_len: int) -> None:
-    """One launch of ``flash_attention_fwd`` on checked CUDA tensors."""
+            kv_len: int, scale: float = 0.0) -> None:
+    """One launch of ``flash_attention_fwd`` on checked CUDA tensors (for
+    bfloat16, laid out as :func:`_for_tensor_cores` leaves them).  ``scale``
+    defaults to 1/sqrt(D)."""
     global LAUNCHES
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
@@ -118,7 +144,7 @@ def _launch(q, k, v, out, causal: bool, window: int, softcap: float,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride(), *k.stride(), *v.stride(), *out.stride(),
             b, sq, sk, h, kh, d, int(causal), int(window), int(kv_len or sk),
-            _DTYPE_CODE[q.dtype], float(1.0 / math.sqrt(d)),
+            _DTYPE_CODE[q.dtype], float(scale or 1.0 / math.sqrt(d)),
             float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError "
@@ -137,7 +163,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` if ``window`` > 0; logits are scaled by 1/sqrt(D) and, with
     ``softcap`` > 0, capped as ``softcap * tanh(s / softcap)``.
 
-    CPU tensors run :func:`mha_plain`; CUDA tensors launch the kernel.
+    CPU tensors run :func:`mha_plain`; CUDA tensors launch the kernel.  A
+    bfloat16 input whose layout rules out 16-byte copies (D not a multiple
+    of 8, an innermost stride other than 1, another stride not a multiple
+    of 8 elements, data not 16-byte aligned) is copied to a contiguous
+    tensor first, zero-padded to a multiple of 8 columns; the kernel still
+    runs.
     """
     _check(q, k, v, window, softcap, kv_len)
     if q.device.type == "cpu":
@@ -145,7 +176,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          softcap=softcap, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16:
+        d_pad = -(-d // 8) * 8
+        q, k, v = (_for_tensor_cores(x, d_pad) for x in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
-        _launch(q, k, v, out, causal, window, softcap, kv_len)
-    return out
+        _launch(q, k, v, out, causal, window, softcap, kv_len,
+                scale=1.0 / math.sqrt(d))
+    return out if out.shape[-1] == d else out[..., :d].contiguous()

@@ -6,6 +6,15 @@ first use) or raises; it never falls back.  On CPU tensors it runs
 :func:`decode_attn_plain`, the same function in plain PyTorch ops, which is
 also what the kernel is held against on the card.
 
+The kernel splits the visible keys into chunks (:func:`split_plan`), one
+block per (chunk, kv head, batch), and merges the chunks in the same launch:
+the block that finishes last for its (batch, kv head) merges them in chunk
+order, so results repeat bit for bit.  It reads the cache with 16-byte
+loads, which need D a multiple of 8, a unit innermost stride, the other
+strides multiples of 16 bytes and 16-byte aligned data; a cache that breaks
+this is copied first (contiguous, D zero-padded to a multiple of 8).  The
+models' caches (D 64, 128, 256, allocated contiguous) never are.
+
 Counterpart of ``repro.kernels.flash_decode.ops.decode_attn`` (whose kernel
 is ``flash_decode``); unlike it, the cache is read in place in its own
 layout, never transposed, and ``pos`` is a host int.
@@ -15,8 +24,10 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -27,10 +38,57 @@ MAX_GROUP = 8           # query heads per kv head one block serves
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# split_plan: about SPLIT_BLOCKS_PER_SM blocks on each of the H100's SMS
+SMS = 132
+SPLIT_BLOCKS_PER_SM = 4
+CHUNK_ALIGN = 64        # keys; a chunk's length is a multiple of this
+MAX_CHUNKS = 64         # per (batch, kv head); the kernel's kMaxChunks
+
 # kernel launches since import (or since the caller last reset them)
 LAUNCHES = 0
 
 _FN = None
+_TICKETS: Dict[int, torch.Tensor] = {}   # per device: B * Kh zeroed ints
+
+
+def split_plan(b: int, n_kv: int, kbeg: int, pos: int) -> Tuple[int, int]:
+    """(chunk, n_chunks): the kernel's cut of the visible keys [kbeg, pos]
+    into ``n_chunks`` chunks of ``chunk`` keys (the last one shorter), one
+    block each per (batch, kv head).
+
+    Enough chunks for about ``SPLIT_BLOCKS_PER_SM`` blocks on every SM, each
+    a multiple of ``CHUNK_ALIGN`` keys long, at most ``MAX_CHUNKS``.  Chunk
+    i covers [kbeg + i * chunk, min(kbeg + (i + 1) * chunk, pos + 1)); none
+    is empty.  Deterministic in its arguments, so a call repeats bit for bit.
+    """
+    n_keys = pos - kbeg + 1
+    if n_keys < 1:
+        raise ValueError(f"no visible key: kbeg={kbeg}, pos={pos}")
+    want = min(MAX_CHUNKS, -(-SPLIT_BLOCKS_PER_SM * SMS // (b * n_kv)))
+    chunk = -(-n_keys // want)
+    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    return chunk, -(-n_keys // chunk)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's per-(batch, kv head) tickets on ``device``: zeroed once,
+    and left zeroed by every launch.  Launches on one device must not run
+    concurrently on two streams, since they share these."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    buf = _TICKETS.get(idx)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[idx] = buf
+    return buf
+
+
+def _rows_16b(x: torch.Tensor) -> bool:
+    """Whether the kernel can read cache ``x`` with 16-byte loads."""
+    vec = 16 // x.element_size()
+    return (x.shape[-1] % 8 == 0 and x.stride(-1) == 1
+            and all(st % vec == 0 for st in x.stride()[:-1])
+            and x.data_ptr() % 16 == 0)
 
 
 def decode_attn_plain(q: torch.Tensor, cache_k: torch.Tensor,
@@ -95,27 +153,38 @@ def _kernel_fn():
     if _FN is None:
         fn = build.load(SOURCE).flash_decode
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 14
-                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
 def _launch(q, cache_k, cache_v, out, pos: int, window: int,
-            softcap: float) -> None:
-    """One launch of ``flash_decode`` on checked CUDA tensors."""
+            softcap: float, scale: float = 0.0) -> None:
+    """One launch of ``flash_decode`` on checked CUDA tensors (the cache laid
+    out for 16-byte loads); ``scale`` defaults to 1/sqrt(D)."""
     global LAUNCHES
     b, _, h, d = q.shape
+    kh = cache_k.shape[2]
     qs, ks, vs, os_ = (q.stride(), cache_k.stride(), cache_v.stride(),
                        out.stride())
+    kbeg = max(0, pos - window + 1) if window else 0
+    chunk, n_chunks = split_plan(b, kh, kbeg, pos)
+    part = tickets = None
+    if n_chunks > 1:
+        part = torch.empty(b * kh * n_chunks * (h // kh) * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, b * kh)
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             out.data_ptr(), qs[0], qs[2], qs[3], *ks, *vs,
-            os_[0], os_[2], os_[3], b, h, cache_k.shape[2], d, pos, window,
-            _DTYPE_CODE[q.dtype], float(1.0 / math.sqrt(d)), float(softcap),
-            stream)
+            os_[0], os_[2], os_[3], b, h, kh, d, pos, window, chunk,
+            n_chunks, _DTYPE_CODE[q.dtype],
+            float(scale or 1.0 / math.sqrt(d)), float(softcap),
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -132,7 +201,9 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
     kernel has no cap).
 
     CPU tensors run :func:`decode_attn_plain`; CUDA tensors launch the
-    kernel, which reads only the cache rows the token sees.
+    kernel, which reads only the cache rows the token sees.  A cache whose
+    layout rules out 16-byte loads (see the module docstring) is copied
+    first; the kernel still runs.
     """
     pos, window = int(pos), int(window)
     _check(q, cache_k, cache_v, pos, window, softcap)
@@ -141,7 +212,15 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
                                  softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
+    d = q.shape[-1]
+    d_pad = -(-d // 8) * 8
+    if d_pad != d:
+        q, cache_k, cache_v = (F.pad(x, (0, d_pad - d))
+                               for x in (q, cache_k, cache_v))
+    cache_k, cache_v = (x if _rows_16b(x) else x.contiguous()
+                        for x in (cache_k, cache_v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
-        _launch(q, cache_k, cache_v, out, pos, window, softcap)
-    return out
+        _launch(q, cache_k, cache_v, out, pos, window, softcap,
+                scale=1.0 / math.sqrt(d))
+    return out if d_pad == d else out[..., :d].contiguous()

@@ -127,8 +127,7 @@ def multi_head_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 # ---------------------------------------------------------------- decode path
 def init_kv_cache(cfg: ModelConfig, batch: int, seq: int,
-                  dtype: torch.dtype = torch.bfloat16,
-                  device: torch.device = torch.device("cpu")) -> Dict:
+                  dtype: torch.dtype, device: torch.device) -> Dict:
     shape = (batch, seq, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -33,6 +33,31 @@ DECODE_SWEEP = [(2, 256, 4, 2, 32, 100, 0),
                 (1, 128, 2, 2, 128, 64, 32)]
 
 
+# (B, S, H, Kh, D, causal, window, softcap, kv_len): the bfloat16 route's
+# own cases on the card: every padded head dim, S ragged against the 128-row
+# q-tile and the K/V tile (qwen3's prefill S = 812, and 1000), kv_len < S,
+# window with softcap at D = 256, and D = 24, which the wrapper pads to 32
+MHA_TC_CASES = [(2, 200, 4, 2, d, True, 0, 0.0, 0) for d in (32, 64, 128,
+                                                              256)] + \
+    [(8, 812, 16, 8, 128, True, 0, 0.0, 0),
+     (2, 1000, 4, 2, 128, True, 0, 0.0, 0),
+     (2, 300, 4, 2, 64, True, 0, 0.0, 263),
+     (2, 300, 4, 2, 64, False, 0, 0.0, 263),
+     (2, 520, 8, 4, 256, True, 128, 50.0, 0),
+     (1, 150, 4, 2, 24, True, 0, 0.0, 0)]
+# (B, S, H, Kh, D, pos, window, softcap): split-K decode on the card: pos 0,
+# the model's shapes just below, at and above a chunk boundary of
+# split_plan (1023 keys: 8 chunks of 128, the last one short; 1024: 8 full;
+# 1025: 9, the last one key), a window whose first key starts a chunk
+# mid-cache, group 4 (jamba) and 5 (qwen2.5), and D = 256 with a softcap
+DECODE_SPLIT_CASES = [(8, 2048, 16, 8, 128, pos, 0, 0.0)
+                      for pos in (0, 1022, 1023, 1024)] + \
+    [(8, 2048, 16, 8, 128, 1500, 300, 0.0),
+     (8, 2048, 32, 8, 128, 2047, 0, 0.0),
+     (2, 300, 40, 8, 128, 299, 0, 0.0),
+     (2, 1024, 8, 4, 256, 700, 512, 50.0)]
+
+
 def _mha_inputs(b, s, h, kh, d, seed, sk=None):
     rng = np.random.RandomState(seed)
     sk = s if sk is None else sk
@@ -178,6 +203,59 @@ def test_decode_wrapper_refuses_bad_inputs():
         fd.decode_attn(q, ck, cv[:, :8], 3)
 
 
+SPLIT_SHAPES = [(8, 8), (8, 1), (2, 4), (1, 1)]    # (B, Kh)
+SPLIT_CHUNK = fd.split_plan(8, 8, 0, 2047)[0]      # the model's chunk at 2047
+
+
+@pytest.mark.parametrize("window", [0, 5, 256])
+@pytest.mark.parametrize("pos", [0, 1, SPLIT_CHUNK - 1, SPLIT_CHUNK, 875,
+                                 2047])
+def test_split_plan_covers_the_visible_keys_once(pos, window):
+    """split_plan's chunks cover [kbeg, pos] exactly once, in order, none
+    empty, each a multiple of CHUNK_ALIGN long, at most MAX_CHUNKS of them,
+    and give at least the 64 blocks of one block per (batch, kv head) at the
+    models' B = 8, Kh = 8."""
+    kbeg = max(0, pos - window + 1) if window else 0
+    for b, kh in SPLIT_SHAPES:
+        chunk, n = fd.split_plan(b, kh, kbeg, pos)
+        assert chunk % fd.CHUNK_ALIGN == 0 and 1 <= n <= fd.MAX_CHUNKS
+        spans = [(kbeg + i * chunk, min(kbeg + (i + 1) * chunk, pos + 1))
+                 for i in range(n)]
+        assert spans[0][0] == kbeg and spans[-1][1] == pos + 1
+        assert all(lo < hi for lo, hi in spans)
+        assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
+        assert fd.split_plan(b, kh, kbeg, pos) == (chunk, n)
+    assert 8 * 8 * fd.split_plan(8, 8, kbeg, pos)[1] >= 64
+
+
+@pytest.mark.parametrize("pos", [875, 2047])
+def test_split_plan_fills_the_card_at_the_models_shapes(pos):
+    """At qwen3's and jamba's decode (B = 8, Kh = 8, no window) the plan
+    gives at least two blocks for each of the H100's 132 SMs."""
+    chunk, n = fd.split_plan(8, 8, 0, pos)
+    assert 8 * 8 * n >= 2 * fd.SMS
+    assert (n - 1) * chunk < pos + 1 <= n * chunk
+
+
+def test_split_plan_refuses_an_empty_range():
+    with pytest.raises(ValueError, match="no visible key"):
+        fd.split_plan(8, 8, 10, 9)
+
+
+def test_bf16_hi_lo_split_keeps_p_to_2_pow_minus_16():
+    """The premise of the bfloat16 route's P V product: p split into hi =
+    bf16(p) and lo = bf16(p - hi), both exact in float32, gives back p to
+    2^-16 relative (bf16 P alone keeps 2^-8)."""
+    rng = np.random.RandomState(11)
+    s = torch.tensor(rng.uniform(-60.0, 0.0, size=1 << 16).astype(np.float32))
+    p = torch.exp(s)
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+    back = hi.float() + lo.float()
+    assert float(((back - p).abs() / p).max()) <= 2.0 ** -16
+    assert float(((hi.float() - p).abs() / p).max()) > 2.0 ** -16
+
+
 @pytest.fixture
 def card():
     """The CUDA card and nvcc, or a skip naming what is missing."""
@@ -217,6 +295,43 @@ def test_mha_kernel_matches_plain_on_card(card, b, s, h, kh, d, causal, win,
 @pytest.mark.parametrize("b,s,h,kh,d,pos,win", DECODE_SWEEP)
 def test_decode_kernel_matches_plain_on_card(card, b, s, h, kh, d, pos, win,
                                              cap, dtype):
+    q, ck, cv = _t(*_decode_inputs(b, s, h, kh, d, seed=s + pos),
+                   device=card, dtype=dtype)
+    launches = fd.LAUNCHES
+    got = fd.decode_attn(q, ck, cv, pos, window=win, softcap=cap)
+    again = fd.decode_attn(q, ck, cv, pos, window=win, softcap=cap)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == launches + 2
+    assert torch.equal(got, again)
+    ref = fd.decode_attn_plain(q, ck, cv, pos, window=win, softcap=cap)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d,causal,win,cap,kv_len", MHA_TC_CASES)
+def test_mha_tensor_core_route_matches_plain_on_card(card, b, s, h, kh, d,
+                                                     causal, win, cap,
+                                                     kv_len):
+    q, k, v = _t(*_mha_inputs(b, s, h, kh, d, seed=s + d), device=card,
+                 dtype=torch.bfloat16)
+    kw = dict(causal=causal, window=win, softcap=cap, kv_len=kv_len)
+    launches = fa.LAUNCHES
+    got, again = fa.mha(q, k, v, **kw), fa.mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == launches + 2
+    assert got.shape == q.shape and torch.equal(got, again)
+    ref = fa.mha_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d,pos,win,cap", DECODE_SPLIT_CASES)
+def test_decode_split_k_matches_plain_on_card(card, b, s, h, kh, d, pos,
+                                              win, cap, dtype):
     q, ck, cv = _t(*_decode_inputs(b, s, h, kh, d, seed=s + pos),
                    device=card, dtype=dtype)
     launches = fd.LAUNCHES
