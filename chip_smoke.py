@@ -12,7 +12,12 @@ Phases (any failure exits non-zero; nothing is caught):
 3. each kernel against its plain PyTorch version on the card: the forward
    at atol = rtol = 1e-5, the backward against ``graph_prop_vjp_plain`` at
    the reference's gradient tolerance (atol 1e-4, rtol 1e-3) and bit for
-   bit against a second launch;
+   bit against a second launch; then both graph-propagation kernels on the
+   edge cases at every hidden-slice count of ``ops.launch_plan`` (N in
+   {1, 3, 5, 9, 16}; every other graph all-masked as the training ring
+   holds an empty slot, rows without a predecessor, every row observed, no
+   row observed; levels 0, 1, 8 and 64), one launch per call, repeats bit
+   for bit equal;
 4. the decision path of the four paper jobs (LR, MPC, K-Means, GBT): a
    context encoder on the card, a seeded simulated cluster, 3 profiling
    runs, then one normal and one failure-injected adaptive run with
@@ -20,9 +25,15 @@ Phases (any failure exits non-zero; nothing is caught):
    boundary; the model has ``init_enel`` weights from a seeded
    ``torch.Generator``.  Each decision must launch the forward kernel
    exactly once, and the largest sweep of each job is held against the
-   plain route on the card;
-5. timings with CUDA events at the LR decision shape and the per-decision
-   latency of ``recommend``;
+   plain route on the card; then every decision's sweep runs again through
+   ``graph_prop_plain`` and picks again: a pick that differs is printed
+   with its totals' margin to the target and fails the run unless that
+   margin is within 1e-5 of the target (``PickRecorder``);
+5. timings at the LR decision shape (B = 378, N = 16, levels = 3): the
+   forward kernel as CUDA events over back-to-back launches and per call in
+   a CUDA graph (``graph_ms``), beside its bound, its plain version and its
+   ``ptxas -v`` registers and spills; and the per-decision latency of
+   ``recommend``;
 6. the training path of the four jobs: ``JobExperiment.profile`` (10
    profiling runs, a scratch fit on the resident ring), 6 adaptive Enel
    runs (the 5th retrains from scratch), one failure-injected Enel run and
@@ -31,9 +42,11 @@ Phases (any failure exits non-zero; nothing is caught):
    step and the forward once per step or decision; no step is skipped
    outside the chaos run, scratch fits end below their first-step loss,
    picks lie in [4, 36], and the chaos run quarantines rows and has finite
-   params again after its scratch retrain;
-7. timings of the training path: the backward kernel at the scratch shape
-   (B = 96, N = 8, levels = 8) beside its bound and the plain VJP, fit wall
+   params again after its scratch retrain; every Enel decision picks
+   again through the plain route, as in phase 4;
+7. timings of the training path: both kernels at the scratch shape (B =
+   96, N = 8, levels = 8), back to back and in a CUDA graph, beside their
+   bounds, their plain versions and their registers and spills; fit wall
    seconds (scratch, fine-tune) per job with the device-busy share of one
    scratch fit, and each run's runtime against the target (Enel vs Ellis);
 8. the LM attention kernels against their plain versions on the card:
@@ -178,12 +191,35 @@ def close(a: torch.Tensor, b: torch.Tensor, what: str, atol: float = ATOL,
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def random_inputs(rng, b, n, device):
+EDGE_KINDS = ("ring", "no_pred", "all_obs", "no_obs")
+
+
+def random_inputs(rng, b, n, device, kind="random"):
+    """(x, adj, m_obs, valid) of ``b`` random graphs of ``n`` nodes; with
+    ``kind`` an edge case: ``ring``, every other graph all-masked as the
+    training ring holds an empty slot (x lifted from ``empty_graph`` as the
+    model lifts it, no edge, nothing observed, zero metrics); ``no_pred``,
+    most rows without a predecessor; ``all_obs`` / ``no_obs``, every / no
+    row observed."""
     x = rng.randn(b, n, 30).astype(np.float32)
     adj = np.tril(rng.rand(b, n, n) < 0.35, -1)
     adj[:, min(1, n - 1), :] = False             # rows with no predecessor
     valid = rng.rand(b, n) < 0.4                 # observed rows
     m = rng.rand(b, n, 5).astype(np.float32)
+    if kind == "ring":
+        from repro_torch.core import model
+        from repro_torch.core.graph import empty_graph, stack_graphs
+        flat = {k: torch.as_tensor(v) for k, v in
+                stack_graphs([empty_graph(n)]).items()}
+        _, _, ex, eadj = model._prelude(flat)
+        x[1::2], adj[1::2] = ex.numpy(), eadj.numpy()
+        valid[1::2], m[1::2] = False, 0.0
+    elif kind == "no_pred":
+        adj &= rng.rand(b, n, 1) < 0.25
+    elif kind == "all_obs":
+        valid[:] = True
+    elif kind == "no_obs":
+        valid[:] = False
     return tuple(torch.tensor(a, device=device) for a in (x, adj, m, valid))
 
 
@@ -218,38 +254,46 @@ def median_wall_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def raw_launcher(ops, params, x, adj, m, valid, levels):
-    """The kernel's C entry with its pointers bound once.  Back-to-back calls
-    cost the host a few microseconds each, so the card stays busy and CUDA
-    events time the kernel rather than the wrapper's Python checks."""
+    """The kernel's C entry with its pointers bound once, launching on the
+    current stream.  Back-to-back calls cost the host a few microseconds
+    each, so CUDA events time the kernel rather than the wrapper's Python
+    checks; a kernel shorter than that is timed in a CUDA graph
+    (:func:`graph_ms`)."""
     fn = ops._kernel_fn()
     b, n = x.shape[:2]
+    plan = ops.launch_plan(n, levels)
     e = torch.empty((b, n, n), dtype=torch.float32, device=x.device)
     mh = torch.empty((b, n, 5), dtype=torch.float32, device=x.device)
     ptrs = [t.data_ptr() for t in (x, adj, m, valid) + ops._weights(params)]
-    stream = torch.cuda.current_stream().cuda_stream
 
-    def launch():
-        rc = fn(*ptrs, e.data_ptr(), mh.data_ptr(), b, n, levels, stream)
+    def launch():        # the current stream: a CUDA graph captures its own
+        rc = fn(*ptrs, e.data_ptr(), mh.data_ptr(), b, n, levels,
+                *plan[:3], plan.smem_fwd,
+                torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
     return launch
 
 
 def bwd_raw_launcher(ops, params, x, adj, m, valid, g_e, g_m, levels):
     """The backward kernel's C entry (per-graph kernel + slot sum) with its
-    pointers bound once, as :func:`raw_launcher`."""
+    pointers bound once, as :func:`raw_launcher`; the outputs it writes live
+    as long as the launcher (``torch.cuda.graph`` frees cached memory before
+    it captures)."""
     fn = ops._bwd_kernel_fn()
     b, n = x.shape[:2]
+    plan = ops.launch_plan(n, levels)
     outs = (torch.empty_like(x), torch.empty_like(m),
             torch.empty((b, ops.N_WEIGHTS), dtype=torch.float32,
                         device=x.device),
             torch.empty(ops.N_WEIGHTS, dtype=torch.float32, device=x.device))
     ptrs = [t.data_ptr() for t in (x, adj, m, valid) + ops._weights(params)
             + (g_e, g_m) + outs]
-    stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        rc = fn(*ptrs, b, n, levels, stream)
+        rc = fn(*ptrs, b, n, levels, *plan[:3], plan.smem_bwd,
+                torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
+    launch.outputs = outs     # alive as long as the launcher
     return launch
 
 
@@ -415,7 +459,80 @@ def sweep_plain(params, template, deltas, device) -> torch.Tensor:
     return out["total_runtime"].reshape(deltas["a_raw"].shape[:2])
 
 
-def run_job(job_key, device, ops):
+PICK_RTOL = 1e-5        # a pick may differ only where float32 rounding can
+
+
+class PickRecorder:
+    """Every decision's sweep on the kernel route: its inputs, the (C, K)
+    output, the candidates, elapsed time, target and pick, with the params
+    it was made under (a copy, taken again after each fit).  ``compare``
+    runs each sweep again through ``graph_prop_plain`` and picks again."""
+
+    def __init__(self):
+        self.records, self._pending, self._snaps = [], None, {}
+        from repro_torch.core import scaling
+        self._scaling = scaling
+        self._inner_pick = scaling._totals_pick
+
+    def watch(self, trainer, label):
+        inner = trainer.predict_sweep_device
+
+        def sweep(template, deltas, use_kernel=None):
+            out = inner(template, deltas, use_kernel)
+            self._pending = (label, trainer, template,
+                             {k: np.array(v) for k, v in deltas.items()},
+                             out)
+            return out
+        trainer.predict_sweep_device = sweep
+
+    def __enter__(self):
+        def pick(per_comp, cand, cand_valid, elapsed, target):
+            packed = self._inner_pick(per_comp, cand, cand_valid, elapsed,
+                                      target)
+            label, tr, template, deltas, out = self._pending
+            key = (id(tr), tr.adam_steps)
+            if key not in self._snaps:
+                from repro_torch.core.training import map_params
+                self._snaps = {key: map_params(torch.clone, tr.params)}
+            self.records.append((label, self._snaps[key], template, deltas,
+                                 cand, cand_valid, elapsed, target, packed))
+            return packed
+        self._scaling._totals_pick = pick
+        return self
+
+    def __exit__(self, *exc):
+        self._scaling._totals_pick = self._inner_pick
+
+    def compare(self, device):
+        """(decisions, differing picks); each differing pick is printed with
+        its margin to the target (relative), and the run fails unless that
+        margin is within PICK_RTOL."""
+        differ = 0
+        for idx, (label, params, template, deltas, cand, cand_valid,
+                  elapsed, target, packed) in enumerate(self.records):
+            plain = sweep_plain(params, template, deltas, device)
+            again = self._inner_pick(plain, cand, cand_valid, elapsed, target)
+            kp, pp = int(packed[0]), int(again[0])
+            if kp == pp:
+                continue
+            differ += 1
+            tk, tp = packed[1:].cpu(), again[1:].cpu()
+            tgt = float(target)
+            flips = (tk <= tgt) != (tp <= tgt)
+            if bool(flips.any()):
+                dist = torch.cat([tk[flips], tp[flips]]) - tgt
+                margin = float(dist.abs().max()) / abs(tgt)
+            else:                    # least violation: two near-equal totals
+                margin = float((tk[kp] - tk[pp]).abs()) / abs(tgt)
+            say(f"  pick differs, {label} decision {idx}: kernel "
+                f"{int(cand[kp])} (total {float(tk[kp]):.6f}), plain "
+                f"{int(cand[pp])} (total {float(tp[pp]):.6f}), target "
+                f"{tgt:.6f}: margin {margin:.3g} of the target")
+            assert margin <= PICK_RTOL, (label, idx, margin)
+        return len(self.records), differ
+
+
+def run_job(job_key, device, ops, picks=None):
     from repro_torch.core.scaling import EnelScaler
     from repro_torch.core.training import EnelTrainer
     from repro_torch.dataflow import runner
@@ -427,6 +544,8 @@ def run_job(job_key, device, ops):
     encoder = ContextEncoder([job], seed=SEED, device=device)
     trainer = EnelTrainer(seed=SEED, device=device)
     recorder = SweepRecorder(trainer)
+    if picks is not None:
+        picks.watch(trainer, job_key)
     scaler = EnelScaler(trainer, SCALEOUT_RANGE, candidate_stride=2)
     sim = ClusterSim(seed=SEED)
     interval = 2 if job.n_components > 15 else 1
@@ -469,16 +588,19 @@ def run_job(job_key, device, ops):
             "sweep": (trainer.params, template, deltas)}
 
 
-def run_training(job_key, device, chaos=None):
+def run_training(job_key, device, chaos=None, picks=None):
     """One job's training path (phase 6): profile, 6 Enel runs (the 5th a
     scratch retrain), a failure-injected Enel run and an Ellis run; with
-    ``chaos`` (a ChaosSpec) 6 Enel runs under fault injection instead."""
+    ``chaos`` (a ChaosSpec) 6 Enel runs under fault injection instead.
+    ``picks`` (a PickRecorder) records every Enel decision."""
     from repro_torch.dataflow.runner import JobExperiment
     from repro_torch.dataflow.workloads import SCALEOUT_RANGE
     from repro_torch.sim.chaos import ChaosInjector
 
     ex = JobExperiment(job_key, seed=SEED, device=device)
     tr = ex.trainer
+    if picks is not None:
+        picks.watch(tr, job_key + ("-chaos" if chaos is not None else ""))
     ex.profile()
     scratch = [(tr.last_fit_seconds, tr.first_step_loss, tr.last_loss)]
     tune = []
@@ -760,8 +882,8 @@ def decode_work(b, h, kh, d, pos, elt=2):
 def ptxas_usage(kname: str, symbol: str) -> dict:
     """{registers, spill_stores, spill_loads} (bytes) of the instantiation
     of kernel ``kname`` whose mangled name holds ``symbol``, from the
-    ``ptxas -v`` log of this process's build; {"ptxas": "not built in this
-    process"} when the library came from ``build/kernels``."""
+    ``ptxas -v`` log of its build; {"ptxas": "no build log"} when the
+    library came without one."""
     from repro_torch.kernels import build
     info = build.BUILDS.get(kname)
     lines = info.log.splitlines() if info is not None else []
@@ -772,7 +894,7 @@ def ptxas_usage(kname: str, symbol: str) -> dict:
             return {"registers": num(r"Used (\d+) registers"),
                     "spill_stores": num(r"(\d+) bytes spill stores"),
                     "spill_loads": num(r"(\d+) bytes spill loads")}
-    return {"ptxas": "not built in this process"}
+    return {"ptxas": "no build log"}
 
 
 def bound(flops, nbytes, peak):
@@ -1509,17 +1631,61 @@ def main() -> int:
                     f"bit-equal")
     say(f"bwd kernel vs plain VJP: max abs err {max_err_bwd:.3g} "
         f"(atol={ATOL_BWD}, rtol={RTOL_BWD}); two launches bit-equal")
+    # edge cases at every hidden-slice count (N <= 4: 8 slices, <= 8: 4,
+    # <= 16: 2), levels 0 and 64, one launch per call, repeats bit-equal
+    w = ops._weights(params)
+    for n in (1, 3, 5, 9, 16):
+        for kind in EDGE_KINDS:
+            x, adj, m, valid = random_inputs(rng, 95, n, device, kind)
+            g_e = torch.tensor(rng.randn(95, n, n).astype(np.float32),
+                               device=device)
+            g_m = torch.tensor(rng.randn(95, n, 5).astype(np.float32),
+                               device=device)
+            for levels in (0, 1, 8, ops.MAX_BWD_LEVELS):
+                what = f"N={n} levels={levels} B=95 {kind}"
+                before = (ops.LAUNCHES, ops.LAUNCHES_BWD)
+                e, mh = ops.graph_prop(params, x, adj, m, valid,
+                                       levels=levels)
+                e2, mh2 = ops.graph_prop(params, x, adj, m, valid,
+                                         levels=levels)
+                got = ops._launch_bwd(x, adj, m, valid, w, g_e, g_m, levels)
+                again = ops._launch_bwd(x, adj, m, valid, w, g_e, g_m,
+                                        levels)
+                torch.cuda.synchronize()
+                assert (ops.LAUNCHES, ops.LAUNCHES_BWD) == \
+                    (before[0] + 2, before[1] + 2), what
+                assert torch.equal(e, e2) and torch.equal(mh, mh2), what
+                pe, pm = ops.graph_prop_plain(params, x, adj, m, valid,
+                                              levels=levels)
+                max_err = max(max_err, close(e, pe, f"e {what}"),
+                              close(mh, pm, f"m_hat {what}"))
+                ref = ops.graph_prop_vjp_plain(params, x, adj, m, valid,
+                                               g_e, g_m, levels=levels)
+                for nm, a, a2, r in zip(names, got, again, ref):
+                    assert torch.equal(a, a2), f"{nm} {what}: not repeatable"
+                    max_err_bwd = max(max_err_bwd, close(
+                        a, r, f"{nm} {what}", ATOL_BWD, RTOL_BWD))
+        say(f"  edge cases N={n:2d} ({', '.join(EDGE_KINDS)}; levels 0, 1, "
+            f"8, 64; B=95): both kernels vs plain, repeats bit-equal")
+    say(f"with the edge cases: forward max abs err {max_err:.3g}, backward "
+        f"{max_err_bwd:.3g}")
 
     # 4. the decision path; only its launches count
-    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
-    jobs = {key: run_job(key, device, ops) for key in JOB_KEYS}
-    torch.cuda.synchronize()
-    launches, launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
+    with PickRecorder() as picks:
+        ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+        jobs = {key: run_job(key, device, ops, picks) for key in JOB_KEYS}
+        torch.cuda.synchronize()
+        launches, launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
     n_decisions = sum(j["decisions"] for j in jobs.values())
     assert launches == n_decisions > 0, (launches, n_decisions)
     assert launches_bwd == 0, launches_bwd
     say(f"decision path: {n_decisions} decisions, graph_prop_fwd launched "
         f"{launches} times")
+    n_rec, n_differ = picks.compare(device)
+    assert n_rec == n_decisions, (n_rec, n_decisions)
+    say(f"decision path picks, kernel vs plain route: {n_differ} of {n_rec} "
+        f"differ (each within {PICK_RTOL} of the target)")
+    pick_parity = {"decision": [n_rec, n_differ]}
 
     # 5. timings at the LR decision shape
     p, template, deltas = jobs["lr"]["sweep"]
@@ -1530,6 +1696,7 @@ def main() -> int:
     b, n = x.shape[:2]
     launch = raw_launcher(ops, *args, levels)
     kernel_ms = median_ms(launch, burst=50)
+    kernel_graph_ms = graph_ms(launch)
     plain_ms = median_ms(
         lambda: ops.graph_prop_plain(*args, levels=levels), burst=10)
     call_ms = median_ms(lambda: ops.graph_prop(*args, levels=levels),
@@ -1540,11 +1707,16 @@ def main() -> int:
     bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES \
         else "bytes"
     prof_kernel_ms = profile_device(launch, reps=50)[1]["graph_prop"]
+    dec_shape = {"B": b, "N": n, "levels": levels}
+    fwd_regs = ptxas_usage(
+        "graph_prop_fwd",
+        f"graph_prop_fwd_kernelILi{ops.launch_plan(n, levels).slices}E")
     say(f"timing at B={b} N={n} levels={levels} on {card}: kernel "
-        f"{kernel_ms:.4f} ms (again {kernel_ms2:.4f}; profiler "
+        f"{kernel_graph_ms:.4f} ms in a CUDA graph, back to back "
+        f"{kernel_ms:.4f} (again {kernel_ms2:.4f}; profiler "
         f"{prof_kernel_ms:.4f}; through the wrapper {call_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-        f"({flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB)")
+        f"({flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB); ptxas {fwd_regs}")
     # the device half of an LR decision: assembly, kernel, readout, copy
     trainer = jobs["lr"]["trainer"]
     sweep = lambda: trainer.predict_sweep_device(template, deltas).cpu()
@@ -1567,16 +1739,18 @@ def main() -> int:
 
     # 6. the training path; only its launches count
     from repro_torch.sim.chaos import ChaosSpec
-    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
-    t0 = time.perf_counter()
-    train = {key: run_training(key, device) for key in JOB_KEYS}
-    train["kmeans-chaos"] = run_training(
-        "kmeans", device, chaos=ChaosSpec(name="smoke", nan_graphs_every=2,
-                                          cache_corrupt_every=3,
-                                          nan_fit_every=4))
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    t_launches, t_launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
+    with PickRecorder() as picks:
+        ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+        t0 = time.perf_counter()
+        train = {key: run_training(key, device, picks=picks)
+                 for key in JOB_KEYS}
+        train["kmeans-chaos"] = run_training(
+            "kmeans", device, picks=picks,
+            chaos=ChaosSpec(name="smoke", nan_graphs_every=2,
+                            cache_corrupt_every=3, nan_fit_every=4))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t_launches, t_launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
     steps = sum(t["steps"] for t in train.values())
     t_decisions = sum(t["decisions"] for t in train.values())
     assert t_launches_bwd == steps > 0, (t_launches_bwd, steps)
@@ -1585,6 +1759,11 @@ def main() -> int:
     say(f"training path ({train_s:.1f}s): {steps} Adam steps, "
         f"{t_decisions} decisions; graph_prop_bwd launched {t_launches_bwd} "
         f"times, graph_prop_fwd {t_launches}")
+    n_rec, n_differ = picks.compare(device)
+    assert n_rec == t_decisions, (n_rec, t_decisions)
+    say(f"training path picks, kernel vs plain route: {n_differ} of {n_rec} "
+        f"differ (each within {PICK_RTOL} of the target)")
+    pick_parity["training"] = [n_rec, n_differ]
     chaos = train["kmeans-chaos"]
     say(f"chaos (K-Means): {chaos['quarantined']} rows quarantined, "
         f"{chaos['skipped']} steps skipped, {chaos['fallbacks']} fallback "
@@ -1604,22 +1783,38 @@ def main() -> int:
     blaunch = bwd_raw_launcher(ops, *targs, g_e, g_m, lv)
     flaunch = raw_launcher(ops, *targs, lv)
     bwd_ms = median_ms(blaunch, burst=50)
+    bwd_graph_ms = graph_ms(blaunch)
     fwd_train_ms = median_ms(flaunch, burst=50)
+    fwd_train_graph_ms = graph_ms(flaunch)
     bwd_plain_ms = median_ms(lambda: ops.graph_prop_vjp_plain(
         *targs, g_e, g_m, levels=lv), burst=5)
+    fwd_train_plain_ms = median_ms(
+        lambda: ops.graph_prop_plain(*targs, levels=lv), burst=10)
     bwd_ms2 = median_ms(blaunch, burst=50)
+    slices = ops.launch_plan(n, lv).slices
+    bwd_regs = ptxas_usage("graph_prop_bwd",
+                           f"graph_prop_bwd_kernelILi{slices}E")
+    fwd_train_regs = ptxas_usage("graph_prop_fwd",
+                                 f"graph_prop_fwd_kernelILi{slices}E")
     bflops, bbytes = graph_prop_bwd_work(b, n, lv)
     bwd_bound_ms = max(bflops / FP32_FLOPS, bbytes / HBM_BYTES) * 1e3
     bwd_bound_by = "operations" if bflops / FP32_FLOPS >= \
         bbytes / HBM_BYTES else "bytes"
     ff, fb = graph_prop_work(b, n, lv)
     fwd_train_bound = max(ff / FP32_FLOPS, fb / HBM_BYTES) * 1e3
+    fwd_train_by = "operations" if ff / FP32_FLOPS >= fb / HBM_BYTES \
+        else "bytes"
     say(f"backward timing at B={b} N={n} levels={lv} on {card}: kernel "
-        f"{bwd_ms:.4f} ms (again {bwd_ms2:.4f}), plain VJP "
-        f"{bwd_plain_ms:.4f} ms, bound {bwd_bound_ms:.5f} ms by "
-        f"{bwd_bound_by} ({bflops / 1e6:.1f} MFLOP incl. the forward "
-        f"recompute, {bbytes / 1e6:.3f} MB); forward at this shape "
-        f"{fwd_train_ms:.4f} ms, bound {fwd_train_bound:.5f} ms")
+        f"{bwd_graph_ms:.4f} ms in a CUDA graph, back to back {bwd_ms:.4f} "
+        f"(again {bwd_ms2:.4f}), plain VJP {bwd_plain_ms:.4f} ms, bound "
+        f"{bwd_bound_ms:.5f} ms by {bwd_bound_by} ({bflops / 1e6:.1f} MFLOP "
+        f"incl. the forward recompute, {bbytes / 1e6:.3f} MB); ptxas "
+        f"{bwd_regs}")
+    say(f"forward timing at B={b} N={n} levels={lv} on {card}: kernel "
+        f"{fwd_train_graph_ms:.4f} ms in a CUDA graph, back to back "
+        f"{fwd_train_ms:.4f}, plain {fwd_train_plain_ms:.4f} ms, bound "
+        f"{fwd_train_bound:.5f} ms by {fwd_train_by} ({ff / 1e6:.1f} MFLOP, "
+        f"{fb / 1e6:.3f} MB); ptxas {fwd_train_regs}")
     scratch_fit = lambda: tr.fit_resident(steps=160, from_scratch=True)
     fit_wall_ms = median_wall_ms(scratch_fit, reps=3, warmup=1)
     f_busy, per, f_kernels = profile_device(
@@ -1883,10 +2078,16 @@ def main() -> int:
         "launches": launches + t_launches,
         "launches_by_path": {"decision": launches, "training": t_launches},
         "max_abs_err": max_err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
+        "back_to_back_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "ms_training_shape": fwd_train_ms,
-        "bound_ms_training_shape": fwd_train_bound,
+        "ptxas": fwd_regs, "shape": dec_shape,
+        "pick_parity": pick_parity,
+        "training_shape": {
+            "ms": fwd_train_graph_ms, "graph_ms": fwd_train_graph_ms,
+            "back_to_back_ms": fwd_train_ms, "plain_ms": fwd_train_plain_ms,
+            "bound_ms": fwd_train_bound, "bound_by": fwd_train_by,
+            "ptxas": fwd_train_regs, "shape": {"B": b, "N": n, "levels": lv}},
     }, {
         "name": "graph_prop_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
@@ -1894,8 +2095,11 @@ def main() -> int:
         "launches": t_launches_bwd,
         "launches_by_path": {"training": t_launches_bwd},
         "max_abs_err": max_err_bwd,
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
-        "bound_by": bwd_bound_by, "library_ms": None,
+        "ms": bwd_graph_ms, "graph_ms": bwd_graph_ms,
+        "back_to_back_ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+        "library_ms": None, "ptxas": bwd_regs,
+        "shape": {"B": b, "N": n, "levels": lv},
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"

@@ -2,21 +2,23 @@
 
 Each kernel is a ``.cu`` file with a plain C entry point, compiled for
 Hopper (``sm_90a``) at first use into ``build/kernels/`` at the repository
-root, cached by a hash of the source and the flags, and loaded with
-``ctypes``.  Nothing here runs at import time.
+root, cached by a hash of the source, the headers beside it that it
+includes, and the flags, and loaded with ``ctypes``.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -27,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 @dataclass
 class BuildInfo:
     """What one :func:`load` did: the library path, whether it compiled in
-    this process, the compile seconds and ``ptxas -v`` output."""
+    this process, the compile seconds and the ``ptxas -v`` output (kept
+    beside a cached library, so it is there when another process built
+    it)."""
     path: Path
     compiled: bool
     seconds: float
@@ -52,11 +56,21 @@ def find_nvcc() -> str:
                        "CUDA toolkit is needed to build the port's kernels")
 
 
+def _local_includes(source: Path) -> List[Path]:
+    """The headers ``source`` includes with quotes, from its directory."""
+    names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', source.read_text(),
+                       flags=re.M)
+    return [source.parent / nm for nm in names]
+
+
 def load(source: Path, name: Optional[str] = None) -> ctypes.CDLL:
-    """Compile ``source`` (once per content hash) and return the library."""
+    """Compile ``source`` (once per hash of it, the headers it includes
+    with quotes and the flags) and return the library."""
     source = Path(source)
     name = name or source.stem
-    digest = hashlib.sha256(source.read_bytes() +
+    content = b"".join(f.read_bytes()
+                       for f in [source] + _local_includes(source))
+    digest = hashlib.sha256(content +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{name}-{digest}.so"
     if lib_path in _LOADED:
@@ -76,8 +90,11 @@ def load(source: Path, name: Optional[str] = None) -> ctypes.CDLL:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on {source.name} "
                                f"(exit {proc.returncode}):\n{log}")
+        lib_path.with_suffix(".log").write_text(log)
         os.replace(tmp, lib_path)        # atomic: concurrent builds agree
         compiled = True
+    elif lib_path.with_suffix(".log").is_file():
+        log = lib_path.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(lib_path))
     _LOADED[lib_path] = lib
     BUILDS[name] = BuildInfo(lib_path, compiled, seconds, log)

@@ -2,7 +2,8 @@
 
 ``graph_prop`` is the entry the model calls.  On CUDA tensors it launches
 the hand-written kernel ``csrc/graph_prop_fwd.cu`` (one thread block per
-graph; built with ``nvcc`` at first use) or raises; it never falls back.
+graph, one warp per destination row, :func:`launch_plan`; built with
+``nvcc`` at first use) or raises; it never falls back.
 When grad is enabled and an input requires grad, the launch goes through
 :class:`GraphProp`, a ``torch.autograd.Function`` whose backward is the
 hand-written kernel ``csrc/graph_prop_bwd.cu``.  On CPU tensors it runs
@@ -18,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -64,6 +65,44 @@ _WEIGHT_SHAPES = ((2 * X_DIM, HIDDEN), (HIDDEN,), (HIDDEN, EDGE_DIM),
                   (EDGE_DIM,), (EDGE_DIM,), (EDGE_DIM + N_METRICS, HIDDEN),
                   (HIDDEN,), (HIDDEN, N_METRICS), (N_METRICS,))
 N_WEIGHTS = sum(math.prod(s) for s in _WEIGHT_SHAPES)       # 3365
+
+
+class LaunchPlan(NamedTuple):
+    """How both kernels cut one graph of ``n`` nodes (one block per graph)."""
+    threads: int        # per block: one warp per destination row, 32 * n
+    slices: int         # S: a pair's lanes split the 32 hidden units S ways
+    width: int          # W: source lanes of a row's warp, S * W = 32
+    smem_fwd: int       # dynamic shared memory of a forward block, bytes
+    smem_bwd: int       # of a backward block at ``levels``, bytes
+
+
+def launch_plan(n: int, levels: int) -> LaunchPlan:
+    """The kernels' plan for graphs of ``n`` nodes and ``levels`` rounds.
+
+    A row i is one warp of W = max(4, next_pow2(n)) source lanes times
+    S = 32 / W hidden slices (N <= 4: S = 8; N <= 8: S = 4; N <= 16:
+    S = 2).  The shared-memory sizes mirror the buffers the kernels carve
+    out (``graph_prop_fwd.cu::fwd_smem``, ``graph_prop_bwd.cu::BwdLayout``),
+    and the C entries refuse a plan that differs from theirs.
+    """
+    if not 1 <= n <= MAX_NODES:
+        raise ValueError(f"graph_prop takes 1 <= N <= {MAX_NODES}, got {n}")
+    if levels < 0:
+        raise ValueError(f"levels must be >= 0, got {levels}")
+    w = 4
+    while w < n:
+        w *= 2
+    s = 32 // w
+    r4 = lambda v: -(-v // 4) * 4
+    hs, xs, ms = HIDDEN + 4, 32, 8           # padded row strides
+    weights = 3464 + 8 * s                   # staged, slices 16 B apart
+    fwd = weights + n * xs + 3 * n * hs + 2 * n * ms + r4(n)
+    pairs = n * w
+    pair_floats = 2 * EDGE_DIM + 3 * hs      # h3 g_h3 | g_pre_h h1 g_z1
+    bwd = (weights + n * xs + 5 * n * hs + 4 * n * ms + 2 * r4(n)
+           + r4(levels * n * N_METRICS) + n * HIDDEN * (2 * N_METRICS + 1)
+           + pairs * pair_floats + r4(pairs))
+    return LaunchPlan(32 * n, s, w, 4 * fwd, 4 * bwd)
 
 
 def graph_prop_plain(params: Dict, x: torch.Tensor, adj: torch.Tensor,
@@ -146,7 +185,7 @@ def _kernel_fn():
     global _FN
     if _FN is None:
         fn = build.load(SOURCE).graph_prop_fwd
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -157,7 +196,7 @@ def _bwd_kernel_fn():
     global _FN_BWD
     if _FN_BWD is None:
         fn = build.load(SOURCE_BWD).graph_prop_bwd
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN_BWD = fn
@@ -175,9 +214,11 @@ def _launch_fwd(x, adj, m_obs, valid, weights, levels: int
     if b == 0:
         return e, m_hat
     fn = _kernel_fn()
+    plan = launch_plan(n, levels)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(*(t.data_ptr() for t in (x, adj, m_obs, valid) + weights),
-            e.data_ptr(), m_hat.data_ptr(), b, n, int(levels), stream)
+            e.data_ptr(), m_hat.data_ptr(), b, n, int(levels),
+            *plan[:3], plan.smem_fwd, stream)
     if rc != 0:
         raise RuntimeError(f"graph_prop_fwd launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -199,10 +240,11 @@ def _launch_bwd(x, adj, m_obs, valid, weights, g_e, g_mhat, levels: int
     else:
         slots = torch.empty((b, N_WEIGHTS), dtype=torch.float32, device=dev)
         fn = _bwd_kernel_fn()
+        plan = launch_plan(n, levels)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(t.data_ptr() for t in (x, adj, m_obs, valid) + weights +
                   (g_e, g_mhat, gx, gmo, slots, flat)),
-                b, n, int(levels), stream)
+                b, n, int(levels), *plan[:3], plan.smem_bwd, stream)
         if rc != 0:
             raise RuntimeError(
                 f"graph_prop_bwd launch failed: cudaError {rc}")
