@@ -82,9 +82,12 @@ Phases (any failure exits non-zero; nothing is caught):
    device-busy share of a prefill and of the decode loop;
 11. the mLSTM kernel against its plain version on the card: ``mlstm`` on
    ``tests/test_kernels.py``'s mLSTM sweep and a ragged last kernel chunk in
-   float32 and bfloat16, and at xlstm-350m's shapes (B = 8, S in {256,
-   768, 1024}, H = 4, D = 256, bf16; S = 768 also in float32), h and the
-   final state (C, n, m), every case launched twice, bit for bit equal;
+   float32 and bfloat16, at xlstm-350m's shapes (B = 8, S in {256, 768,
+   1024}, H = 4, D = 256, bf16; S = 768 also in float32), and the bf16
+   tensor-core route's own cases (S = 48, 96 and 1000, ragged against its
+   64-row chunk; D in {16, 64, 256} with |den| < 1 at almost every row, an
+   intra-chunk m_t, and a state that decays to 0), h and the final state
+   (C, n, m), every case launched twice, bit for bit equal;
 12. the xLSTM serving path: ``ServeEngine`` over the full xlstm-350m config
    (24 layers: 21 mLSTM, 3 sLSTM; d 1024, 4 heads of 256, bf16, seeded
    ``init_model`` weights, ``max_len`` = 2048) serves two waves of 8
@@ -107,17 +110,20 @@ Phases (any failure exits non-zero; nothing is caught):
    positions, are printed only: with random weights the model amplifies a
    rounding difference over its depth and sequence
    (``tools/xlstm_rounding.py``);
-13. timings of the xLSTM path: ``mlstm_chunk`` at wave 0's prefill shape
-   beside its bound and its plain version (no PyTorch call computes the
-   chunkwise mLSTM, so no library time); prefill latency, decode ms per
-   step, tokens/s, kernels per prefill and per step and the device-busy
-   share of each;
+13. timings of the xLSTM path: ``mlstm_chunk`` at wave 0's prefill shape,
+   in a CUDA graph and back to back, beside its bound, its plain version
+   (no PyTorch call computes the chunkwise mLSTM, so no library time) and
+   its registers and spills; prefill latency, decode ms per step,
+   tokens/s, kernels per prefill and per step and the device-busy share of
+   each;
 14. the Mamba scan kernel against its plain version on the card:
    ``selective_scan`` on ``tests/test_new_substrate.py``'s sweep (decay in
-   (0.5, 1)) and at jamba's prefill shapes (B = 8, S in {768, 1024}, D =
+   (0.5, 1)), at jamba's prefill shapes (B = 8, S in {768, 1024}, D =
    8192, N = 16) with dt up to 1.0, where the TPU kernel's chunk form
-   overflows; x in float32 and bf16; y and the final h within 1e-5 of
-   their largest value; every case launched twice, bit for bit equal;
+   overflows, and at D = 300, S = 77 for every N (a ragged block of
+   channels, a ragged tile of steps); x in float32 and bf16; y and the
+   final h within 1e-5 of their largest value; every case launched twice,
+   bit for bit equal;
 15. the jamba serving path, on jamba-v0.1-52b cut to one period (8 of 32
    layers: Mamba at 0-3 and 5-7, attention at 4, MoE FFNs at the odd
    layers; every other field as published; bf16, seeded ``init_model``
@@ -140,10 +146,12 @@ Phases (any failure exits non-zero; nothing is caught):
    top-2 experts agree in every MoE layer between decode and forward (a
    bf16 rounding difference can flip two nearly tied experts; at most a
    quarter of the rows may be left out, and the flips are printed);
-16. timings of the jamba path: ``mamba_scan`` at wave 0's prefill shape
-   beside its bound and its plain version (no PyTorch call computes the
-   selective scan); prefill latency, decode ms per step, tokens/s, the
-   kernels of one prefill and one step and the device-busy share of each;
+16. timings of the jamba path: ``mamba_scan`` at wave 0's prefill shape,
+   in a CUDA graph and back to back, beside its bound, the floor that its
+   precise exponentials set on the SFU pipe, its plain version (no PyTorch
+   call computes the selective scan) and its registers and spills;
+   prefill latency, decode ms per step, tokens/s, the kernels of one
+   prefill and one step and the device-busy share of each;
 17. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -926,21 +934,39 @@ BF16_STEP = 2.0 ** -7
 # steps of the largest output
 MIXER_TF_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 * BF16_STEP}
 # float32: the reference's 2e-4 between two chunk sizes (tests/test_kernels
-# .py:101); the kernel walks 32-row chunks, the plain version the caller's
+# .py:101); the float32 route walks 32-row chunks, the bf16 route 64-row
+# ones, the plain version the caller's
 MLSTM_TOL = 2e-4
 # (B, S, H, D, chunk): tests/test_kernels.py's mLSTM sweep, a ragged last
 # kernel chunk, then xlstm-350m's prefill shapes
 MLSTM_SWEEP = [(2, 128, 2, 32, 32), (1, 256, 4, 64, 64), (1, 64, 1, 128, 16),
                (2, 48, 3, 32, 16)]
 MLSTM_MODEL = [(8, s, 4, 256, 256) for s in (256, 768, 1024)]
+# the bf16 tensor-core route's own cases, (B, S, H, D, caller chunk,
+# inputs): S ragged against its 64-row chunk (48, 96, 1000), D in {16, 64,
+# 256}, and inputs off the common path: "floor" (q / 8: |den| < 1 at
+# almost every row, so h is num itself), "big_i" (m_t the intra-chunk
+# max), "decay" (f far below 0: the state decays to 0 inside a chunk)
+MLSTM_TC_EDGE = [(2, 48, 3, 64, 16, "random"), (1, 96, 2, 64, 32, "random"),
+                 (1, 1000, 2, 64, 200, "random"),
+                 (8, 1000, 4, 256, 200, "random")] + \
+    [(2, 256, 4, d, 64, kind) for d in (16, 64, 256)
+     for kind in ("floor", "big_i", "decay")]
 
 
-def mlstm_inputs(rng, b, s, h, d, dtype, device):
+def mlstm_inputs(rng, b, s, h, d, dtype, device, kind="random"):
     """q, k, v in ``dtype``; the log input gate and the forget gate before
-    its log-sigmoid in float32, drawn as tests/test_kernels.py draws them."""
+    its log-sigmoid in float32, drawn as tests/test_kernels.py draws them;
+    ``kind`` moves them off the common path (``MLSTM_TC_EDGE``)."""
     q, k, v = (_randn(rng, (b, s, h, d), dtype, device) for _ in range(3))
     i = _randn(rng, (b, s, h), torch.float32, device)
     f = _randn(rng, (b, s, h), torch.float32, device) + 2
+    if kind == "floor":
+        q = q / 8
+    elif kind == "big_i":
+        i = 8 * i + 10
+    elif kind == "decay":
+        f = f - 40
     return q, k, v, i, f
 
 
@@ -951,14 +977,17 @@ def check_mlstm_kernel(device, ml):
     f32, bf16 = torch.float32, torch.bfloat16
     rng = np.random.RandomState(SEED + 2)
     errs = {f32: 0.0, bf16: 0.0, "state": 0.0}
-    cases = [(c, dt) for c in MLSTM_SWEEP for dt in (f32, bf16)] + \
-        [(c, bf16) for c in MLSTM_MODEL] + [(MLSTM_MODEL[1], f32)]
-    for (b, s, h, d, chunk), dt in cases:
-        args = mlstm_inputs(rng, b, s, h, d, dt, device)
+    cases = [(c + ("random",), dt) for c in MLSTM_SWEEP
+             for dt in (f32, bf16)] + \
+        [(c + ("random",), bf16) for c in MLSTM_MODEL] + \
+        [(MLSTM_MODEL[1] + ("random",), f32)] + \
+        [(c, bf16) for c in MLSTM_TC_EDGE]
+    for (b, s, h, d, chunk, kind), dt in cases:
+        args = mlstm_inputs(rng, b, s, h, d, dt, device, kind)
         got, st = ml.mlstm(*args, chunk=chunk, return_state=True)
         again, st2 = ml.mlstm(*args, chunk=chunk, return_state=True)
         torch.cuda.synchronize()
-        what = f"mlstm {dt} B={b} S={s} H={h} D={d} chunk={chunk}"
+        what = f"mlstm {dt} B={b} S={s} H={h} D={d} chunk={chunk} {kind}"
         assert torch.equal(got, again), f"{what}: not repeatable"
         assert all(torch.equal(st[k], st2[k]) for k in st), \
             f"{what}: state not repeatable"
@@ -1098,15 +1127,18 @@ def xlstm_path(device, card, ml, others):
           torch.empty((xb, xh), dtype=torch.float32, device=device))
     ml_launch = lambda: ml._launch(q, k, v, gi, gf, out, *st)
     ml_ms = median_ms(ml_launch, burst=5, reps=10)
+    ml_graph_ms = graph_ms(ml_launch)
     ml_plain_ms = median_ms(lambda: ml.mlstm_plain(
         q, k, v, gi, gf, chunk=256, return_state=True), burst=2, reps=5)
     ml_ms2 = median_ms(ml_launch, burst=5, reps=10)
     fl, nb = mlstm_work(xb, px, xh, xd)
     ml_bound, ml_by = bound(fl, nb, BF16_FLOPS)
+    ml_regs = ptxas_usage("mlstm_chunk", f"mlstm_kernel_tcILi{xd}E")
     say(f"mlstm_chunk at B={xb} S={px} H={xh} D={xd} bf16 on {card}: kernel "
-        f"{ml_ms:.4f} ms (again {ml_ms2:.4f}), plain {ml_plain_ms:.4f} ms, "
-        f"bound {ml_bound:.5f} ms by {ml_by} ({fl / 1e9:.2f} GFLOP, "
-        f"{nb / 1e6:.1f} MB), no library call")
+        f"{ml_graph_ms:.4f} ms in a CUDA graph, back to back {ml_ms:.4f} ms "
+        f"(again {ml_ms2:.4f}), plain {ml_plain_ms:.4f} ms, bound "
+        f"{ml_bound:.5f} ms by {ml_by} ({fl / 1e9:.2f} GFLOP, "
+        f"{nb / 1e6:.1f} MB), no library call; ptxas {ml_regs}")
     del q, k, v, gi, gf, out, st
     x_first = [runs[0][1] for runs in x_served]
     for w, stt in enumerate(x_first):
@@ -1162,8 +1194,10 @@ def xlstm_path(device, card, ml, others):
                     "kernels": xpf_kernels},
         "decode_step": {"wall_ms": x_dec_wall, "busy_ms": x_dec_busy,
                         "kernels": x_dec_kernels}}}))
-    return {"launches": ml_launches, "ms": ml_ms, "plain_ms": ml_plain_ms,
-            "bound_ms": ml_bound, "bound_by": ml_by,
+    return {"launches": ml_launches, "ms": ml_graph_ms,
+            "graph_ms": ml_graph_ms, "back_to_back_ms": ml_ms,
+            "plain_ms": ml_plain_ms, "bound_ms": ml_bound, "bound_by": ml_by,
+            "ptxas": ml_regs,
             "shape": {"B": xb, "S": px, "H": xh, "D": xd,
                       "dtype": "bfloat16"}}
 
@@ -1181,7 +1215,7 @@ JAMBA_TF_DEPTH_F32 = 5      # float32: layers 0-4, through the attention layer
 JAMBA_TF_CAPACITY = 16.0    # no drops, as tests/test_cache_consistency.py
 JAMBA_MAX_EXCLUDED = 0.25   # of the teacher-forced rows, for flipped routes
 # kernel vs plain: float32 both, so FMA contraction of decay h + drive and
-# the shuffle tree's order over N, relative to the largest |y| (|h|)
+# the kernel's tree order over N, relative to the largest |y| (|h|)
 MAMBA_TOL = 1e-5
 # (B, S, D, N, dt range): tests/test_new_substrate.py's sweep at its decay
 # range (exp(dt a) in (0.5, 1) with a = -(1..N)), then jamba's prefill
@@ -1189,6 +1223,11 @@ MAMBA_TOL = 1e-5
 MAMBA_SWEEP = [(2, 128, 64, 8, (0.01, 0.04)), (1, 64, 128, 16, (0.01, 0.04)),
                (1, 96, 32, 4, (0.01, 0.04))]
 MAMBA_MODEL = [(8, s, 8192, 16, (0.0, 1.0)) for s in (768, 1024)]
+# one thread per channel in blocks of 128: D = 300 ends in a ragged block,
+# S = 77 inside a 32-step tile of B_t, C_t and an 8-step group of dt, x
+# loaded ahead; every N the kernel takes
+MAMBA_EDGE = [(3, 77, 300, n, (0.0, 1.0)) for n in (1, 2, 4, 8, 16, 32)]
+SFU_EX2_PER_CLOCK = 16      # MUFU.EX2 per SM per clock, compute capability 9.0
 
 
 def mamba_inputs(rng, b, s, d, n, dt_range, x_dtype, device):
@@ -1210,7 +1249,8 @@ def check_mamba_kernel(device, ms):
     rng = np.random.RandomState(SEED + 4)
     errs = {"y": 0.0, "h": 0.0}
     for (b, s, d, n, dtr), xdt in itertools.product(
-            MAMBA_SWEEP + MAMBA_MODEL, (torch.float32, torch.bfloat16)):
+            MAMBA_SWEEP + MAMBA_MODEL + MAMBA_EDGE,
+            (torch.float32, torch.bfloat16)):
         args = mamba_inputs(rng, b, s, d, n, dtr, xdt, device)
         y, h = ms.selective_scan(*args, return_state=True)
         y2, h2 = ms.selective_scan(*args, return_state=True)
@@ -1241,6 +1281,26 @@ def mamba_work(b, s, d, n, x_elt=2):
     nbytes = 4 * b * s * d + x_elt * b * s * d + 2 * 4 * b * s * n \
         + 4 * d * n + 4 * b * s * d + 4 * b * d * n
     return flops, nbytes
+
+
+def max_sm_clock_hz() -> float:
+    """The card's rated highest SM clock, from ``nvidia-smi``
+    (clocks.max.sm); not the clock it runs at under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def mamba_exp_floor_ms(b, s, d, n, clock_hz):
+    """The time the B S D N precise exponentials of the scan take at least
+    on the special-function pipe: one MUFU.EX2 each, SFU_EX2_PER_CLOCK per
+    SM per clock on every SM at ``clock_hz``.  It lies above the bytes
+    bound, so the kernel cannot come near that bound while it keeps the
+    precise exp."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return b * s * d * n / (SFU_EX2_PER_CLOCK * n_sm * clock_hz) * 1e3
 
 
 def run_jamba_serving(cfg, params, device, ms, fa, fd, others):
@@ -1451,15 +1511,24 @@ def jamba_path(device, card, ms, fa, fd, others, cfg=None):
     h_ = torch.empty((b, di, n), dtype=f32, device=device)
     ms_launch = lambda: ms._launch(dt_, a_, x_, b_, c_, y_, h_)
     ms_ms = median_ms(ms_launch, burst=10, reps=10)
+    ms_graph_ms = graph_ms(ms_launch, calls=10)
     ms_plain_ms = median_ms(lambda: ms.selective_scan_plain(
         dt_, a_, x_, b_, c_, return_state=True), burst=1, reps=3, warmup=1)
     ms_ms2 = median_ms(ms_launch, burst=10, reps=10)
     fl, nb = mamba_work(b, p0, di, n)
     ms_bound, ms_by = bound(fl, nb, FP32_FLOPS)
+    clock = max_sm_clock_hz()
+    ms_floor = mamba_exp_floor_ms(b, p0, di, n, clock)
+    ms_regs = ptxas_usage("mamba_scan", f"mamba_scan_kernelI13__nv_bfloat16"
+                                        f"Li{n}E")
     say(f"mamba_scan at B={b} S={p0} D={di} N={n} (x bf16) on {card}: "
-        f"kernel {ms_ms:.4f} ms (again {ms_ms2:.4f}), plain "
-        f"{ms_plain_ms:.4f} ms, bound {ms_bound:.5f} ms by {ms_by} "
-        f"({fl / 1e9:.3f} GFLOP fp32, {nb / 1e6:.1f} MB), no library call")
+        f"kernel {ms_graph_ms:.4f} ms in a CUDA graph, back to back "
+        f"{ms_ms:.4f} ms (again {ms_ms2:.4f}), plain {ms_plain_ms:.4f} ms, "
+        f"bound {ms_bound:.5f} ms by {ms_by} ({fl / 1e9:.3f} GFLOP fp32, "
+        f"{nb / 1e6:.1f} MB); the {b * p0 * di * n / 1e9:.3f} G precise "
+        f"exponentials alone take at least {ms_floor:.5f} ms on the SFU "
+        f"pipe (computed at the rated highest SM clock, {clock / 1e9:.3f} "
+        f"GHz); no library call; ptxas {ms_regs}")
     del dt_, a_, x_, b_, c_, y_, h_
     first = [runs[0][1] for runs in served]
     for w, stt in enumerate(first):
@@ -1534,8 +1603,10 @@ def jamba_path(device, card, ms, fa, fd, others, cfg=None):
                         "flash_decode_ms": dec_per["fd_kernel"] / n_loop,
                         "kernels": dec_kernels},
         "top_kernels": {"prefill": pf_top, "decode_step": dec_top}}}))
-    return {"launches": launches, "ms": ms_ms, "plain_ms": ms_plain_ms,
-            "bound_ms": ms_bound, "bound_by": ms_by,
+    return {"launches": launches, "ms": ms_graph_ms,
+            "graph_ms": ms_graph_ms, "back_to_back_ms": ms_ms,
+            "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
+            "ptxas": ms_regs,
             "shape": {"B": b, "S": p0, "D": di, "N": n,
                       "x_dtype": "bfloat16"}}
 
@@ -2144,9 +2215,10 @@ def main() -> int:
         "max_abs_err": max(ml_errs[torch.float32], ml_errs[torch.bfloat16]),
         "max_abs_err_f32": ml_errs[torch.float32],
         "max_abs_err_state": ml_errs["state"],
-        "ms": xl["ms"], "plain_ms": xl["plain_ms"],
+        "ms": xl["ms"], "graph_ms": xl["graph_ms"],
+        "back_to_back_ms": xl["back_to_back_ms"], "plain_ms": xl["plain_ms"],
         "bound_ms": xl["bound_ms"], "bound_by": xl["bound_by"],
-        "library_ms": None, "shape": xl["shape"],
+        "library_ms": None, "ptxas": xl["ptxas"], "shape": xl["shape"],
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
@@ -2154,9 +2226,10 @@ def main() -> int:
         "launches": jb["launches"][0],
         "launches_by_path": {"serving_jamba": jb["launches"][0]},
         "max_abs_err": ms_errs["y"], "max_abs_err_state": ms_errs["h"],
-        "ms": jb["ms"], "plain_ms": jb["plain_ms"],
+        "ms": jb["ms"], "graph_ms": jb["graph_ms"],
+        "back_to_back_ms": jb["back_to_back_ms"], "plain_ms": jb["plain_ms"],
         "bound_ms": jb["bound_ms"], "bound_by": jb["bound_by"],
-        "library_ms": None, "shape": jb["shape"],
+        "library_ms": None, "ptxas": jb["ptxas"], "shape": jb["shape"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

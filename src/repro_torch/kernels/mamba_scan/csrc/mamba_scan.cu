@@ -15,114 +15,180 @@
 // b exp(-cum).  exp(-cum) overflows float32 once dt |a| summed over the chunk
 // passes about 88, which jamba's dt (up to 1.0, A down to -16) reaches: at
 // dt <= 0.5 thousands of outputs turn non-finite.  The recurrence has no
-// such limit, and a serial walk over t costs the card little here.
+// such limit.
 //
-// What bounds it on the H100: bytes.  dt and x are read once (float32: 33.5
-// MB each at B = 8, S = 1024, D = 8192), B, C and a once (~1.5 MB), y
-// written once (33.5 MB) and h once (4.2 MB): ~106 MB, 0.032 ms at 3.35
-// TB/s, against ~7 float32 operations per state update (134 M updates,
-// 0.014 ms at 67 TFLOP/s).
+// What bounds it on the H100.  The bytes: dt (float32) and x (bf16) read
+// once, y (float32) written once, at B = 8, S = 1024, D = 8192: 268 + 134 +
+// 268 MB, with B, C, a and the final h ~6.8 MB more, 676.9 MB in all, 0.202
+// ms at 3.35 TB/s (`chip_smoke.py::mamba_work`).  But the precise exp of
+// every state update is the nearer floor: B S D N = 1.07 G exponentials at
+// 16 MUFU.EX2 per SM per clock take 0.2568 ms on 132 SMs at the card's
+// highest SM clock, 1.98 GHz (`chip_smoke.py::mamba_exp_floor_ms`), more
+// at any lower clock, and the ~12 issued instructions an update needs
+// (the exp's range reduction, dt a, the drive, one fma, h C and the sum)
+// ~0.39 ms of issue at that clock.  A kernel that keeps the precise exp
+// cannot reach half of the bytes bound.
 //
-// Design.  One thread holds one h[d, n] in a register for the whole walk;
-// the N threads of a channel are neighbouring lanes of one warp, so y_t is
-// a shuffle (xor) tree over them, with no shared-memory round trip and no
-// atomics (repeats are bit-equal).  A block of CPB = min(64, 256 / N)
-// channels (16 at N = 16: 256 threads) walks t in order; grid (D / CPB, B),
-// 4,096 blocks at the serving shape.  Every kTile steps the block stages
-// dt and x of its channels and B_t, C_t (shared by every channel) in shared
-// memory with coalesced loads, and writes the tile's y back coalesced from
-// shared memory.  Everything is float32; x may be bf16 and is widened on
-// load.  expf is the precise one (no fast math).  Ragged channels (D not a
-// multiple of CPB) run on zeros and write nothing.  Several steps in flight
-// per sync, cp.async/TMA staging and a chunked tensor-core form are the
-// levers of a later change.
+// Design: one thread per channel, its N states in registers.
+//   - Thread d of a block holds h[d, 0..N-1] and a[d, 0..N-1] in registers
+//     for the whole walk over t: N independent recurrences of ILP, and y_t
+//     is a sum in registers, with no shuffles (N lanes a channel would need
+//     log2 N shuffles per state update, 4.3 G at the serving shape).
+//   - Consecutive threads are consecutive channels, so dt_t[d] and x_t[d]
+//     are read, and y_t[d] written, straight from and to global memory in
+//     coalesced 128-byte rows.  The next kU steps of dt and x are loaded into
+//     registers while the current kU steps compute.
+//   - B_t and C_t (2 N floats a step, shared by every channel of the batch
+//     row) are staged kTile steps at a time in shared memory with cp.async,
+//     double-buffered (one barrier per tile), and read as broadcasts.
+//   - Block of kThreads = 128 channels, grid (ceil(D / 128), B): 512 blocks
+//     at the serving shape, ~500 threads per SM.  Ragged channels (D not a
+//     multiple of 128) load nothing and write nothing.
+//   - Every rounding is fixed, so that y and h stay bit for bit those of
+//     the shuffle design before it (jamba's bf16 teacher-forced check has
+//     little margin): the precise expf of the rounded dt a; drive = (dt x)
+//     B_n, two rounded products; h = fmaf(decay, h, drive); p_n = h_n C_n
+//     rounded (__fmul_rn); y_t summed in the order an xor butterfly over N
+//     lanes gives lane 0, ((p0 + p8) + (p4 + p12)) + ((p2 + p10) + (p6 +
+//     p14)), then the same over the odd indices, added last (__fadd_rn, so
+//     that nvcc contracts nothing).  Repeats are bit-equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 32;       // steps staged per sync
+constexpr int kThreads = 128;   // channels per block, one thread each
+constexpr int kTile = 32;       // steps of B_t, C_t staged per barrier
+constexpr int kU = 8;           // steps of dt, x loaded ahead into registers
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The sum of p[0..N) in the order an xor butterfly over N lanes gives lane
+// 0: p[i] += p[i + H] for H = N / 2, N / 4, .., 1, unrolled at compile time
+// (a loop whose bound halves stays a loop and puts p in local memory).
+template <int N, int H = N / 2>
+struct ButterflySum {
+  static __device__ __forceinline__ float at0(float (&p)[N]) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) p[i] = __fadd_rn(p[i], p[i + H]);
+    return ButterflySum<N, H / 2>::at0(p);
+  }
+};
 template <int N>
-struct Shape {
-  static constexpr int kChannels = (256 / N) < 64 ? (256 / N) : 64;
-  static constexpr int kThreads = kChannels * N;
+struct ButterflySum<N, 0> {
+  static __device__ __forceinline__ float at0(float (&p)[N]) { return p[0]; }
 };
 
-template <typename T, int N>
-__global__ void __launch_bounds__(Shape<N>::kThreads)
-mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ a,
-                  const T* __restrict__ x, const float* __restrict__ bm,
-                  const float* __restrict__ cm, float* __restrict__ y,
-                  float* __restrict__ h_out, int S, int D) {
-  constexpr int CPB = Shape<N>::kChannels;
-  constexpr int kThreads = Shape<N>::kThreads;
-  __shared__ float dt_s[kTile][CPB];
-  __shared__ float x_s[kTile][CPB];
-  __shared__ float y_s[kTile][CPB];
-  __shared__ float b_s[kTile][N];
-  __shared__ float c_s[kTile][N];
+// B and C of steps [t0, t0 + steps) of one batch row into one tile buffer:
+// row tt holds B_t (N floats) then C_t (N floats).
+template <int N>
+__device__ __forceinline__ void stage_bc(float (*buf)[2 * N],
+                                         const float* __restrict__ bm,
+                                         const float* __restrict__ cm,
+                                         size_t first, int steps) {
+  for (int i = threadIdx.x; i < steps * N; i += kThreads) {
+    const int tt = i / N, nn = i % N;
+    cp_async4(&buf[tt][nn], bm + (first + tt) * N + nn);
+    cp_async4(&buf[tt][N + nn], cm + (first + tt) * N + nn);
+  }
+  cp_async_commit();
+}
 
-  const int tid = threadIdx.x;
-  const int ch = tid / N, n = tid % N;
-  const int d0 = blockIdx.x * CPB;
-  const int d = d0 + ch;
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    mamba_scan_kernel(const float* __restrict__ dt,
+                      const float* __restrict__ a, const T* __restrict__ x,
+                      const float* __restrict__ bm,
+                      const float* __restrict__ cm, float* __restrict__ y,
+                      float* __restrict__ h_out, int S, int D) {
+  __shared__ __align__(16) float bc_s[2][kTile][2 * N];
+  const int d = blockIdx.x * kThreads + threadIdx.x;
   const int row = blockIdx.y;
   const bool live = d < D;
-  const float a_dn = live ? a[(size_t)d * N + n] : 0.0f;
   const size_t seq = (size_t)row * S;           // first step of this row
-  float h = 0.0f;
-
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    const int steps = min(kTile, S - t0);
-    __syncthreads();                            // the last tile's y is out
-    for (int i = tid; i < kTile * CPB; i += kThreads) {
-      const int tt = i / CPB, cc = i % CPB;
-      const bool ok = tt < steps && d0 + cc < D;
-      const size_t off = (seq + t0 + tt) * D + d0 + cc;
-      dt_s[tt][cc] = ok ? dt[off] : 0.0f;
-      x_s[tt][cc] = ok ? widen(x[off]) : 0.0f;
-    }
-    for (int i = tid; i < kTile * N; i += kThreads) {
-      const int tt = i / N, nn = i % N;
-      const bool ok = tt < steps;
-      const size_t off = (seq + t0 + tt) * N + nn;
-      b_s[tt][nn] = ok ? bm[off] : 0.0f;
-      c_s[tt][nn] = ok ? cm[off] : 0.0f;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < steps; ++tt) {
-      const float dtv = dt_s[tt][ch];
-      const float decay = expf(dtv * a_dn);
-      const float drive = (dtv * x_s[tt][ch]) * b_s[tt][n];
-      h = decay * h + drive;
-      float p = h * c_s[tt][n];
+  float a_r[N], h[N];
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1)
-        p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (n == 0) y_s[tt][ch] = p;
-    }
-    __syncthreads();
-    for (int i = tid; i < steps * CPB; i += kThreads) {
-      const int tt = i / CPB, cc = i % CPB;
-      if (d0 + cc < D) y[(seq + t0 + tt) * D + d0 + cc] = y_s[tt][cc];
+  for (int n = 0; n < N; ++n) {
+    a_r[n] = live ? a[(size_t)d * N + n] : 0.f;
+    h[n] = 0.f;
+  }
+  // dt, x of the next kU steps, in flight while the current ones compute
+  float dt_n[kU], x_n[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const bool ok = live && u < S;
+    dt_n[u] = ok ? dt[(seq + u) * D + d] : 0.f;
+    x_n[u] = ok ? widen(x[(seq + u) * D + d]) : 0.f;
+  }
+  stage_bc<N>(bc_s[0], bm, cm, seq, min(kTile, S));
+
+  for (int t0 = 0, tile = 0; t0 < S; t0 += kTile, ++tile) {
+    const int steps = min(kTile, S - t0);
+    cp_async_wait_all();
+    __syncthreads();   // this tile is in; every thread is past the last one
+    if (t0 + kTile < S)
+      stage_bc<N>(bc_s[(tile + 1) & 1], bm, cm, seq + t0 + kTile,
+                  min(kTile, S - t0 - kTile));
+    const float(*bc)[2 * N] = bc_s[tile & 1];
+    for (int g0 = 0; g0 < steps; g0 += kU) {
+      float dt_c[kU], x_c[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        dt_c[u] = dt_n[u];
+        x_c[u] = x_n[u];
+        const int t = t0 + g0 + kU + u;
+        const bool ok = live && t < S;
+        dt_n[u] = ok ? dt[(seq + t) * D + d] : 0.f;
+        x_n[u] = ok ? widen(x[(seq + t) * D + d]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int tt = g0 + u;
+        if (tt < steps) {
+          const float dtv = dt_c[u];
+          const float dx = __fmul_rn(dtv, x_c[u]);
+          float p[N];
+#pragma unroll
+          for (int n = 0; n < N; ++n) {
+            const float decay = expf(__fmul_rn(dtv, a_r[n]));
+            const float drive = __fmul_rn(dx, bc[tt][n]);
+            h[n] = fmaf(decay, h[n], drive);
+            p[n] = __fmul_rn(h[n], bc[tt][N + n]);
+          }
+          if (live) y[(seq + t0 + tt) * D + d] = ButterflySum<N>::at0(p);
+        }
+      }
     }
   }
-  if (live) h_out[((size_t)row * D + d) * N + n] = h;
+  if (live) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) h_out[((size_t)row * D + d) * N + n] = h[n];
+  }
 }
 
 template <typename T, int N>
 cudaError_t launch(const float* dt, const float* a, const void* x,
                    const float* b, const float* c, float* y, float* h, int B,
                    int S, int D, cudaStream_t stream) {
-  constexpr int CPB = Shape<N>::kChannels;
-  const dim3 grid((D + CPB - 1) / CPB, B);
-  mamba_scan_kernel<T, N><<<grid, Shape<N>::kThreads, 0, stream>>>(
+  const dim3 grid((D + kThreads - 1) / kThreads, B);
+  mamba_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
       dt, a, static_cast<const T*>(x), b, c, y, h, S, D);
   return cudaGetLastError();
 }

@@ -451,7 +451,7 @@ CARD_CASES = [(b, s, d, n, (0.01, 0.04)) for b, s, d, n, _, _ in SWEEP] + \
 @pytest.mark.parametrize("b,s,d,n,dt_range", CARD_CASES)
 def test_kernel_matches_plain_on_card(card, b, s, d, n, dt_range, x_dtype):
     """y and the final h against the plain version at 1e-5 of the largest
-    |y| and |h| (FMA contraction of decay h + drive and the shuffle tree's
+    |y| and |h| (FMA contraction of decay h + drive and the kernel's tree
     order over N), and two launches bit-equal."""
     dt, a, x, bm, cm = _t(*_scan_inputs(b, s, d, n, seed=s + n,
                                         dt_range=dt_range), device=card)
@@ -461,6 +461,29 @@ def test_kernel_matches_plain_on_card(card, b, s, d, n, dt_range, x_dtype):
     y2, h2 = ops.selective_scan(dt, a, x, bm, cm, return_state=True)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == launches + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    ry, rh = ops.selective_scan_plain(dt, a, x, bm, cm, return_state=True)
+    for got, ref in ((y, ry), (h, rh)):
+        assert torch.isfinite(got).all()
+        tol = 1e-5 * float(ref.abs().max())
+        torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ops.STATE_DIMS)
+def test_kernel_ragged_channels_and_steps_on_card(card, n, x_dtype):
+    """One thread per channel in blocks of 128: D = 300 leaves a ragged
+    block of 44 channels past two full ones, and S = 77 ends inside both a
+    32-step tile of B_t, C_t and an 8-step group of dt, x loaded ahead.
+    y and h against the plain version at 1e-5 of their largest value, two
+    launches bit-equal."""
+    dt, a, x, bm, cm = _t(*_scan_inputs(3, 77, 300, n, seed=n + 3,
+                                        dt_range=(0.0, 1.0)), device=card)
+    x = x.to(x_dtype)
+    y, h = ops.selective_scan(dt, a, x, bm, cm, return_state=True)
+    y2, h2 = ops.selective_scan(dt, a, x, bm, cm, return_state=True)
+    torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(h, h2)
     ry, rh = ops.selective_scan_plain(dt, a, x, bm, cm, return_state=True)
     for got, ref in ((y, ry), (h, rh)):

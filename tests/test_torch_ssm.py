@@ -27,6 +27,9 @@ from repro_torch.models import ssm
 
 CHUNK_TOL = 2e-4        # the reference's, between two chunkwise forms
 TOL = 1e-5              # per-token recurrences and mixers
+# bf16 h: one bf16 step (2^-7 of the value) where the float32 results of
+# two summation orders straddle a rounding boundary
+BF16_STEP = 2.0 ** -7
 # (B, S, H, D, chunk): tests/test_kernels.py's mLSTM sweep
 SWEEP = [(2, 128, 2, 32, 32), (1, 256, 4, 64, 64), (1, 64, 1, 128, 16)]
 # (B, S, H, D): one chunk of S < 256, several of 256, the model's D
@@ -61,6 +64,27 @@ def _close(got, ref, tol):
                                rtol=tol)
 
 
+# Inputs that move the kernel off the common path: "floor" makes |den| < 1
+# at almost every row, so h is num itself (the floor of max(|den|, 1)): q
+# scaled by 1/8, since a constant shift of the gates cancels against the
+# stabiliser m; "big_i" makes m_t the intra-chunk max (i_s dominates
+# F_t + m_prev); "decay" drives f far below 0, so that the state decays to
+# 0 within a chunk and g, w_t, e_s underflow
+GATE_KINDS = ("floor", "big_i", "decay")
+
+
+def _gated(arrays, kind):
+    q, k, v, ig, fg = arrays
+    if kind == "floor":
+        q = q / 8.0
+    elif kind == "big_i":
+        ig = 8.0 * ig + 10.0
+    elif kind == "decay":
+        fg = fg - 40.0
+    return q.astype(np.float32), k, v, ig.astype(np.float32), \
+        fg.astype(np.float32)
+
+
 def test_gate_functions_match_jax():
     """``log_sigmoid`` and ``silu`` agree with ``jax.nn`` at 1e-6, edge
     points included (0, -0, tiny, the exp overflow range)."""
@@ -76,14 +100,12 @@ def test_gate_functions_match_jax():
            1e-6)
 
 
-@pytest.mark.parametrize("b,s,h,d,chunk", SWEEP)
-def test_mlstm_plain_matches_pallas_reference(b, s, h, d, chunk):
-    """Against the reference's Pallas kernel (interpret mode) and its
-    fully recurrent oracle, as tests/test_kernels.py runs them."""
+def _check_against_pallas(arrays, chunk):
+    """``mlstm_plain`` against the reference's Pallas kernel (interpret
+    mode) and its fully recurrent oracle, at CHUNK_TOL."""
     import jax.numpy as jnp
     from repro.kernels.mlstm_chunk.ops import mlstm as ref_mlstm
     from repro.kernels.mlstm_chunk.ref import mlstm_recurrent_ref
-    arrays = _inputs(b, s, h, d, seed=s + d)
     got = ops.mlstm_plain(*_op_args(arrays), chunk=chunk)
     q, k, v, ig, fg = (jnp.asarray(a) for a in arrays)
     _close(got.numpy(), ref_mlstm(q, k, v, ig, fg, chunk=chunk), CHUNK_TOL)
@@ -94,15 +116,32 @@ def test_mlstm_plain_matches_pallas_reference(b, s, h, d, chunk):
     _close(got.numpy(), oracle, CHUNK_TOL)
 
 
-@pytest.mark.parametrize("b,s,h,d", SCAN_SHAPES)
-def test_mlstm_plain_matches_chunk_scan(b, s, h, d):
-    """h and the final state (C, n, m) against the model's jnp twin of the
-    kernel, ``mlstm_chunk_scan``, which takes k scaled and the forget
-    gate's log-sigmoid."""
+@pytest.mark.parametrize("b,s,h,d,chunk", SWEEP)
+def test_mlstm_plain_matches_pallas_reference(b, s, h, d, chunk):
+    """Against the reference's Pallas kernel (interpret mode) and its
+    fully recurrent oracle, as tests/test_kernels.py runs them."""
+    _check_against_pallas(_inputs(b, s, h, d, seed=s + d), chunk)
+
+
+@pytest.mark.parametrize("kind", GATE_KINDS)
+@pytest.mark.parametrize("b,s,h,d,chunk", SWEEP)
+def test_mlstm_plain_matches_pallas_reference_on_gate_kinds(b, s, h, d,
+                                                            chunk, kind):
+    """The same on the inputs that move the tensor-core route off its
+    common path (|den| < 1, an intra-chunk m_t, a state that decays to
+    0), so that the card's kernel, held against ``mlstm_plain`` on them,
+    is held against the reference too."""
+    _check_against_pallas(_gated(_inputs(b, s, h, d, seed=s + d), kind),
+                          chunk)
+
+
+def _check_against_chunk_scan(arrays):
+    """h and the final state (C, n, m) of ``mlstm_plain`` against
+    ``mlstm_chunk_scan`` at CHUNK_TOL."""
     import jax
     import jax.numpy as jnp
     from repro.models.ssm import mlstm_chunk_scan
-    arrays = _inputs(b, s, h, d, seed=3 * s + d)
+    d = arrays[0].shape[-1]
     got, state = ops.mlstm_plain(*_op_args(arrays), chunk=ssm.CHUNK,
                                  return_state=True)
     q, k, v, ig, fg = (jnp.asarray(a) for a in arrays)
@@ -113,6 +152,22 @@ def test_mlstm_plain_matches_chunk_scan(b, s, h, d):
     for key in state:
         assert state[key].shape == rstate[key].shape
         _close(state[key].numpy(), rstate[key], CHUNK_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,d", SCAN_SHAPES)
+def test_mlstm_plain_matches_chunk_scan(b, s, h, d):
+    """h and the final state (C, n, m) against the model's jnp twin of the
+    kernel, ``mlstm_chunk_scan``, which takes k scaled and the forget
+    gate's log-sigmoid."""
+    _check_against_chunk_scan(_inputs(b, s, h, d, seed=3 * s + d))
+
+
+@pytest.mark.parametrize("kind", GATE_KINDS)
+@pytest.mark.parametrize("b,s,h,d", SCAN_SHAPES)
+def test_mlstm_plain_matches_chunk_scan_on_gate_kinds(b, s, h, d, kind):
+    """The same on the tensor-core route's edge-case inputs."""
+    _check_against_chunk_scan(_gated(_inputs(b, s, h, d, seed=3 * s + d),
+                                     kind))
 
 
 @pytest.mark.parametrize("b,s,h,d", [(2, 512, 2, 16), (1, 256, 3, 64)])
@@ -135,6 +190,84 @@ def test_mlstm_bf16_goes_through_float32():
     assert out.dtype == torch.bfloat16
     ref = ops.mlstm_plain(*(t.float() for t in args), chunk=32)
     torch.testing.assert_close(out, ref.to(torch.bfloat16), atol=0, rtol=0)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hi_lo(x):
+    """float32 x as the two bf16 operands the tensor-core route feeds the
+    tensor cores for it: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _mlstm_tensor_core_emulation(q, k, v, i, f, chunk=64):
+    """The bf16 route of ``csrc/mlstm_chunk.cu`` in plain torch, with its
+    roundings: chunks of 64; scores from the bf16 q, k (exact products)
+    divided by sqrt(D); every float32 operand of a product (the weighted
+    scores W before V, C before q, k e / sqrt(D) before V) split into bf16
+    hi + lo and the two products summed in float32; q.n and n's update in
+    float32.  Only the summation order inside a product differs from the
+    card.  S must be a multiple of ``chunk``."""
+    b, s, h, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ig, lf = i.float(), ops.log_sigmoid(f.float())
+    C = torch.zeros((b, h, d, d))
+    n = torch.zeros((b, h, d))
+    m = torch.full((b, h), ops.M_INIT)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()[None, :, :,
+                                                                 None]
+    outs = []
+    for c0 in range(0, s, chunk):
+        qc, kc, vc = (x[:, c0:c0 + chunk] for x in (qf, kf, vf))
+        ic, lfc = ig[:, c0:c0 + chunk], lf[:, c0:c0 + chunk]
+        F = torch.cumsum(lfc, dim=1)
+        dm = F[:, :, None, :] - F[:, None, :, :] + ic[:, None, :, :]
+        m_intra = torch.where(causal, dm, -torch.inf).amax(dim=2)
+        m_inter = F + m[:, None, :]
+        m_t = torch.maximum(m_intra, m_inter)
+        scores = torch.einsum("blhd,bshd->blsh", qc, kc) / np.sqrt(d)
+        ws = torch.where(causal, torch.exp(dm - m_t[:, :, None, :]) * scores,
+                         0.0)
+        w_inter = torch.exp(m_inter - m_t)
+        qC = sum(torch.einsum("blhd,bhde->blhe", qc, part)
+                 for part in _hi_lo(C))
+        wV = sum(torch.einsum("blsh,bshd->blhd", part, vc)
+                 for part in _hi_lo(ws))
+        num = w_inter[..., None] * qC + wV
+        den = ws.sum(dim=2) + w_inter * torch.einsum("blhd,bhd->blh", qc, n)
+        outs.append(num / torch.clamp_min(den.abs(), 1.0)[..., None])
+        f_tot, m_end = F[:, -1], m_t[:, -1]
+        g_old = torch.exp(f_tot + m - m_end)
+        e = torch.exp(f_tot[:, None] - F + ic - m_end[:, None]) / np.sqrt(d)
+        ke = kc * e[..., None]
+        C = g_old[:, :, None, None] * C + sum(
+            torch.einsum("blhd,blhe->bhde", part, vc) for part in _hi_lo(ke))
+        n = g_old[:, :, None] * n + ke.sum(dim=1)
+        m = m_end
+    return torch.cat(outs, dim=1).to(q.dtype), {"C": C, "n": n, "m": m}
+
+
+@pytest.mark.parametrize("kind", ("random",) + GATE_KINDS)
+def test_tensor_core_split_emulation_within_tolerance(kind):
+    """xlstm-350m's head shape (H 4, D 256) in bf16: the tensor-core
+    route's hi + lo products, emulated in plain torch, against
+    ``mlstm_plain`` at the card's tolerances (h: 2e-4 plus one bf16 step;
+    the float32 state: 2e-4)."""
+    cfg = get_config("xlstm-350m")
+    h, d = cfg.n_heads, cfg.d_head
+    assert (h, d) == (4, 256)
+    args = _op_args(_gated(_inputs(1, 512, h, d, seed=21), kind),
+                    dtype=torch.bfloat16)
+    got, state = _mlstm_tensor_core_emulation(*args)
+    ref, rstate = ops.mlstm_plain(*args, chunk=ssm.CHUNK, return_state=True)
+    torch.testing.assert_close(got.float(), ref.float(), atol=CHUNK_TOL,
+                               rtol=BF16_STEP)
+    for key in state:
+        torch.testing.assert_close(state[key], rstate[key], atol=CHUNK_TOL,
+                                   rtol=CHUNK_TOL)
 
 
 # --------------------------------------------------------------- the mixers
@@ -358,6 +491,37 @@ def test_kernel_matches_plain_on_card(card, b, s, h, d, chunk, dtype):
     ref, rstate = ops.mlstm_plain(*args, chunk=chunk, return_state=True)
     tol = CHUNK_TOL if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    for key in state:
+        torch.testing.assert_close(state[key], rstate[key], atol=CHUNK_TOL,
+                                   rtol=CHUNK_TOL)
+
+
+# the bf16 route's own cases, (B, S, H, D, caller chunk, gates): S ragged
+# against its 64-row chunk (48, 96, 1000), D in {16, 64, 256}, and the gate
+# kinds that leave the common path
+TC_CASES = [(2, 48, 3, 64, 16, "random"), (1, 96, 2, 64, 32, "random"),
+            (1, 1000, 2, 64, 200, "random"), (2, 96, 2, 16, 32, "random"),
+            (1, 96, 1, 256, 32, "random")] + \
+    [(1, 256, 2, d, 64, kind) for d in (16, 64, 256) for kind in GATE_KINDS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,chunk,kind", TC_CASES)
+def test_tensor_core_route_on_card(card, b, s, h, d, chunk, kind):
+    """bf16 q, k, v: h against the plain version within 2e-4 plus one bf16
+    step, the float32 state within 2e-4, and two launches bit-equal."""
+    args = _op_args(_gated(_inputs(b, s, h, d, seed=s + d + 7), kind),
+                    device=card, dtype=torch.bfloat16)
+    launches = ops.LAUNCHES
+    got, state = ops.mlstm(*args, chunk=chunk, return_state=True)
+    again, state2 = ops.mlstm(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == launches + 2
+    assert torch.equal(got, again)
+    assert all(torch.equal(state[k], state2[k]) for k in state)
+    ref, rstate = ops.mlstm_plain(*args, chunk=chunk, return_state=True)
+    torch.testing.assert_close(got.float(), ref.float(), atol=CHUNK_TOL,
+                               rtol=BF16_STEP)
     for key in state:
         torch.testing.assert_close(state[key], rstate[key], atol=CHUNK_TOL,
                                    rtol=CHUNK_TOL)

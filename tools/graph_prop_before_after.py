@@ -14,28 +14,24 @@ time and, from a profiler trace, its device-busy time and the part of it in
 the graph-propagation kernels.
 
 Each checkout runs in its own process, in the order other, this, this,
-other, so that a drift of the card over the run shows.  ``--other`` names a
-checkout of another commit, e.g. the parent unpacked with ``git archive``
-into a git-ignored directory; both must have ``chip_smoke.py`` at their
-root.  Needs one card.
+other (``before_after.py``), so that a drift of the card over the run
+shows.  ``--other`` names a checkout of another commit, e.g. the parent
+unpacked with ``git archive`` into a git-ignored directory, whose
+``chip_smoke.py`` has ``graph_ms``.  Needs one card.
 
     python tools/graph_prop_before_after.py --other build/parent
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import before_after
+
 SHAPES = ((96, 8, 8), (378, 16, 3))     # (B, N, levels): training, decision
 
 
-def measure(root: str) -> dict:
-    """One checkout's numbers; ``root`` is put first on ``sys.path``."""
-    sys.path[:0] = [root, os.path.join(root, "src")]
+def measure(root: str, args) -> dict:
+    """One checkout's numbers; ``root`` is first on ``sys.path``."""
     import numpy as np
     import torch
 
@@ -43,16 +39,6 @@ def measure(root: str) -> dict:
     from repro_torch.core.model import init_enel
     from repro_torch.dataflow.runner import JobExperiment
     from repro_torch.kernels.graph_prop import ops
-
-    def device_ms(fn, reps=20):
-        """Per call, ``reps`` calls in one CUDA graph between CUDA events."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        return cs.median_ms(graph.replay, burst=1, reps=10) / reps
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_grad_enabled(False)
@@ -63,7 +49,7 @@ def measure(root: str) -> dict:
     for b, n, levels in SHAPES:
         x, adj, m, valid = cs.random_inputs(rng, b, n, dev)
         tag = f"B{b}_N{n}_L{levels}"
-        out[f"fwd_ms_{tag}"] = device_ms(
+        out[f"fwd_ms_{tag}"] = cs.graph_ms(
             lambda: ops.graph_prop(params, x, adj, m, valid, levels=levels))
         if n == 8:
             g_e = torch.tensor(rng.randn(b, n, n).astype(np.float32),
@@ -71,7 +57,7 @@ def measure(root: str) -> dict:
             g_m = torch.tensor(rng.randn(b, n, 5).astype(np.float32),
                                device=dev)
             w = ops._weights(params)
-            out[f"bwd_ms_{tag}"] = device_ms(
+            out[f"bwd_ms_{tag}"] = cs.graph_ms(
                 lambda: ops._launch_bwd(x, adj, m, valid, w, g_e, g_m,
                                         levels))
     torch.set_grad_enabled(True)
@@ -90,29 +76,5 @@ def measure(root: str) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", help="checkout to hold this one against")
-    ap.add_argument("--measure", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.measure:
-        print(json.dumps(measure(os.path.abspath(args.measure))), flush=True)
-        return 0
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(card, flush=True)
-    other = os.path.abspath(args.other)
-    for root in (other, HERE, HERE, other):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--measure", root], capture_output=True,
-                             text=True, cwd=root)
-        if res.returncode:
-            print(res.stdout + res.stderr, flush=True)
-            return res.returncode
-        print(res.stdout.strip().splitlines()[-1], flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(before_after.main(__file__, __doc__, measure))

@@ -64,8 +64,9 @@ def stream(params, cfg, toks, bump_at=None):
     positions = torch.arange(s, device=x.device).expand(b, s)
     xs = [x]
     for i, lp in enumerate(params["layers"]):
-        x, _ = tr._layer_apply(lp, cfg, cfg.layer_kind(i), cfg.ffn_kind(i),
-                               x, "train", positions, None, None)
+        x, _, _ = tr._layer_apply(lp, cfg, cfg.layer_kind(i),
+                                  cfg.ffn_kind(i), x, "train", positions,
+                                  None, None)
         xs.append(x)
     return xs, tr._logits(params, cfg, x)
 
@@ -112,7 +113,7 @@ def main() -> int:
     p, p0, depths = cs.XLSTM_TOP[0], cs.XLSTM_TF_PREFIX, DEPTHS
     if args.smoke:
         cfg, p, p0, depths = smoke_config(cfg), 256, 128, (1, 2, 3)
-    toks = cs.padded(cs.xlstm_waves(cfg)[0])[:, -p:]
+    toks = cs.padded(cs.capped_waves(cfg, cs.XLSTM_TOP)[0])[:, -p:]
     toks = torch.tensor(np.ascontiguousarray(toks), device=device)
     card = cs.card_line() if device.type == "cuda" else "cpu"
     params = init_model(cfg, seed=cs.SEED, device=device)

@@ -10,7 +10,16 @@ P tokens against one over the first P0 at positions P0-4..P0-1) and
 ``ulp@t`` (the forward over P0 tokens against one whose embedding at
 position t moved up by one float32 step, as the port's probe moves it).
 
+With ``--port`` it also runs the port's CPU route (``src/repro_torch``,
+float32) on the reference's weights, converted with
+``convert.lm_params_from_numpy``, over the same P tokens, and prints per
+layer ``port`` (the port's residual stream against the reference's, at
+positions P0-4..P0-1, the logits last): the full-depth witness of the
+port's rounding.
+
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xlstm_rounding_reference.py
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/xlstm_rounding_reference.py \
+        --layers 24 --port
 """
 from __future__ import annotations
 
@@ -52,11 +61,37 @@ def rel(a, b) -> float:
     return float(np.abs(a - b).max() / np.abs(a).max())
 
 
+def port_stream(params, cfg, toks: np.ndarray, tail: slice):
+    """The port's residual stream (embedding and each layer, at ``tail``)
+    and its logits at ``tail``, on the CPU in float32, over the
+    reference's ``params`` (numpy leaves)."""
+    import torch
+    from repro_torch import configs as pconfigs
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import transformer as ptr
+    from repro_torch.models.layers import embed_lookup as pembed
+    pcfg = pconfigs.ModelConfig(**dataclasses.asdict(cfg))
+    pp = lm_params_from_numpy(params, pcfg, device="cpu")
+    with torch.no_grad():
+        x = pembed(pp["embed"], torch.tensor(toks), pcfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s).expand(b, s)
+        xs = [x[:, tail].numpy()]
+        for i, lp in enumerate(pp["layers"]):
+            x, _, _ = ptr._layer_apply(lp, pcfg, pcfg.layer_kind(i),
+                                       pcfg.ffn_kind(i), x, "train",
+                                       positions, None, None)
+            xs.append(x[:, tail].numpy())
+        return xs, ptr._logits(pp, pcfg, x[:, tail]).numpy()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=8,
                     help="a multiple of the layer period, 8")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--port", action="store_true",
+                    help="also the port's CPU route on the same weights")
     ap.add_argument("--out", default=None, help="write the JSON here too")
     args = ap.parse_args()
     cfg = dataclasses.replace(get_config("xlstm-350m"), n_layers=args.layers,
@@ -103,6 +138,16 @@ def main() -> int:
     r = result["float32"]
     r["floor"] = [rel(a[:, tail], b[:, tail]) for a, b in zip(full, part)] \
         + [rel(lg_full, lg_part)]
+    if args.port:
+        t1 = time.perf_counter()
+        xs, lg_port = port_stream(jax.tree_util.tree_map(np.asarray, params),
+                                  cfg, np.asarray(toks), tail)
+        r["port"] = [rel(a[:, tail], b) for a, b in zip(full, xs)] \
+            + [rel(lg_full, lg_port)]
+        print(f"port, float32, on the reference's weights "
+              f"({time.perf_counter() - t1:.1f}s on the CPU): logits at "
+              f"{P0 - STEPS}..{P0 - 1} of the forward over {P} tokens differ "
+              f"from the reference's by {r['port'][-1]:.3g} of the largest")
     del full
     for t in (0, P0 - STEPS):
         x = np.array(embed(toks[:, :P0]))
@@ -113,12 +158,14 @@ def main() -> int:
             + [rel(lg_part, lg)]
     print(f"reference, float32, {cfg.n_layers} layers at full width, B = "
           f"{args.batch} ({time.perf_counter() - t0:.1f}s on the CPU)")
-    print("  layer kind     floor     ulp@0  ulp@P0-4")
+    print("  layer kind     floor     ulp@0  ulp@P0-4"
+          + ("      port" if args.port else ""))
     for i in range(cfg.n_layers + 2):
         kind = ("embed" if i == 0 else "logits" if i > cfg.n_layers
                 else kinds[i - 1])
         print(f"  {i:5d} {kind:6s} {r['floor'][i]:9.3g} {r['ulp@0'][i]:9.3g} "
-              f"{r[f'ulp@{P0 - STEPS}'][i]:9.3g}")
+              f"{r[f'ulp@{P0 - STEPS}'][i]:9.3g}"
+              + (f" {r['port'][i]:9.3g}" if args.port else ""))
     print(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:
