@@ -38,12 +38,19 @@ Phases (any failure exits non-zero; nothing is caught):
    profiling runs, a scratch fit on the resident ring), 6 adaptive Enel
    runs (the 5th retrains from scratch), one failure-injected Enel run and
    one Ellis run; then a K-Means experiment under chaos (NaN graphs, ring
-   corruption, NaN params).  The backward kernel must launch once per Adam
-   step and the forward once per step or decision; no step is skipped
-   outside the chaos run, scratch fits end below their first-step loss,
-   picks lie in [4, 36], and the chaos run quarantines rows and has finite
-   params again after its scratch retrain; every Enel decision picks
-   again through the plain route, as in phase 4;
+   corruption, NaN params).  Enel decides through the experiment's
+   ``DecisionService`` (the sparse-edge engine, plain ops): one dispatch
+   per decision, no fallback outside the chaos run and guardrail
+   fallbacks inside it.  Both kernels must launch once per Adam step; no
+   step is skipped outside the chaos run, scratch fits end below their
+   first-step loss, picks lie in [4, 36], and the chaos run quarantines
+   rows and has finite params again after its scratch retrain.  Then every
+   service decision is replayed through the dense kernel route on its
+   unpadded sweep (one ``graph_prop_fwd`` launch each, counted from 0 and
+   reported as ``check_launches``, not as a path's) and picked again: the
+   service's totals must equal the dense ones within 1e-5 relative, a
+   pick that differs fails the run unless its margin is within 1e-5 of the
+   target, and a guardrail fallback must replay non-finite;
 7. timings of the training path: both kernels at the scratch shape (B =
    96, N = 8, levels = 8), back to back and in a CUDA graph, beside their
    bounds, their plain versions and their registers and spills; fit wall
@@ -152,7 +159,22 @@ Phases (any failure exits non-zero; nothing is caught):
    call computes the selective scan) and its registers and spills;
    prefill latency, decode ms per step, tokens/s, the kernels of one
    prefill and one step and the device-busy share of each;
-17. a ``{"kernels": [...]}`` line, then the device line last.
+17. the decision service on the card, over phase 6's four experiments:
+   the four jobs' requests at their last boundary share one bucket and go
+   to one ``decide`` (one dispatch at the J = 4 rung), those at their first
+   boundary make three groups; every row must give the pick of the same
+   request alone (J = 1) and its totals within 1e-6 relative; the
+   double-buffered and synchronous modes must agree bit for bit; a
+   ``DispatchChaos`` burst must cause retries, a breaker trip and a
+   half-open probe that closes the breaker, each ``decision.fallback``
+   span linked to a recorded cause; a short K-Means protocol (3 profiling
+   runs, two Enel runs) with ``ENEL_OBS`` on, off and on again must give
+   bit-equal picks and totals and add no dispatch signature once warm; no
+   kernel launches on the service's path.  Printed: span counts, and
+   ``decide`` per request at J = 1 and J = 4 (host clock, ending in its
+   one copy per group), kernels per dispatch and the device-busy share of
+   one dispatch, beside ``recommend``'s median from phase 5;
+18. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -468,16 +490,24 @@ def sweep_plain(params, template, deltas, device) -> torch.Tensor:
 
 
 PICK_RTOL = 1e-5        # a pick may differ only where float32 rounding can
+SPARSE_RTOL = 1e-5      # service (sparse engine) totals vs the dense route
 
 
 class PickRecorder:
     """Every decision's sweep on the kernel route: its inputs, the (C, K)
     output, the candidates, elapsed time, target and pick, with the params
     it was made under (a copy, taken again after each fit).  ``compare``
-    runs each sweep again through ``graph_prop_plain`` and picks again."""
+    runs each sweep again through ``graph_prop_plain`` and picks again.
+
+    ``watch_service`` records every ``DecisionService.decide`` instead (the
+    request, its answer and a copy of the params): ``compare`` replays each
+    service decision through the dense kernel route (``graph_prop_fwd``) on
+    the unpadded sweep and picks again, the card's sparse == dense check.
+    A guardrail fallback's replay must be non-finite too."""
 
     def __init__(self):
         self.records, self._pending, self._snaps = [], None, {}
+        self.service_records = []
         from repro_torch.core import scaling
         self._scaling = scaling
         self._inner_pick = scaling._totals_pick
@@ -492,6 +522,22 @@ class PickRecorder:
                              out)
             return out
         trainer.predict_sweep_device = sweep
+
+    def watch_service(self, service, label):
+        inner = service.decide
+
+        def decide(requests):
+            results = inner(requests)
+            from repro_torch.core.training import map_params, param_leaves
+            for req, res in zip(requests, results):
+                key = tuple((id(t), t._version)
+                            for t in param_leaves(req.params))
+                if key not in self._snaps:
+                    self._snaps = {key: map_params(torch.clone, req.params)}
+                self.service_records.append((label, self._snaps[key], req,
+                                             res))
+            return results
+        service.decide = decide
 
     def __enter__(self):
         def pick(per_comp, cand, cand_valid, elapsed, target):
@@ -520,24 +566,71 @@ class PickRecorder:
                   elapsed, target, packed) in enumerate(self.records):
             plain = sweep_plain(params, template, deltas, device)
             again = self._inner_pick(plain, cand, cand_valid, elapsed, target)
-            kp, pp = int(packed[0]), int(again[0])
-            if kp == pp:
-                continue
-            differ += 1
-            tk, tp = packed[1:].cpu(), again[1:].cpu()
-            tgt = float(target)
-            flips = (tk <= tgt) != (tp <= tgt)
-            if bool(flips.any()):
-                dist = torch.cat([tk[flips], tp[flips]]) - tgt
-                margin = float(dist.abs().max()) / abs(tgt)
-            else:                    # least violation: two near-equal totals
-                margin = float((tk[kp] - tk[pp]).abs()) / abs(tgt)
-            say(f"  pick differs, {label} decision {idx}: kernel "
-                f"{int(cand[kp])} (total {float(tk[kp]):.6f}), plain "
-                f"{int(cand[pp])} (total {float(tp[pp]):.6f}), target "
-                f"{tgt:.6f}: margin {margin:.3g} of the target")
-            assert margin <= PICK_RTOL, (label, idx, margin)
+            differ += check_pick(f"{label} decision {idx}", cand,
+                                 float(target), int(packed[0]),
+                                 packed[1:].cpu(), int(again[0]),
+                                 again[1:].cpu(), ("kernel", "plain"))
         return len(self.records), differ
+
+    def compare_service(self, device):
+        """(decisions replayed, differing picks, guardrail fallbacks, largest
+        totals difference): every recorded service decision again through
+        the dense kernel route on its unpadded sweep, picked again as
+        ``recommend`` picks.  The service's totals must equal the dense
+        ones within SPARSE_RTOL relative."""
+        from repro_torch.core import model
+        differ = fallbacks = 0
+        worst = 0.0
+        for idx, (label, params, req, res) in \
+                enumerate(self.service_records):
+            c, k = len(req.candidate_list), req.n_components
+            deltas = {kk: torch.as_tensor(np.ascontiguousarray(v[:c, :k]),
+                                          device=device)
+                      for kk, v in req.deltas.items()}
+            per = model.sweep_per_component(
+                params, {kk: v[:k] for kk, v in req.base.items()},
+                req.h_onehot[:k], deltas,
+                levels=min(model.MAX_LEVELS, req.levels))
+            cand = torch.as_tensor(req.candidates[:c], device=device)
+            again = self._inner_pick(
+                per, cand, torch.ones(c, dtype=torch.bool, device=device),
+                torch.tensor(np.float32(req.elapsed), device=device),
+                torch.tensor(np.float32(req.target), device=device)).cpu()
+            if res.fallback:
+                fallbacks += 1
+                assert not bool(torch.isfinite(again[1:]).all()), \
+                    (label, idx, "a guardrail fallback replays finite")
+                continue
+            tk = torch.tensor([res.totals[s] for s in req.candidate_list])
+            rel = float(((tk - again[1:]).abs() / again[1:].abs()).max())
+            assert rel <= SPARSE_RTOL, (label, idx, "totals", rel)
+            worst = max(worst, rel)
+            differ += check_pick(f"{label} service decision {idx}",
+                                 cand.cpu(), req.target,
+                                 req.candidate_list.index(res.scaleout), tk,
+                                 int(again[0]), again[1:],
+                                 ("service", "dense kernel"))
+        return len(self.service_records), differ, fallbacks, worst
+
+
+def check_pick(what, cand, tgt, kp, tk, pp, tp, names) -> int:
+    """1 if picks ``kp`` (of totals ``tk``) and ``pp`` (of ``tp``) differ,
+    printed with the totals' margin to the target (relative); fails unless
+    that margin is within PICK_RTOL.  0 if they agree."""
+    if kp == pp:
+        return 0
+    flips = (tk <= tgt) != (tp <= tgt)
+    if bool(flips.any()):
+        dist = torch.cat([tk[flips], tp[flips]]) - tgt
+        margin = float(dist.abs().max()) / abs(tgt)
+    else:                        # least violation: two near-equal totals
+        margin = float((tk[kp] - tk[pp]).abs()) / abs(tgt)
+    say(f"  pick differs, {what}: {names[0]} {int(cand[kp])} (total "
+        f"{float(tk[kp]):.6f}), {names[1]} {int(cand[pp])} (total "
+        f"{float(tp[pp]):.6f}), target {tgt:.6f}: margin {margin:.3g} of "
+        f"the target")
+    assert margin <= PICK_RTOL, (what, margin)
+    return 1
 
 
 def run_job(job_key, device, ops, picks=None):
@@ -600,7 +693,8 @@ def run_training(job_key, device, chaos=None, picks=None):
     """One job's training path (phase 6): profile, 6 Enel runs (the 5th a
     scratch retrain), a failure-injected Enel run and an Ellis run; with
     ``chaos`` (a ChaosSpec) 6 Enel runs under fault injection instead.
-    ``picks`` (a PickRecorder) records every Enel decision."""
+    Enel decides through the experiment's ``DecisionService`` (one request
+    per dispatch); ``picks`` (a PickRecorder) records every decision."""
     from repro_torch.dataflow.runner import JobExperiment
     from repro_torch.dataflow.workloads import SCALEOUT_RANGE
     from repro_torch.sim.chaos import ChaosInjector
@@ -608,7 +702,8 @@ def run_training(job_key, device, chaos=None, picks=None):
     ex = JobExperiment(job_key, seed=SEED, device=device)
     tr = ex.trainer
     if picks is not None:
-        picks.watch(tr, job_key + ("-chaos" if chaos is not None else ""))
+        picks.watch_service(ex.service, job_key + (
+            "-chaos" if chaos is not None else ""))
     ex.profile()
     scratch = [(tr.last_fit_seconds, tr.first_step_loss, tr.last_loss)]
     tune = []
@@ -627,14 +722,22 @@ def run_training(job_key, device, chaos=None, picks=None):
     lo, hi = SCALEOUT_RANGE
     for st in ex.stats:
         assert all(lo <= s <= hi for s in st.scaleouts), st.scaleouts
+    svc = ex.service
+    decisions = sum(st.decide_calls for st in ex.stats if st.kind == "enel")
+    assert svc.dispatches == svc.decisions == decisions, \
+        (svc.dispatches, svc.decisions, decisions)
+    assert svc.fallback_decisions == sum(st.fallback_decisions
+                                         for st in ex.stats)
     if chaos is None:
         assert tr.nonfinite_steps == 0, tr.nonfinite_steps
         for _, first, last in scratch + tune:
             assert np.isfinite(first) and np.isfinite(last), (first, last)
         for _, first, last in scratch:
             assert last < first, (job_key, first, last)
-        assert ex.enel.fallback_decisions == 0
+        assert svc.fallback_decisions == 0, svc.stats()
     else:
+        assert svc.guardrail_trips == svc.fallback_decisions > 0, \
+            svc.stats()
         c = ex.chaos
         assert c.graphs_poisoned and c.cache_rows_corrupted and \
             c.fits_poisoned, (c.graphs_poisoned, c.cache_rows_corrupted,
@@ -645,12 +748,197 @@ def run_training(job_key, device, chaos=None, picks=None):
         assert not all(finite_after), finite_after
     adaptive = [st for st in ex.stats if st.kind != "profiling"]
     return {"experiment": ex, "scratch": scratch, "tune": tune,
-            "runs": adaptive,
-            "decisions": sum(st.decide_calls for st in adaptive
-                             if st.kind == "enel"),
+            "runs": adaptive, "decisions": decisions,
             "steps": tr.adam_steps, "quarantined": tr.cache.quarantined,
             "skipped": tr.nonfinite_steps,
-            "fallbacks": ex.enel.fallback_decisions}
+            "fallbacks": svc.fallback_decisions}
+
+SERVICE_FAST = dict(backoff_base_s=1e-4, backoff_cap_s=1e-3)
+ROW_RTOL = 1e-6             # a J = 4 row against the same request at J = 1
+
+
+def boundary_request(ex, next_comp):
+    """One experiment's decision request at ``next_comp``, with its current
+    history and params, a fresh first component as the current summary and
+    the elapsed time pro rata of the target (so the pick is a choice)."""
+    from repro_torch.core.graph import summary_node
+    from repro_torch.dataflow import runner
+    job = ex.job
+    comp = ex.sim.run_component(job, 0, clock=0.0, start_scaleout=8,
+                                end_scaleout=8, inject_failures=False,
+                                failures_log=[])
+    summ = summary_node(runner._component_nodes(ex.encoder, job, comp),
+                        name="P0")
+    builder = lambda ci, a, z, pr: runner._to_graph(
+        runner._future_nodes(ex.encoder, job, ci, a, z), pr, ci)
+    return ex.enel.prepare_request(
+        graph_builder=builder, next_comp=next_comp,
+        n_components=job.n_components,
+        elapsed=ex.target * next_comp / job.n_components,
+        current_scaleout=8, target_runtime=ex.target, current_summary=summ)
+
+
+def kmeans_protocol(device, ae_params, enabled: bool):
+    """A short K-Means protocol (3 profiling runs, the scratch fit, two Enel
+    runs) with obs on or off: each service decision's (pick, predicted,
+    totals), each run's scale-outs and runtime, the signatures it added."""
+    from repro_torch import obs
+    from repro_torch.core import model
+    from repro_torch.dataflow.runner import JobExperiment
+    before = dict(model.TRACE_COUNTS)
+    decisions = []
+    with obs.obs_enabled(enabled):
+        ex = JobExperiment("kmeans", seed=SEED + 1, device=device,
+                           ae_params=ae_params)
+        inner = ex.service.decide
+
+        def decide(requests):
+            res = inner(requests)
+            decisions.extend((r.scaleout, r.predicted,
+                              sorted(r.totals.items())) for r in res)
+            return res
+        ex.service.decide = decide
+        ex.profile(3)
+        runs = [ex.adaptive_run("enel", inject_failures=False)
+                for _ in range(2)]
+    delta = {k: v - before.get(k, 0) for k, v in model.TRACE_COUNTS.items()
+             if v != before.get(k, 0)}
+    return [(st.scaleouts, st.runtime) for st in runs], decisions, delta
+
+
+def run_service(device, card, train, ops, recommend_ms):
+    """Phase 17: the decision service on the card.  Fleet batching (the four
+    jobs' last boundaries share one bucket: one J = 4 group; their first
+    boundaries make three groups), each row against the same request alone
+    (J = 1), double-buffered against synchronous bit for bit, a
+    DispatchChaos burst through retries, a breaker trip and a half-open
+    probe that recovers (every fallback span linked to its cause), ENEL_OBS
+    neutrality over a short K-Means protocol, span counts and timings."""
+    from repro_torch import obs
+    from repro_torch.core.service import DecisionService
+    from repro_torch.sim.chaos import ChaosSpec, DispatchChaos
+    t_phase = time.perf_counter()
+    exps = [train[k]["experiment"] for k in JOB_KEYS]
+    last = [boundary_request(ex, ex.job.n_components - 1) for ex in exps]
+    first = [boundary_request(ex, 1) for ex in exps]
+    assert len({r.bucket_key for r in last}) == 1, \
+        [r.bucket_key for r in last]
+    launches0 = ops.LAUNCHES
+
+    # fleet batching: each row against the same request alone
+    svc = DecisionService()
+    rows = svc.decide(last)
+    assert (svc.dispatches, svc.batched_away) == (1, 3), svc.stats()
+    rows += svc.decide(first)
+    n_groups = len({r.bucket_key for r in first})
+    assert svc.dispatches == 1 + n_groups, svc.stats()
+    differ = 0
+    worst = 0.0
+    for i, (req, row) in enumerate(zip(last + first, rows)):
+        alone = DecisionService().decide([req])[0]
+        assert not row.fallback and not alone.fallback
+        want = torch.tensor([alone.totals[s] for s in req.candidate_list])
+        got = torch.tensor([row.totals[s] for s in req.candidate_list])
+        worst = max(worst, float(((got - want).abs() / want.abs()).max()))
+        differ += check_pick(
+            f"service row {i} (J = {len(last) if i < 4 else 'group'})",
+            torch.as_tensor(req.candidates), req.target,
+            req.candidate_list.index(row.scaleout), got,
+            req.candidate_list.index(alone.scaleout), want,
+            ("batched", "alone"))
+    assert worst <= ROW_RTOL, worst
+    say(f"service fleet batching: 4 last-boundary requests in one J = 4 "
+        f"dispatch, 4 first-boundary requests in {n_groups} groups; each "
+        f"row vs alone: {differ} picks differ, totals within {worst:.3g} "
+        f"relative (limit {ROW_RTOL})")
+
+    # double-buffered == synchronous, bit for bit
+    res_b = DecisionService(double_buffer=True).decide(last + first)
+    res_s = DecisionService(double_buffer=False).decide(last + first)
+    for a, b in zip(res_b, res_s):
+        assert (a.scaleout, a.predicted, a.totals) == \
+            (b.scaleout, b.predicted, b.totals)
+        assert np.array_equal(a.per_component, b.per_component)
+    say("service double-buffered vs synchronous: picks, totals and "
+        "per-component predictions bit-equal")
+
+    # dispatch chaos: retries, a breaker trip, a half-open probe that heals
+    rec = obs.recorder()
+    rec.clear()
+    chaos_svc = DecisionService(max_retries=1, breaker_threshold=2,
+                                breaker_probe_after=2, **SERVICE_FAST)
+    chaos_svc.fault_injector = DispatchChaos(
+        ChaosSpec(name="smoke", timeout_every=3, timeout_burst=5))
+    with obs.obs_enabled(True):
+        fell = [chaos_svc.decide([last[2]])[0].fallback for _ in range(8)]
+    assert fell == [False, False, True, True, True, True, False, False], fell
+    st = chaos_svc.stats()
+    assert (st["retries"], st["breaker_trips"], st["fallback_decisions"],
+            st["dispatch_failures"], st["breaker_state"]) == \
+        (3, 1, 4, 5, "closed"), st
+    for ev in rec.events("decision.fallback"):
+        cause = rec.find(ev["attrs"]["cause_seq"])
+        assert cause is not None and cause["seq"] < ev["seq"], ev
+        assert cause["kind"] in ("dispatch.fault", "guardrail.trip",
+                                 "breaker.transition"), cause
+    moves = [(e["attrs"]["src"], e["attrs"]["dst"])
+             for e in rec.events("breaker.transition")]
+    assert moves == [("closed", "open"), ("open", "half_open"),
+                     ("half_open", "closed")], moves
+    chaos_spans = rec.span_counts()
+    say(f"service chaos: {st['dispatch_failures']} injected timeouts, "
+        f"{st['retries']} retries, {st['breaker_trips']} breaker trip, "
+        f"{st['fallback_decisions']} fallbacks each linked to its cause, "
+        f"half-open probe closed the breaker; spans {chaos_spans}")
+
+    # timings, with the memo warm
+    torch.cuda.synchronize()
+    t_svc = DecisionService()
+    j1 = lambda: t_svc.decide([last[2]])
+    j4 = lambda: t_svc.decide(last)
+    j1_ms = median_wall_ms(j1)
+    j4_ms = median_wall_ms(j4)
+    j1_busy, _, j1_kernels = profile_device(j1)
+    j4_busy, _, j4_kernels = profile_device(j4)
+    j1_ms2 = median_wall_ms(j1)
+    assert ops.LAUNCHES == launches0, "the sparse engine launched a kernel"
+    say(f"service timing on {card}: decide at J = 1 {j1_ms:.3f} ms per "
+        f"request (again {j1_ms2:.3f}), {j1_kernels:.0f} kernels per "
+        f"dispatch, device busy {j1_busy:.3f} ms (busy share "
+        f"{j1_busy / j1_ms:.3f}); at J = 4 {j4_ms / 4:.3f} ms per request "
+        f"({j4_ms:.3f} per call, {j4_ms / j1_ms:.2f}x J = 1), "
+        f"{j4_kernels:.0f} kernels, busy {j4_busy:.3f} ms (share "
+        f"{j4_busy / j4_ms:.3f}); recommend (phase 5) median "
+        + ", ".join(f"{k} {v:.2f}" for k, v in recommend_ms.items())
+        + " ms")
+
+    # ENEL_OBS neutrality over a short K-Means protocol
+    ae = {k: v.cpu().numpy() for k, v in
+          train["kmeans"]["experiment"].encoder.ae_params.items()}
+    runs_on, dec_on, _ = kmeans_protocol(device, ae, True)
+    runs_off, dec_off, delta_off = kmeans_protocol(device, ae, False)
+    runs_on2, dec_on2, delta_on2 = kmeans_protocol(device, ae, True)
+    assert len(dec_on) > 0
+    assert runs_off == runs_on == runs_on2, (runs_on, runs_off, runs_on2)
+    assert dec_off == dec_on == dec_on2
+    assert delta_off == delta_on2 == {}, (delta_off, delta_on2)
+    spans = obs.recorder().span_counts()
+    phase_s = time.perf_counter() - t_phase
+    say(f"service ENEL_OBS neutrality: {len(dec_on)} decisions of the "
+        f"K-Means protocol bit-equal with obs on, off and on, no new "
+        f"signature when warm; span counts {spans}; phase {phase_s:.1f}s")
+    return {"j1_ms_per_request": j1_ms, "j1_ms_again": j1_ms2,
+            "j4_ms_per_request": j4_ms / 4, "j4_ms_per_call": j4_ms,
+            "kernels_per_dispatch_j1": j1_kernels,
+            "kernels_per_dispatch_j4": j4_kernels,
+            "busy_ms_j1": j1_busy, "busy_share_j1": j1_busy / j1_ms,
+            "busy_ms_j4": j4_busy, "busy_share_j4": j4_busy / j4_ms,
+            "recommend_ms_median": recommend_ms,
+            "rows_max_rel_diff": worst, "rows_picks_differ": differ,
+            "first_boundary_groups": n_groups, "chaos": st,
+            "chaos_spans": chaos_spans, "span_counts": spans,
+            "neutral_decisions": len(dec_on), "seconds": phase_s}
+
 
 LM_ARCH = "qwen3-0.6b"
 LM_WAVES, LM_BATCH, LM_NEW, LM_MAX_LEN = 2, 8, 64, 2048
@@ -1824,16 +2112,24 @@ def main() -> int:
         t_launches, t_launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
     steps = sum(t["steps"] for t in train.values())
     t_decisions = sum(t["decisions"] for t in train.values())
+    # the service decides with the sparse engine (plain ops): the forward
+    # kernel launches once per Adam step only
     assert t_launches_bwd == steps > 0, (t_launches_bwd, steps)
-    assert t_launches == steps + t_decisions, \
-        (t_launches, steps, t_decisions)
+    assert t_launches == steps, (t_launches, steps, t_decisions)
     say(f"training path ({train_s:.1f}s): {steps} Adam steps, "
-        f"{t_decisions} decisions; graph_prop_bwd launched {t_launches_bwd} "
-        f"times, graph_prop_fwd {t_launches}")
-    n_rec, n_differ = picks.compare(device)
+        f"{t_decisions} decisions through DecisionService; graph_prop_bwd "
+        f"launched {t_launches_bwd} times, graph_prop_fwd {t_launches}")
+    ops.LAUNCHES = 0
+    n_rec, n_differ, n_fell, totals_rel = picks.compare_service(device)
+    torch.cuda.synchronize()
+    replay_launches = ops.LAUNCHES
     assert n_rec == t_decisions, (n_rec, t_decisions)
-    say(f"training path picks, kernel vs plain route: {n_differ} of {n_rec} "
-        f"differ (each within {PICK_RTOL} of the target)")
+    assert replay_launches == n_rec, (replay_launches, n_rec)
+    say(f"training path picks, service (sparse) vs dense kernel route: "
+        f"{n_differ} of {n_rec - n_fell} differ (each within {PICK_RTOL} of "
+        f"the target); totals max rel diff {totals_rel:.3g} (limit "
+        f"{SPARSE_RTOL}); {n_fell} guardrail fallbacks replay non-finite; "
+        f"the check launched graph_prop_fwd {replay_launches} times")
     pick_parity["training"] = [n_rec, n_differ]
     chaos = train["kmeans-chaos"]
     say(f"chaos (K-Means): {chaos['quarantined']} rows quarantined, "
@@ -2141,13 +2437,19 @@ def main() -> int:
     # 15-16. the jamba serving path (only its launches count), timings
     jb = jamba_path(device, card, ms, fa, fd, (ops, ml))
 
-    # 17. results
+    # 17. the decision service on the card
+    service = run_service(device, card, train, ops, {
+        key: j["recommend_ms_median"] for key, j in jobs.items()})
+    say(json.dumps({"card": card, "service": service}))
+
+    # 18. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
         "launches": launches + t_launches,
         "launches_by_path": {"decision": launches, "training": t_launches},
+        "check_launches": {"training_decision_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
         "back_to_back_ms": kernel_ms, "plain_ms": plain_ms,

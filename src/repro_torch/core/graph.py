@@ -8,13 +8,14 @@ historical summaries) are prepended as predecessors of the next component's
 roots and participate only in metric propagation (flagged ``is_summary``).
 
 Host-side numpy copy of ``repro.core.graph`` (graphs, stacking, the sweep
-template, summaries) plus the device-resident :class:`TrainingCache` ring
+template, the decision service's shape ladders and edge lists, summaries)
+plus the device-resident :class:`TrainingCache` ring
 that the trainer fits on, whose buffers are torch tensors.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass, field, replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,6 +135,31 @@ def pow2_bucket(n: int) -> int:
     return b
 
 
+# ------------------------------------------------------ sweep bucket ladders
+# Fixed shape ladders for the fleet decision service: every sweep is padded
+# up to a rung of each ladder so a whole multi-job campaign dispatches a
+# handful of (C, K, N, E, levels) shapes instead of one per exact sweep.
+# Padded components/candidates are all-masked empty graphs that contribute
+# exactly 0 (and are sliced off the result).
+
+CAND_LADDER = (6, 12, 18, 24, 36)        # candidate axis C
+COMP_LADDER = (4, 8, 12, 16, 24, 32)     # remaining-component axis K
+NODE_LADDER = (4, 8, 16)                 # node-slot axis N (compaction)
+EDGE_LADDER = (2, 4, 6, 8, 16, 32)       # real-edge axis E (sparse engine)
+LEVEL_LADDER = (2, 4, 6, 8)              # propagation depth
+
+
+def ladder_bucket(n: int, ladder: Sequence[int]) -> int:
+    """Smallest ladder rung >= n; doubles past the last rung if needed."""
+    for b in ladder:
+        if b >= n:
+            return b
+    b = ladder[-1]
+    while b < n:
+        b *= 2
+    return b
+
+
 # --------------------------------------------------------------- sweep engine
 # Batched candidate-sweep representation: across the candidate scale-out axis
 # only (a_raw, z_raw, r, summary-node attributes) change, so a decision point
@@ -233,6 +259,118 @@ def historical_summaries_batch(candidates: Sequence[NodeAttrs],
             "metrics_valid": n_valid > 0,
             "start": starts[idx].mean(axis=1),
             "end": ends[idx].mean(axis=1)}
+
+
+def materialize_candidate(template: SweepTemplate,
+                          deltas: Dict[str, np.ndarray],
+                          c: int) -> Dict[str, np.ndarray]:
+    """Apply candidate ``c``'s deltas host-side -> stacked (K, N, ...) dict:
+    exactly the graph batch the device-side assembly produces for ``c``."""
+    oh = template.h_onehot[..., None]                       # (K, N, 1)
+    out = {k: v.copy() for k, v in template.base.items()}
+    out["context"] = (out["context"] * (1.0 - oh) +
+                      oh * deltas["h_context"][c][:, None, :])
+    out["metrics"] = (out["metrics"] * (1.0 - oh) +
+                      oh * deltas["h_metrics"][c][:, None, :])
+    out["metrics_valid"] = deltas["metrics_valid"][c].astype(bool)
+    out["a_raw"] = deltas["a_raw"][c]
+    out["z_raw"] = deltas["z_raw"][c]
+    out["r"] = deltas["r"][c]
+    return out
+
+
+# ------------------------------------------------------ sweep shape bucketing
+def bucket_sweep(template: SweepTemplate, deltas: Dict[str, np.ndarray]
+                 ) -> Tuple[SweepTemplate, Dict[str, np.ndarray],
+                            Tuple[int, int]]:
+    """Pad a (template, deltas) sweep to the fixed shape ladders.
+
+    Returns the padded pair plus the REAL ``(n_candidates, n_components)``
+    so callers can slice results back.  Padding semantics:
+
+    * node axis N is COMPACTED to the smallest rung holding every real node
+      slot (graphs fill slots from 0, so trailing slots are pure padding);
+    * component axis K is padded with all-masked empty graphs whose
+      per-component readout is exactly 0;
+    * candidate axis C is padded by repeating the last candidate's deltas
+      (rows past the real count are sliced off / masked in the pick);
+    * ``levels`` is rounded up to a rung — extra propagation rounds past the
+      DAG depth are a fixed point, so the result is unchanged.
+    """
+    c_real, k_real = deltas["a_raw"].shape[:2]
+    n_now = template.base["mask"].shape[1]
+    extent = 1
+    if template.base["mask"].any():
+        extent = int(np.flatnonzero(template.base["mask"].any(axis=0)).max()) + 1
+    n_b = min(ladder_bucket(extent, NODE_LADDER), n_now)
+    k_b = ladder_bucket(k_real, COMP_LADDER)
+    c_b = ladder_bucket(c_real, CAND_LADDER)
+
+    # which trailing structure each array key has around the node axis
+    def fit_nodes(key: str, v: np.ndarray) -> np.ndarray:
+        if key == "adj":
+            return v[..., :n_b, :n_b]
+        if key in ("context", "metrics"):            # (..., N, feature)
+            return v[..., :n_b, :]
+        if key in ("h_context", "h_metrics"):        # no node axis
+            return v
+        return v[..., :n_b]                          # (..., N)
+
+    spec = _cache_spec(n_b)
+    base = {}
+    for key, v in template.base.items():
+        v = fit_nodes(key, v)
+        shape, dtype, fill = spec[key]
+        pad = np.full((k_b - k_real,) + shape, fill, v.dtype)
+        base[key] = np.concatenate([v, pad]) if k_b > k_real else v
+    h_onehot = np.zeros((k_b, n_b), np.float32)
+    h_onehot[:k_real] = template.h_onehot[:, :n_b]
+
+    d_fill = {"a_raw": 1.0, "z_raw": 1.0, "r": 1.0, "metrics_valid": False,
+              "h_context": 0.0, "h_metrics": 0.0}
+    out = {}
+    for key, v in deltas.items():
+        v = fit_nodes(key, np.asarray(v))
+        if k_b > k_real:
+            pad = np.full((c_real, k_b - k_real) + v.shape[2:], d_fill[key],
+                          v.dtype)
+            v = np.concatenate([v, pad], axis=1)
+        if c_b > c_real:
+            v = np.concatenate([v, np.repeat(v[-1:], c_b - c_real, axis=0)])
+        out[key] = v
+
+    padded = replace(
+        template, base=base, h_onehot=h_onehot,
+        levels=min(ladder_bucket(max(template.levels, 1), LEVEL_LADDER),
+                   LEVEL_LADDER[-1]))
+    return padded, out, (c_real, k_real)
+
+
+def sweep_edge_list(base: Dict[str, np.ndarray]
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-component (dst, src) edge lists for the sparse sweep engine.
+
+    Returns ``(edge_dst, edge_src, edge_valid)`` of shape (K, E), int32 /
+    int32 / bool as the reference's, with E the smallest EDGE_LADDER rung
+    holding every component's real edge count.  Padding edges point at
+    slot 0 with ``edge_valid`` False — the engine masks them out of the
+    softmax and both reductions.
+    """
+    adj = base["adj"] & base["mask"][:, None, :] & base["mask"][:, :, None]
+    k = adj.shape[0]
+    counts = adj.reshape(k, -1).sum(axis=1)
+    e_b = ladder_bucket(max(int(counts.max()) if k else 1, 1), EDGE_LADDER)
+    dst = np.zeros((k, e_b), np.int32)
+    src = np.zeros((k, e_b), np.int32)
+    val = np.zeros((k, e_b), bool)
+    for ki in range(k):
+        pairs = np.argwhere(adj[ki])               # (n_edges, 2): [dst, src]
+        m = len(pairs)
+        if m:
+            dst[ki, :m] = pairs[:, 0]
+            src[ki, :m] = pairs[:, 1]
+            val[ki, :m] = True
+    return dst, src, val
 
 
 # ------------------------------------------------------------ training cache

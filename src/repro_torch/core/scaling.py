@@ -14,6 +14,11 @@ whole (candidate x component) batch is evaluated on the device in one
 ``graph_prop`` launch, the compliant pick runs on the device, and the host
 fetches (pick, per-candidate totals) in one transfer.  The per-candidate
 graph path is kept as :meth:`EnelScaler.recommend_pergraph` for reference.
+:meth:`EnelScaler.prepare_request` builds the same sweep as a
+shape-bucketed :class:`~repro_torch.core.service.DecisionRequest` for the
+fleet :class:`~repro_torch.core.service.DecisionService` (which the
+experiment runner decides through), and :meth:`EnelScaler.apply_decision`
+records its answer.
 
 Builder contract for the batched path: ``a``/``z`` may flow *unchanged* into
 node start/end scale-outs (identity only — derived values like (a+z)/2 keep
@@ -28,21 +33,23 @@ candidate-invariant: the template is built once at the current scale-out.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections import OrderedDict, defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.bell import initial_scaleout
 from repro_torch.core.fallback import FallbackPolicy
 from repro_torch.core.graph import (CTX_DIM, N_METRICS, ComponentGraph,
                                     NodeAttrs, SWEEP_KEYS, SweepTemplate,
-                                    historical_summaries_batch,
+                                    bucket_sweep, historical_summaries_batch,
                                     historical_summary, propagation_depth,
-                                    summary_node)
+                                    summary_node, sweep_edge_list)
 from repro_torch.core.model import pick_candidate
-from repro_torch.core.service import DecisionResult
+from repro_torch.core.service import DecisionRequest, DecisionResult
 from repro_torch.core.training import EnelTrainer
 
 # graph_builder(comp_idx, a, z, predecessors) -> ComponentGraph with
@@ -67,17 +74,21 @@ class _TemplateDeviceCache:
     slots, candidate count) key, and a per-key host diff re-ships ONLY the
     arrays whose values changed.  A bounded LRU over keys (default 8 slots).
     ``transfers``/``skips``/``evictions`` count uploads, uploads avoided and
-    slots dropped.
+    slots dropped, registry-backed behind those attributes.
     """
+
+    _ids = itertools.count()        # obs label allocator
 
     def __init__(self, device: torch.device, max_slots: int = 8):
         self.device = device
         self.max_slots = max_slots
         self._slots: "OrderedDict[Tuple[int, int, int], Tuple[Dict, Dict]]" \
             = OrderedDict()
-        self.transfers = 0
-        self.skips = 0
-        self.evictions = 0
+        reg = obs.registry()
+        name = f"tc{next(self._ids)}"
+        self._obs_counters = {
+            attr: reg.counter(family, help).labels(cache=name)
+            for attr, (family, help) in _CACHE_COUNTERS.items()}
 
     def adopt(self, template: SweepTemplate, n_candidates: int
               ) -> SweepTemplate:
@@ -110,6 +121,19 @@ class _TemplateDeviceCache:
         return dataclasses.replace(
             template, base={kk: dev[kk] for kk in template.base},
             h_onehot=dev["__h_onehot__"])
+
+
+_CACHE_COUNTERS = {
+    "transfers": ("enel_template_cache_transfers_total",
+                  "device uploads performed"),
+    "skips": ("enel_template_cache_skips_total",
+              "uploads avoided by the host diff"),
+    "evictions": ("enel_template_cache_evictions_total",
+                  "LRU slots dropped"),
+}
+
+
+obs.registry_attributes(_TemplateDeviceCache, _CACHE_COUNTERS)
 
 
 def _totals_pick(per_comp: torch.Tensor, cand: torch.Tensor,
@@ -149,6 +173,11 @@ class EnelScaler:
         # probe per key serves the whole campaign.  NOT perf-only: a miss
         # calls the graph builder once more, which consumes encoder draws
         self._probe_cache: Dict[Tuple[int, int], Tuple] = {}
+        # identity-stable request constants (edge lists, candidate arrays):
+        # reusing the SAME ndarray objects across decisions lets the service
+        # skip re-stacking them when nothing changed
+        self._edge_cache: Dict[Tuple[int, int, int], Tuple] = {}
+        self._cand_cache: Dict[Tuple, Tuple[np.ndarray, np.ndarray]] = {}
 
     @property
     def last_per_component(self) -> Optional[np.ndarray]:
@@ -326,6 +355,74 @@ class EnelScaler:
             per_component_dev=per_dev, n_candidates=per_dev.shape[0],
             n_components=per_dev.shape[1]))
         return best, totals[best], totals
+
+    # ------------------------------------------------- fleet decision service
+    def prepare_request(self, *, graph_builder: GraphBuilder, next_comp: int,
+                        n_components: int, elapsed: float,
+                        current_scaleout: int, target_runtime: float,
+                        current_summary: Optional[NodeAttrs] = None,
+                        best_effort: bool = False
+                        ) -> Optional[DecisionRequest]:
+        """Build this job's pending decision as a shape-bucketed request for
+        :class:`repro_torch.core.service.DecisionService`.
+
+        The sweep is assembled exactly as :meth:`recommend` would, then
+        padded to the fixed shape ladders (padded components read out as
+        exactly 0 and padded candidates are masked from the pick), the real
+        edges are gathered for the sparse engine, and the template base
+        arrays are swapped for the device-resident cache copies.  Returns
+        ``None`` when there is nothing left to decide.
+        """
+        candidates = self.candidate_scaleouts(current_scaleout)
+        if next_comp >= n_components:
+            return None
+        template, deltas = self.build_sweep(
+            graph_builder=graph_builder, next_comp=next_comp,
+            n_components=n_components, current_scaleout=current_scaleout,
+            candidates=candidates, current_summary=current_summary)
+        template, deltas, (c_real, k_real) = bucket_sweep(template, deltas)
+        c_b = deltas["a_raw"].shape[0]
+        # keyed by the REAL remaining-component count too: decision points
+        # sharing a K rung but differing in real adj/mask must not thrash
+        # one slot (identity-stable edges keep the service stack memo warm)
+        ekey = (k_real,) + template.base["mask"].shape
+        cached = self._edge_cache.get(ekey)
+        if cached is not None and \
+                np.array_equal(cached[0], template.base["adj"]) and \
+                np.array_equal(cached[1], template.base["mask"]):
+            edge_dst, edge_src, edge_valid = cached[2]
+        else:
+            edges = sweep_edge_list(template.base)
+            self._edge_cache[ekey] = (template.base["adj"].copy(),
+                                      template.base["mask"].copy(), edges)
+            edge_dst, edge_src, edge_valid = edges
+        template = self.template_cache.adopt(template, c_b)
+        ckey = (c_b,) + tuple(candidates)
+        if ckey in self._cand_cache:
+            cand_arr, cand_valid = self._cand_cache[ckey]
+        else:
+            cand_arr = np.full(c_b, candidates[-1], np.float32)
+            cand_arr[:c_real] = candidates
+            cand_valid = np.zeros(c_b, bool)
+            cand_valid[:c_real] = True
+            self._cand_cache[ckey] = (cand_arr, cand_valid)
+        return DecisionRequest(
+            params=self.trainer.params, base=template.base,
+            h_onehot=template.h_onehot, deltas=deltas, edge_dst=edge_dst,
+            edge_src=edge_src, edge_valid=edge_valid, candidates=cand_arr,
+            cand_valid=cand_valid, elapsed=float(elapsed),
+            target=float(target_runtime), levels=template.levels,
+            candidate_list=list(candidates), n_components=k_real,
+            current_scaleout=int(current_scaleout),
+            best_effort=bool(best_effort))
+
+    def apply_decision(self, request: DecisionRequest,
+                       result: DecisionResult
+                       ) -> Tuple[int, float, Dict[int, float]]:
+        """Record a service decision's diagnostics; returns the same
+        (scaleout, predicted_total, totals) triple as :meth:`recommend`."""
+        self._note_sweep(request.candidate_list, result)
+        return result.scaleout, result.predicted, result.totals
 
     def recommend_pergraph(self, *, graph_builder: GraphBuilder,
                            next_comp: int, n_components: int, elapsed: float,

@@ -21,16 +21,19 @@ Both differentiate through ``forward_stacked``: on a card eqs. 6-7 go
 through the ``graph_prop`` kernels (forward and backward), on the CPU
 through the inline PyTorch route.  The reference's ``jax.lax.scan`` over
 Adam steps is a Python loop here; losses and the skipped-step count stay on
-the device and are fetched once per fit.
+the device and are fetched once per fit.  Every fit emits the reference's
+``fit`` span and observes ``enel_fit_seconds`` (``repro_torch.obs``).
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import model as enel_model
 from repro_torch.core.graph import (ComponentGraph, SweepTemplate,
                                     TrainingCache, empty_graph, pow2_bucket,
@@ -223,9 +226,13 @@ class EnelTrainer:
     enel_params_from_numpy`).
     """
 
+    _ids = itertools.count()        # default obs label allocator
+
     def __init__(self, seed: int = 0, lr: float = 5e-3,
-                 cache_capacity: int = 96, *, device: DeviceLike = "cuda"):
+                 cache_capacity: int = 96, *, device: DeviceLike = "cuda",
+                 obs_name: Optional[str] = None):
         self.device = resolve_device(device)
+        self.obs_name = obs_name or f"tr{next(self._ids)}"
         self.seed = seed
         self.lr = lr
         self.init_params = enel_model.init_enel(
@@ -247,6 +254,16 @@ class EnelTrainer:
         self.nonfinite_steps = 0
         self.last_skipped_steps = 0
         self.poisoned_fits = 0
+
+    def _emit_fit(self, route: str, scratch: bool, steps: int, loss: float,
+                  retried: bool = False) -> None:
+        mode = "scratch" if scratch else "tune"
+        obs.emit("fit", trainer=self.obs_name, route=route, mode=mode,
+                 steps=steps, skipped=self.last_skipped_steps,
+                 retried=retried, loss=round(float(loss), 6),
+                 seconds=round(self.last_fit_seconds, 6))
+        obs.observe("enel_fit_seconds", self.last_fit_seconds,
+                    trainer=self.obs_name, mode=mode)
 
     def _reset_opt(self) -> None:
         self.opt: Opt = (map_params(torch.zeros_like, self.params),
@@ -312,6 +329,7 @@ class EnelTrainer:
                                          self.lr)
         self._note_fit(first, loss, skipped, steps)
         self.last_fit_seconds = time.time() - t0
+        self._emit_fit("legacy", from_scratch, steps, loss)
         return loss
 
     # ---------------------------------------------------- resident ring
@@ -358,9 +376,12 @@ class EnelTrainer:
                 self.cache.quarantine_nonfinite() > 0:
             # params were fine but the batch was poisoned: the corrupt rows
             # are quarantined now, so one retry trains on the healed ring
+            self._emit_fit("resident", from_scratch, n_steps, loss,
+                           retried=True)
             return self.fit_resident(steps=steps, from_scratch=from_scratch,
                                      metric_dropout=metric_dropout,
                                      latest_only=latest_only, _retry=False)
+        self._emit_fit("resident", from_scratch, n_steps, loss)
         return loss
 
     def observe_run_resident(self, *, retrain_every: int = 5,

@@ -5,35 +5,47 @@ runs where the scaler is consulted at every component boundary.  Enel
 retrains from scratch every 5th run and fine-tunes otherwise; Ellis refits
 its per-component model ensemble after every run.
 
-Counterpart of ``repro.dataflow.runner`` for a single job:
-:class:`JobExperiment` (``calibrate_target``, ``profile``,
-``adaptive_run``) over :func:`execute_run`, one run with Enel's
-:meth:`EnelScaler.recommend` (or Ellis) at the component boundaries.
-Decisions call ``recommend`` directly where the reference's experiment
-yields them to its fleet ``DecisionService``; that service answers with
-the same picks as sequential ``recommend`` (``tests/test_service.py``
-holds it so), so the semantics are the same.  The service, fleet
-campaigns, checkpoints and the batched simulator engine are not ported
-yet.
+Counterpart of ``repro.dataflow.runner`` for a single job.  As there, the
+execution loop of :class:`JobExperiment` is a generator that YIELDS two
+kinds of requests and resumes with their results:
+
+* :class:`~repro_torch.sim.engine.SimStepRequest` — the next component's
+  simulated execution, answered by a sim backend
+  (:class:`~repro_torch.sim.engine.NumpySimBackend`);
+* :class:`~repro_torch.core.service.DecisionRequest` — the pending Enel
+  rescaling decision, answered by a
+  :class:`~repro_torch.core.service.DecisionService` (shape-bucketed,
+  sparse-edge engine, guardrail, retry and breaker envelope).
+
+:func:`run_gen` is that loop for one run; its ``decide`` callback turns a
+:class:`DecisionPoint` into a :class:`Decision`.  :func:`drive` runs such a
+generator to its end.  :func:`execute_run` drives one run whose decisions
+ask ``EnelScaler.recommend`` directly (the dense sweep through the
+``graph_prop`` kernel) and records every one.  Fleet campaigns,
+checkpoints and the batched simulator engine are not ported.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional
+from functools import partial
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.ellis import EllisScaler
 from repro_torch.core.graph import (ComponentGraph, NodeAttrs, build_graph,
                                     historical_summary, summary_node)
 from repro_torch.core.scaling import EnelScaler
+from repro_torch.core.service import DecisionService
 from repro_torch.core.training import EnelTrainer
 from repro_torch.dataflow.context import ContextEncoder
 from repro_torch.dataflow.simulator import (ClusterSim, ComponentRecord,
                                             RunRecord, rescale_overhead)
 from repro_torch.dataflow.workloads import JOBS, SCALEOUT_RANGE, JobSpec
 from repro_torch.device import DeviceLike
+from repro_torch.sim.engine import NumpySimBackend, SimStepRequest
 from repro_torch.sim.scenarios import BASELINE, Scenario
 
 PROFILING_SCALEOUTS = [4, 8, 11, 14, 18, 21, 25, 28, 32, 36]
@@ -58,8 +70,14 @@ class RunStats:
     cache_transfers: int = 0
     cache_skips: int = 0
     cache_evictions: int = 0
-    # decisions answered by the model-free fallback during this run
+    # fault-tolerance counters: decisions answered by the model-free
+    # fallback / shed under overload during this run, plus this run's share
+    # of service-wide dispatch retries and breaker trips (deltas over the
+    # run)
     fallback_decisions: int = 0
+    shed_requests: int = 0
+    retries: int = 0
+    breaker_trips: int = 0
 
     @property
     def cvc(self) -> int:
@@ -106,6 +124,22 @@ def _to_graph(nodes: List[NodeAttrs], preds: List[NodeAttrs],
     return build_graph(all_nodes, edges, component_id=comp_idx)
 
 
+def drive(gen, service: Optional[DecisionService], backend):
+    """Run an execution generator to completion, answering each yielded
+    :class:`SimStepRequest` with the backend's component record and each
+    :class:`~repro_torch.core.service.DecisionRequest` with the service's
+    decision."""
+    try:
+        req = next(gen)
+        while True:
+            if isinstance(req, SimStepRequest):
+                req = gen.send(backend.step([req])[0])
+            else:
+                req = gen.send(service.decide([req])[0])
+    except StopIteration as stop:
+        return stop.value
+
+
 @dataclass
 class Decision:
     """One decision at a component boundary (Ellis decisions have no
@@ -116,7 +150,39 @@ class Decision:
     pick: int
     predicted: float
     totals: Dict[int, float]
-    seconds: float                # host wall time of the call (synced)
+    seconds: float                # host wall time of the decision
+    fallback: bool = False        # answered by the model-free fallback
+    shed: bool = False            # shed under overload
+
+
+@dataclass
+class DecisionPoint:
+    """A pending decision at a component boundary, as the run hands it to
+    its ``decide`` callback."""
+    next_comp: int
+    n_components: int
+    elapsed: float
+    current: int
+    target: float
+    current_summary: NodeAttrs
+    graph_builder: Callable
+
+    def ellis_kwargs(self) -> dict:
+        return dict(next_comp=self.next_comp, n_components=self.n_components,
+                    elapsed=self.elapsed, current_scaleout=self.current,
+                    target_runtime=self.target)
+
+    def enel_kwargs(self) -> dict:
+        """Keywords of ``EnelScaler.recommend`` and ``prepare_request``."""
+        return dict(self.ellis_kwargs(), graph_builder=self.graph_builder,
+                    current_summary=self.current_summary)
+
+    def decision(self, pick: int, predicted: float,
+                 totals: Dict[int, float], seconds: float,
+                 **flags) -> Decision:
+        return Decision(next_comp=self.next_comp, current=self.current,
+                        elapsed=self.elapsed, pick=pick, predicted=predicted,
+                        totals=totals, seconds=seconds, **flags)
 
 
 @dataclass
@@ -127,25 +193,27 @@ class RunResult:
     graphs: List[ComponentGraph] = field(default_factory=list)
 
 
-def execute_run(*, sim: ClusterSim, encoder: ContextEncoder, job: JobSpec,
-                scaler: EnelScaler, initial_s: int, inject_failures: bool,
-                target: Optional[float] = None, decision_interval: int = 1,
-                ellis: Optional[EllisScaler] = None,
-                method: str = "enel") -> RunResult:
-    """One run of ``job`` starting at ``initial_s`` executors.
+def run_gen(*, backend, slot: int, encoder: ContextEncoder, job: JobSpec,
+            scaler: EnelScaler, initial_s: int, inject_failures: bool,
+            target: Optional[float] = None, decision_interval: int = 1,
+            ellis: Optional[EllisScaler] = None,
+            decide: Optional[Callable] = None):
+    """Generator form of one run of ``job`` starting at ``initial_s``
+    executors on the backend's ``slot``; returns its :class:`RunResult`.
 
-    Every component's observed nodes go to ``scaler.record_component`` (and
-    its scale-out and runtime to ``ellis``, when given), and its observed
-    graph, with the P/H summary predecessors, to ``RunResult.graphs``.
-    With a ``target`` the ``method`` scaler picks the scale-out at every
-    ``decision_interval``-th boundary: ``scaler.recommend`` for "enel"
-    (the builder of the reference runner: future nodes at (a, z) with the
-    P/H summary predecessors), ``ellis.recommend`` for "ellis".  Without a
-    target the run keeps ``initial_s`` (a profiling run).
+    Every component is yielded as a :class:`SimStepRequest` and resumes
+    with its :class:`~repro_torch.sim.engine.SimStepResult`.  Its observed
+    nodes go to ``scaler.record_component`` (and its scale-out and runtime
+    to ``ellis``, when given), and its observed graph, with the P/H summary
+    predecessors, to ``RunResult.graphs``.  With a ``target`` and a
+    ``decide`` callback, every ``decision_interval``-th boundary becomes a
+    :class:`DecisionPoint`; ``yield from decide(point)`` answers it with a
+    :class:`Decision` (yielding whatever requests it needs on the way).
+    Without them the run keeps ``initial_s`` (a profiling run).
     """
     run = RunRecord(job.name, target or 0.0)
     result = RunResult(run, scaleouts=[initial_s])
-    sim.begin_run()
+    backend.begin_run(slot)
     clock = 0.0
     s_prev = s = initial_s
     n_comp = job.n_components
@@ -153,15 +221,13 @@ def execute_run(*, sim: ClusterSim, encoder: ContextEncoder, job: JobSpec,
     builder = lambda ci, a, z, pr: _to_graph(
         _future_nodes(encoder, job, ci, a, z), pr, ci)
     for k in range(n_comp):
-        failures: List[float] = []
-        comp = sim.run_component(
-            job, k, clock=clock, start_scaleout=s_prev, end_scaleout=s,
-            inject_failures=inject_failures or sim.scenario.inject_failures,
-            failures_log=failures)
+        step = yield SimStepRequest(
+            slot=slot, comp_idx=k, start_scaleout=s_prev, end_scaleout=s,
+            clock=clock, inject_failures=inject_failures)
+        comp = step.component
         run.components.append(comp)
-        run.failures.extend(failures)
-        last = comp.stages[-1]
-        clock = float(last.start + last.runtime)
+        run.failures.extend(step.failures)
+        clock = step.clock_end
         nodes = _component_nodes(encoder, job, comp)
         preds = [p for p in (prev_summary,) if p is not None]
         if k > 0:
@@ -176,33 +242,68 @@ def execute_run(*, sim: ClusterSim, encoder: ContextEncoder, job: JobSpec,
             ellis.observe_component(k, comp.scaleout, comp.runtime)
         prev_summary = summary_node(nodes, name=f"P{k}")
         s_prev = s
-        if target is None or k >= n_comp - 1 or k % decision_interval:
+        if target is None or decide is None or k >= n_comp - 1 or \
+                k % decision_interval:
             continue
-        t0 = time.perf_counter()
-        if method == "enel":
-            s_new, predicted, totals = scaler.recommend(
-                graph_builder=builder, next_comp=k + 1, n_components=n_comp,
-                elapsed=clock, current_scaleout=s, target_runtime=target,
-                current_summary=prev_summary)
-        else:
-            s_new, predicted = ellis.recommend(
-                next_comp=k + 1, n_components=n_comp, elapsed=clock,
-                current_scaleout=s, target_runtime=target)
-            totals = {}
-        result.decisions.append(Decision(
-            next_comp=k + 1, current=s, elapsed=clock, pick=s_new,
-            predicted=predicted, totals=totals,
-            seconds=time.perf_counter() - t0))
-        if s_new != s:
-            run.rescales.append((k + 1, s, s_new))
-            s = s_new
+        d = yield from decide(DecisionPoint(
+            next_comp=k + 1, n_components=n_comp, elapsed=clock, current=s,
+            target=target, current_summary=prev_summary,
+            graph_builder=builder))
+        result.decisions.append(d)
+        if d.pick != s:
+            run.rescales.append((k + 1, s, d.pick))
+            s = d.pick
             result.scaleouts.append(s)
     return result
 
 
-class JobExperiment:
-    """Shared environment for one job: simulator, encoder, both scalers.
+def _recommend_gen(point: DecisionPoint, *, scaler: EnelScaler,
+                   ellis: Optional[EllisScaler], method: str):
+    """Answer a decision point in place with ``scaler.recommend`` (the
+    dense sweep through the ``graph_prop`` kernel) or ``ellis.recommend``;
+    a generator that never suspends the run."""
+    t0 = time.perf_counter()
+    if method == "enel":
+        pick, predicted, totals = scaler.recommend(**point.enel_kwargs())
+    else:
+        pick, predicted = ellis.recommend(**point.ellis_kwargs())
+        totals = {}
+    return point.decision(pick, predicted, totals, time.perf_counter() - t0)
+    yield  # unreachable: marks this function as a generator
 
+
+def execute_run(*, sim: ClusterSim, encoder: ContextEncoder, job: JobSpec,
+                scaler: EnelScaler, initial_s: int, inject_failures: bool,
+                target: Optional[float] = None, decision_interval: int = 1,
+                ellis: Optional[EllisScaler] = None,
+                method: str = "enel") -> RunResult:
+    """One run of :func:`run_gen` on ``sim``, decided without a service:
+    with a ``target`` the ``method`` scaler picks the scale-out, through
+    ``scaler.recommend`` for "enel" (the builder of the reference runner:
+    future nodes at (a, z) with the P/H summary predecessors) or
+    ``ellis.recommend`` for "ellis".  Without a target the run keeps
+    ``initial_s`` (a profiling run).
+    """
+    backend = NumpySimBackend()
+    decide = None if target is None else partial(
+        _recommend_gen, scaler=scaler, ellis=ellis, method=method)
+    return drive(run_gen(backend=backend, slot=backend.adopt(sim, job),
+                         encoder=encoder, job=job, scaler=scaler,
+                         initial_s=initial_s,
+                         inject_failures=inject_failures, target=target,
+                         decision_interval=decision_interval, ellis=ellis,
+                         decide=decide), None, backend)
+
+
+class JobExperiment:
+    """Shared environment for one job: simulator, encoder, both scalers and
+    the decision service.
+
+    ``service`` answers Enel's decisions (a fresh
+    :class:`~repro_torch.core.service.DecisionService` by default; several
+    experiments may share one); ``backend`` runs the simulated components
+    (a :class:`~repro_torch.sim.engine.NumpySimBackend` adopting this
+    experiment's simulator by default; ``engine="batched"`` is not ported).
     ``scenario`` injects seeded disturbances; ``ae_params`` (the context
     encoder's auto-encoder weights, numpy) skip the encoder's own fit;
     ``chaos`` may hold a :class:`~repro_torch.sim.chaos.ChaosInjector`.
@@ -210,13 +311,24 @@ class JobExperiment:
 
     def __init__(self, job_key: str, seed: int = 0,
                  candidate_stride: int = 2, *, device: DeviceLike = "cuda",
-                 scenario: Optional[Scenario] = None,
+                 service: Optional[DecisionService] = None,
+                 engine: str = "numpy",
+                 scenario: Optional[Scenario] = None, backend=None,
                  ae_params: Optional[Mapping] = None):
+        if engine == "batched":
+            raise NotImplementedError(
+                "engine='batched' needs the vectorized BatchedClusterSim, "
+                "queue 1 item 8 of ROADMAP.md, not ported yet")
+        if engine != "numpy":
+            raise ValueError(f"unknown engine {engine!r}")
         self.job = JOBS[job_key]
         self.job_key = job_key
         self.seed = seed
         self.scenario = scenario or BASELINE
+        self.engine = engine
         self.sim = ClusterSim(seed=seed, scenario=self.scenario)
+        self.backend = backend if backend is not None else NumpySimBackend()
+        self.sim_slot = self.backend.adopt(self.sim, self.job)
         self.encoder = ContextEncoder([self.job], seed=seed, device=device,
                                       ae_params=ae_params)
         self.trainer = EnelTrainer(seed=seed, cache_capacity=HISTORY_WINDOW,
@@ -226,6 +338,7 @@ class JobExperiment:
         self.ellis = EllisScaler(SCALEOUT_RANGE,
                                  rescale_overhead=rescale_overhead(4, 8),
                                  candidate_stride=candidate_stride)
+        self.service = service or DecisionService()
         # decision cadence: every component for short jobs, every 2nd for
         # the 22-component LR/MPC
         self.decision_interval = 2 if self.job.n_components > 15 else 1
@@ -235,17 +348,46 @@ class JobExperiment:
         self.stats: List[RunStats] = []
         self._run_idx = 0
 
-    def _execute(self, *, method: Optional[str], inject_failures: bool,
-                 initial_s: int) -> RunResult:
-        """One run, decided by ``method`` ("enel", "ellis") or by nobody
-        (a profiling run)."""
-        return execute_run(
-            sim=self.sim, encoder=self.encoder, job=self.job,
-            scaler=self.enel, initial_s=initial_s,
+    # ------------------------------------------------------------ execution
+    def _decide_gen(self, point: DecisionPoint, *, method: str):
+        """Answer one decision point: Ellis in place, Enel through the
+        service (yields the ``DecisionRequest``, resumes with its result).
+        Decision latency = this job's local work + its share of the service
+        call (``service_seconds``); the suspended yield is not billed."""
+        t0 = time.perf_counter()
+        if method == "ellis":
+            pick, predicted = self.ellis.recommend(**point.ellis_kwargs())
+            return point.decision(pick, predicted, {},
+                                  time.perf_counter() - t0)
+        req = self.enel.prepare_request(**point.enel_kwargs())
+        local = time.perf_counter() - t0
+        result = yield req
+        t0 = time.perf_counter()
+        pick, predicted, totals = self.enel.apply_decision(req, result)
+        local += time.perf_counter() - t0
+        return point.decision(pick, predicted, totals,
+                              local + result.service_seconds,
+                              fallback=result.fallback, shed=result.shed)
+
+    def _execute_gen(self, *, method: Optional[str], inject_failures: bool,
+                     initial_s: int):
+        """One run as a generator, decided by ``method`` ("enel", "ellis")
+        or by nobody (a profiling run)."""
+        return run_gen(
+            backend=self.backend, slot=self.sim_slot, encoder=self.encoder,
+            job=self.job, scaler=self.enel, initial_s=initial_s,
             inject_failures=inject_failures,
             target=self.target if method else None,
             decision_interval=self.decision_interval, ellis=self.ellis,
-            method=method or "enel")
+            decide=partial(self._decide_gen, method=method) if method
+            else None)
+
+    def _execute(self, *, method: Optional[str], inject_failures: bool,
+                 initial_s: int) -> RunResult:
+        return drive(self._execute_gen(method=method,
+                                       inject_failures=inject_failures,
+                                       initial_s=initial_s), self.service,
+                     self.backend)
 
     # ------------------------------------------------------------ profiling
     def calibrate_target(self, n_runs: int = 10) -> None:
@@ -279,20 +421,27 @@ class JobExperiment:
     def adaptive_run(self, method: str, inject_failures: bool) -> RunStats:
         """One adaptive run with ``method`` ("enel" or "ellis") deciding,
         then the method's refit (Enel's cadence fit on the ring)."""
+        return drive(self.adaptive_run_gen(method, inject_failures),
+                     self.service, self.backend)
+
+    def adaptive_run_gen(self, method: str, inject_failures: bool):
+        """Generator form of :meth:`adaptive_run`."""
         assert self.target is not None, "profile() first"
         if method not in ("enel", "ellis"):
             raise ValueError(f"unknown method {method!r}")
         job = self.job
         cache = self.enel.template_cache
         cache0 = (cache.transfers, cache.skips, cache.evictions)
-        fallback0 = self.enel.fallback_decisions
+        # retry/breaker deltas are service-wide (one envelope may serve a
+        # fleet); per-run rows report the delta observed over the run
+        svc0 = (self.service.retries, self.service.breaker_trips)
         # fair initial allocation for both methods (paper §V-B.3): Ellis'
         # per-component models pick the cheapest compliant scale-out
         s0, predicted = self.ellis.recommend(
             next_comp=0, n_components=job.n_components, elapsed=0.0,
             current_scaleout=SCALEOUT_RANGE[0], target_runtime=self.target)
-        res = self._execute(method=method, inject_failures=inject_failures,
-                            initial_s=s0)
+        res = yield from self._execute_gen(
+            method=method, inject_failures=inject_failures, initial_s=s0)
         run, graphs = res.run, res.graphs
         if self.chaos is not None:
             # poisoned observations enter the pipeline here, upstream of
@@ -322,7 +471,30 @@ class JobExperiment:
                       cache_transfers=cache.transfers - cache0[0],
                       cache_skips=cache.skips - cache0[1],
                       cache_evictions=cache.evictions - cache0[2],
-                      fallback_decisions=self.enel.fallback_decisions -
-                      fallback0)
+                      fallback_decisions=sum(d.fallback
+                                             for d in res.decisions),
+                      shed_requests=sum(d.shed for d in res.decisions),
+                      retries=self.service.retries - svc0[0],
+                      breaker_trips=self.service.breaker_trips - svc0[1])
         self.stats.append(st)
+        if obs.enabled():
+            reg = obs.registry()
+            labels = {"job": job.name, "kind": method}
+            reg.counter("enel_runs_total",
+                        "adaptive runs completed").labels(**labels).inc()
+            if run.violation > 0:
+                reg.counter("enel_run_violations_total",
+                            "runs exceeding target").labels(**labels).inc()
+            obs.emit("run.end", driver="stepped", job=job.name,
+                     run=st.run_idx, kind=method,
+                     runtime=round(st.runtime, 6),
+                     target=round(st.target, 6),
+                     violation=round(st.violation, 6),
+                     rescales=st.n_rescales, failures=st.n_failures,
+                     fallbacks=st.fallback_decisions,
+                     shed=st.shed_requests, retries=st.retries,
+                     breaker_trips=st.breaker_trips,
+                     fit_seconds=round(st.fit_seconds, 6),
+                     decide_seconds=round(st.decide_seconds, 6),
+                     decide_calls=st.decide_calls)
         return st

@@ -13,24 +13,35 @@ applies its per-run families inside ``JobExperiment``:
 ``cache_corrupt_every`` writes NaN into a resident ring row in place,
                        healed by ``fit_resident``'s quarantine-and-retry.
 ``nan_fit_every``      overwrites the model parameters with NaN after a fit;
-                       decisions then fall back to the bounded heuristic
+                       every decision then trips the service's on-device
+                       guardrail and falls back to the bounded heuristic
                        until the next scratch retrain re-initialises the
                        model.
+``timeout_every``      raises :class:`~repro_torch.core.service.
+                       DispatchTimeout` inside the decision service's
+                       dispatch path (:class:`DispatchChaos`, a burst of
+                       ``timeout_burst`` consecutive attempts): absorbed by
+                       retry/backoff; bursts longer than the retry budget
+                       force fallback decisions and, repeated, trip the
+                       circuit breaker.
 =====================  =====================================================
 
-Every fault is a pure function of ``(spec.seed, experiment seed, run
-index)``.  Counterpart of ``repro.sim.chaos`` without its obs events; the
-dispatch-timeout injector comes with the decision service.
+Every fault is a pure function of ``(spec.seed, experiment seed, run/call
+index)`` and emits a ``chaos`` span (``repro_torch.obs``).  Counterpart of
+``repro.sim.chaos``; ``crash_rounds`` belongs to the fleet campaigns, which
+are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.core.service import DispatchTimeout
 from repro_torch.core.training import map_params
 
 
@@ -95,6 +106,8 @@ class ChaosInjector:
         bad.runtime[bad.runtime_valid] = np.nan
         graphs[run_idx % len(graphs)] = bad
         self.graphs_poisoned += 1
+        obs.emit("chaos", family="nan_graphs", spec=self.spec.name,
+                 run=run_idx, victim=run_idx % len(graphs))
         return graphs
 
     def after_fit(self, trainer, run_idx: int) -> None:
@@ -109,8 +122,76 @@ class ChaosInjector:
                     if v.is_floating_point():
                         v[slot] = float("nan")
                 self.cache_rows_corrupted += 1
+                obs.emit("chaos", family="cache_corrupt",
+                         spec=self.spec.name, run=run_idx, slot=slot)
         if self._fires(self.spec.nan_fit_every, run_idx):
             trainer.params = map_params(
                 lambda p: torch.full_like(p, float("nan")), trainer.params)
             self.fits_poisoned += 1
+            obs.emit("chaos", family="nan_fit", spec=self.spec.name,
+                     run=run_idx)
+
+
+class DispatchChaos:
+    """Service-level injector: plugs into ``DecisionService.fault_injector``
+    (called once per dispatch *attempt*) and raises
+    :class:`~repro_torch.core.service.DispatchTimeout` on every
+    ``timeout_every``-th dispatch, for ``timeout_burst`` consecutive
+    attempts.  A burst longer than the retry budget turns the whole group
+    into fallback decisions and feeds the circuit breaker.  Counter-only
+    state with ``snapshot``/``restore``, which the service folds into its
+    own.
+    """
+
+    def __init__(self, spec: ChaosSpec):
+        self.spec = spec
+        self.dispatches = 0      # fault-free dispatch attempts seen
+        self.timeouts = 0        # injected timeouts (lifetime)
+        self._burst_left = 0     # remaining attempts of the current burst
+
+    def __call__(self) -> None:
+        if self.spec.timeout_every <= 0:
+            return
+        if self._burst_left > 0:
+            self._burst_left -= 1
+            self.timeouts += 1
+            obs.emit("chaos", family="dispatch_timeout",
+                     spec=self.spec.name, dispatch=self.dispatches,
+                     burst_left=self._burst_left)
+            raise DispatchTimeout(
+                f"chaos[{self.spec.name}]: injected dispatch timeout "
+                f"(burst, {self._burst_left} left)")
+        self.dispatches += 1
+        if self.dispatches % self.spec.timeout_every == 0:
+            self._burst_left = max(int(self.spec.timeout_burst), 1) - 1
+            self.timeouts += 1
+            obs.emit("chaos", family="dispatch_timeout",
+                     spec=self.spec.name, dispatch=self.dispatches,
+                     burst_left=self._burst_left)
+            raise DispatchTimeout(
+                f"chaos[{self.spec.name}]: injected dispatch timeout")
+
+    def snapshot(self) -> Dict:
+        return {"dispatches": self.dispatches, "timeouts": self.timeouts,
+                "burst_left": self._burst_left}
+
+    def restore(self, st: Dict) -> None:
+        self.dispatches = int(st["dispatches"])
+        self.timeouts = int(st["timeouts"])
+        self._burst_left = int(st["burst_left"])
+
+
+def make_injector(spec: ChaosSpec, exp_seed: int = 0
+                  ) -> Optional[ChaosInjector]:
+    """Per-experiment injector, or None when the spec has no per-run
+    faults (timeouts live at the service layer)."""
+    if spec.nan_graphs_every or spec.cache_corrupt_every \
+            or spec.nan_fit_every:
+        return ChaosInjector(spec, exp_seed)
+    return None
+
+
+def make_dispatch_chaos(spec: ChaosSpec) -> Optional[DispatchChaos]:
+    """Service-level timeout injector, or None when inactive."""
+    return DispatchChaos(spec) if spec.timeout_every > 0 else None
 

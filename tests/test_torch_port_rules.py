@@ -37,6 +37,14 @@ def builder(k, a, z, preds):
 sc = EnelScaler(EnelTrainer(device="cpu"), (4, 36), candidate_stride=8)
 pick = sc.recommend(graph_builder=builder, next_comp=1, n_components=3,
                     elapsed=1.0, current_scaleout=8, target_runtime=5.0)[0]
+from repro_torch import obs
+from repro_torch.core.service import DecisionService
+req = sc.prepare_request(graph_builder=builder, next_comp=1, n_components=3,
+                         elapsed=1.0, current_scaleout=8, target_runtime=5.0)
+obs.recorder().clear()
+with obs.obs_enabled(True):
+    svc_pick = DecisionService().decide([req])[0].scaleout
+spans = obs.recorder().span_counts()
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import init_model
 from repro_torch.serve.engine import Request, ServeEngine
@@ -56,7 +64,8 @@ ServeEngine(jcfg, init_model(jcfg, device="cpu"), max_len=32,
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              or m.startswith("jax"))
-print(json.dumps({"pick": pick, "tokens": req.out_tokens,
+print(json.dumps({"pick": pick, "svc_pick": svc_pick, "spans": spans,
+                  "tokens": req.out_tokens,
                   "xlstm_tokens": xreq.out_tokens,
                   "jamba_tokens": jreq.out_tokens, "bad": bad}))
 """
@@ -70,6 +79,8 @@ def test_port_imports_no_jax_and_no_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert 4 <= got["pick"] <= 36
+    assert got["svc_pick"] == got["pick"]
+    assert got["spans"] == {"decision.dispatch": 1}
     assert len(got["tokens"]) == 3
     assert len(got["xlstm_tokens"]) == 3
     assert len(got["jamba_tokens"]) == 3
@@ -79,6 +90,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.convert import enel_params_from_numpy
     from repro_torch.core.graph import TrainingCache, empty_graph
     from repro_torch.core.model import init_enel
+    from repro_torch.core.service import DecisionService
     from repro_torch.core.training import EnelTrainer
     from repro_torch.dataflow.context import ContextEncoder
     from repro_torch.dataflow.runner import JobExperiment
@@ -106,6 +118,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: enel_params_from_numpy({"attn_a": np.zeros(16)}),
              lambda: TrainingCache(8),
              lambda: JobExperiment("kmeans"),
+             lambda: JobExperiment("kmeans", service=DecisionService()),
              lambda: EnelTrainer(cache_capacity=8).fit([empty_graph()])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -86,7 +86,7 @@ def compare_job(key: str, seed: int = 0) -> dict:
     _no_dropout(ex.trainer)
     jdec, dec = [], []
     jex.enel.apply_decision = _keep(jdec, jex.enel.apply_decision)
-    ex.enel.recommend = _keep(dec, ex.enel.recommend)
+    ex.enel.apply_decision = _keep(dec, ex.enel.apply_decision)
     jex.profile()
     ex.profile()
     out = {"job": key, "target": [float(jex.target), float(ex.target)],
