@@ -174,7 +174,30 @@ Phases (any failure exits non-zero; nothing is caught):
    ``decide`` per request at J = 1 and J = 4 (host clock, ending in its
    one copy per group), kernels per dispatch and the device-busy share of
    one dispatch, beside ``recommend``'s median from phase 5;
-18. a ``{"kernels": [...]}`` line, then the device line last.
+18. fleet campaigns on the card: eight experiments (the four jobs, each
+   with seeds SEED and SEED + 1, ``candidate_stride=2``, ``profile(10)``
+   with its 128-step scratch fit) share one ``DecisionService``.  A 3-run
+   ``adaptive_campaign``: the decisions of a round go to one ``decide``
+   (same-bucket rows on the job axis, up to the J = 8 rung), so some are
+   batched away; ``decisions`` equals the runs' decide calls; picks in
+   [4, 36]; no fallback, no skipped step; ``graph_prop_fwd`` and
+   ``graph_prop_bwd`` launch exactly once per Adam step (counted from 0
+   before the fleet is built; none on the service path).  A second fleet,
+   built the same way, runs the campaign with a checkpoint every round
+   and crashes in the middle of run 2; its last checkpoint is pickled,
+   loaded back (and once more in a CPU-only process) and resumed: the
+   trace (runtime and violation as float32, scale-outs, failures,
+   rescales, fallbacks, shed) equals the first fleet's, which took no
+   checkpoint.  From the profiled state, ``adaptive_campaign_resilient``
+   through crashes at rounds 2 and 5 gives 2 restores and the same
+   trace; an ``arrival_campaign`` (pool 96, rate 1.5, seed SEED, 64
+   rounds) completes every job, keeps ``pool_used <= pool_size`` and caps
+   some decisions, and a crash at round 5 resumed from its last
+   checkpoint gives the same stats and capacity rows.  Printed beside the
+   card: a round's wall time and the device-busy share of a round where
+   all 8 decide, ``decide`` per request at the largest J, a checkpoint's
+   make / pickle / restore time and size, fit seconds and the phase's;
+19. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -938,6 +961,303 @@ def run_service(device, card, train, ops, recommend_ms):
             "first_boundary_groups": n_groups, "chaos": st,
             "chaos_spans": chaos_spans, "span_counts": spans,
             "neutral_decisions": len(dec_on), "seconds": phase_s}
+
+
+FLEET_SEEDS = (SEED, SEED + 1)
+FLEET_RUNS = 3
+FLEET_POOL = dict(pool_size=96, arrival_rate=1.5, seed=SEED, max_rounds=64)
+
+
+def fleet_campaign(device, service):
+    """Phase 18's fleet: the four paper jobs, each with seeds SEED and
+    SEED + 1 (``candidate_stride=2``), behind one shared service."""
+    from repro_torch.dataflow import FleetCampaign, JobExperiment
+    return FleetCampaign([JobExperiment(key, seed=s, candidate_stride=2,
+                                        device=device)
+                          for key in JOB_KEYS for s in FLEET_SEEDS], service)
+
+
+def fleet_trace(all_stats):
+    """A campaign's trace: runtime and violation as float32, scale-outs,
+    failures, rescales, fallbacks and shed requests exactly."""
+    return [(np.float32(s.runtime), np.float32(s.violation),
+             tuple(s.scaleouts), s.n_failures, s.n_rescales,
+             s.fallback_decisions, s.shed_requests)
+            for run in all_stats for s in run]
+
+
+def fleet_rounds(camp, run) -> int:
+    """Lockstep rounds of one campaign run: each generator takes one result
+    a round, one per component and one per decision."""
+    return max(ex.job.n_components + st.decide_calls
+               for ex, st in zip(camp.experiments, run))
+
+
+def fleet_state(camp):
+    return ([ex.snapshot_state() for ex in camp.experiments],
+            camp.service.snapshot_state())
+
+
+def restore_fleet(camp, state) -> None:
+    exps, service = state
+    for ex, st in zip(camp.experiments, exps):
+        ex.restore_state(st)
+    camp.service.restore_state(service)
+
+
+class RoundClock:
+    """Times a campaign's lockstep rounds and its service's ``decide``
+    calls (host wall clock), and traces with torch.profiler the third
+    round in which every experiment decides (warm: the first two met new
+    dispatch signatures), for its device-busy ms."""
+
+    PROFILE_AT = 3
+
+    def __init__(self, camp):
+        from repro_torch.sim.engine import SimStepRequest
+        self.camp, self.round_s, self.decide = camp, [], []
+        self.busy_ms = self.profiled_ms = None
+        self._all_decide = 0
+        inner_round, inner_decide = camp._round, camp.service.decide
+
+        def decide(reqs):
+            t0 = time.perf_counter()
+            out = inner_decide(reqs)
+            self.decide.append((len(reqs), time.perf_counter() - t0))
+            return out
+
+        def rnd(gens, pending, stats, *args, **kw):
+            if self.busy_ms is None and all(
+                    not isinstance(r, SimStepRequest)
+                    for r in pending.values()) and \
+                    len(pending) == len(camp.experiments):
+                self._all_decide += 1
+                if self._all_decide == self.PROFILE_AT:
+                    return self._profiled(inner_round, gens, pending,
+                                          stats, *args, **kw)
+            t0 = time.perf_counter()
+            out = inner_round(gens, pending, stats, *args, **kw)
+            self.round_s.append(time.perf_counter() - t0)
+            return out
+
+        camp._round, camp.service.decide = rnd, decide
+
+    def _profiled(self, inner, *args, **kw):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            self.profiled_ms = (time.perf_counter() - t0) * 1e3
+        self.busy_ms = sum(
+            float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+            for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA) / 1e3
+        return out
+
+    def close(self) -> None:
+        del self.camp._round
+        del self.camp.service.decide
+
+
+def run_fleet(device, card, ops):
+    """Phase 18: fleet campaigns on the card.  Eight experiments (four jobs
+    x two seeds) share one DecisionService: a 3-run adaptive campaign
+    (launches counted from 0: both graph kernels once per Adam step, none
+    on the service path), a second fleet built the same way crashed in run
+    2 with a checkpoint every round and resumed from its last checkpoint
+    (pickled, loaded back, and loaded again in a CPU-only process), a
+    resilient 2-run campaign through two crashes, and a multi-tenant
+    arrival campaign, crashed at round 5 and resumed; every resumed trace
+    equals the uninterrupted one exactly."""
+    import os
+    import tempfile
+    from repro_torch.core.service import DecisionService
+    from repro_torch.dataflow.fleet import CampaignCheckpoint
+    from repro_torch.dataflow.workloads import SCALEOUT_RANGE
+    t_phase = time.perf_counter()
+
+    # the campaign; only its launches count
+    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+    a = fleet_campaign(device, DecisionService())
+    t0 = time.perf_counter()
+    a.profile(10)
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    scratch_s = [ex.trainer.last_fit_seconds for ex in a.experiments]
+    base = fleet_state(a)
+    clock = RoundClock(a)
+    t0 = time.perf_counter()
+    stats, _ = a.adaptive_campaign(FLEET_RUNS, "enel")
+    torch.cuda.synchronize()
+    campaign_s = time.perf_counter() - t0
+    clock.close()
+    launches, launches_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
+    steps = sum(ex.trainer.adam_steps for ex in a.experiments)
+    svc = a.service
+    dispatches, batched_away = svc.dispatches, svc.batched_away
+    decisions = sum(st.decide_calls for run in stats for st in run)
+    assert launches_bwd == steps > 0, (launches_bwd, steps)
+    assert launches == steps, (launches, steps, decisions)
+    assert svc.decisions == decisions > 0, (svc.decisions, decisions)
+    assert svc.batched_away > 0, svc.stats()
+    assert svc.fallback_decisions == 0 and svc.shed_requests == 0, \
+        svc.stats()
+    assert sum(ex.trainer.nonfinite_steps for ex in a.experiments) == 0
+    lo, hi = SCALEOUT_RANGE
+    for run in stats:
+        for st in run:
+            assert all(lo <= s <= hi for s in st.scaleouts), st.scaleouts
+            assert st.fallback_decisions == 0, st
+    rounds = [fleet_rounds(a, run) for run in stats]
+    assert clock.busy_ms is not None, "no round where all 8 decide"
+    assert sum(rounds) == len(clock.round_s) + 1, (rounds, clock.round_s)
+    tune_s = [st.fit_seconds for run in stats for st in run]
+    j_max = max(n for n, _ in clock.decide)
+    at_j = [s for n, s in clock.decide if n == j_max]
+    decide_ms = float(np.median(at_j)) * 1e3 / j_max
+    round_ms = float(np.median(clock.round_s)) * 1e3
+    say(f"fleet campaign on {card}: 8 experiments, {FLEET_RUNS} runs in "
+        f"{sum(rounds)} lockstep rounds ({rounds}), {campaign_s:.2f}s; "
+        f"{decisions} decisions in {dispatches} dispatches "
+        f"({batched_away} batched away); {steps} Adam steps, "
+        f"graph_prop_fwd {launches} and graph_prop_bwd {launches_bwd} "
+        f"launches (none on the service path); no fallback, no skipped "
+        f"step; picks in [{lo}, {hi}]")
+    say(f"fleet timing on {card}: a round {round_ms:.2f} ms median "
+        f"(wall, {campaign_s / sum(rounds) * 1e3:.2f} ms mean with the "
+        f"fits); a round where all 8 decide {clock.profiled_ms:.2f} ms "
+        f"traced, device busy {clock.busy_ms:.3f} ms (busy share "
+        f"{clock.busy_ms / clock.profiled_ms:.3f}); decide at J = {j_max} "
+        f"{decide_ms:.3f} ms per request; fits: scratch "
+        f"{np.median(scratch_s):.3f}s median (profile {profile_s:.1f}s for "
+        f"8), fine-tune {np.median(tune_s):.3f}s median")
+
+    # crash in run 2, resume from the last checkpoint
+    b = fleet_campaign(device, DecisionService())
+    b.profile(10)
+    for xa, xb in zip(a.experiments, b.experiments):
+        for k, v in xa.encoder.ae_params.items():
+            assert torch.equal(v, xb.encoder.ae_params[k]), k
+    crash_at = rounds[0] + rounds[1] // 2
+    made = []
+    inner_make = b._make_checkpoint
+
+    def make(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner_make(*args, **kw)
+        made.append(time.perf_counter() - t0)
+        return out
+    b._make_checkpoint = make
+    out, ckpts = b.adaptive_campaign(FLEET_RUNS, "enel", checkpoint_every=1,
+                                     stop_after_round=crash_at)
+    del b._make_checkpoint
+    last = ckpts[-1]
+    assert out is None and last.mid_run, (out, last.mid_run)
+    assert (last.round_idx, last.run_idx) == (crash_at, 1), \
+        (last.round_idx, last.run_idx)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "campaign.ckpt")
+        t0 = time.perf_counter()
+        last.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = CampaignCheckpoint.load(path)
+        load_s = time.perf_counter() - t0
+        cpu_env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                       PYTHONPATH=str(ROOT / "src"))
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             "import pickle, sys, torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "ck = pickle.load(open(sys.argv[1], 'rb'))\n"
+             "print(ck.round_idx, len(ck.exps))", path],
+            env=cpu_env, capture_output=True, text=True, timeout=300)
+        assert probe.returncode == 0, probe.stderr
+        assert probe.stdout.split() == [str(crash_at), "8"], probe.stdout
+    entered = []
+    inner_loop = b._campaign_loop
+
+    def loop(*args, **kw):
+        entered.append(time.perf_counter())
+        return inner_loop(*args, **kw)
+    b._campaign_loop = loop
+    t0 = time.perf_counter()
+    resumed, _ = b.resume_adaptive_campaign(loaded)
+    del b._campaign_loop
+    restore_s = entered[0] - t0
+    assert fleet_trace(resumed) == fleet_trace(stats), \
+        "resumed campaign differs from the uninterrupted one"
+    say(f"fleet crash at round {crash_at} (run 2), checkpoint every round: "
+        f"resumed from the last checkpoint, trace equal to the "
+        f"uninterrupted campaign without checkpoints ({len(ckpts)} "
+        f"checkpoints); a checkpoint: make {np.median(made) * 1e3:.1f} ms "
+        f"median, pickle {save_s * 1e3:.1f} ms, {size} bytes, load "
+        f"{load_s * 1e3:.1f} ms, restore and replay {restore_s * 1e3:.1f} "
+        f"ms; loaded in a CPU-only process")
+
+    # a resilient campaign through two crashes, from the profiled state
+    restore_fleet(b, base)
+    hard, restores = b.adaptive_campaign_resilient(2, "enel",
+                                                   crash_rounds=(2, 5))
+    assert restores == 2, restores
+    assert fleet_trace(hard) == fleet_trace(stats[:2])
+    say("fleet resilient campaign: 2 runs through crashes at rounds 2 and "
+        "5, 2 restores, trace equal to the uninterrupted one")
+
+    # the multi-tenant pool: Poisson arrivals, capped decisions
+    after = fleet_state(a)
+    t0 = time.perf_counter()
+    pool_stats, pool_trace = a.arrival_campaign(**FLEET_POOL)
+    torch.cuda.synchronize()
+    arrival_s = time.perf_counter() - t0
+    assert all(st is not None for st in pool_stats), pool_stats
+    assert all(t.pool_used <= t.pool_size for t in pool_trace)
+    capped = [t.capped_decisions for t in pool_trace]
+    assert max(capped) > 0, capped
+    restore_fleet(b, after)
+    out, _ = b.arrival_campaign(**FLEET_POOL, checkpoint_every=1,
+                                stop_after_round=5)
+    assert out is None and b.checkpoints[-1].round_idx == 5
+    b_stats, b_trace = b.resume_arrival_campaign(b.checkpoints[-1])
+    rows = lambda tr: [(t.round_idx, t.active, t.pool_used, t.pool_size,
+                        t.capped_decisions, t.arrivals) for t in tr]
+    assert fleet_trace([b_stats]) == fleet_trace([pool_stats])
+    assert rows(b_trace) == rows(pool_trace)
+    phase_s = time.perf_counter() - t_phase
+    say(f"fleet arrival campaign (pool {FLEET_POOL['pool_size']}, rate "
+        f"{FLEET_POOL['arrival_rate']}): all 8 jobs done in "
+        f"{len(pool_trace)} rounds, {arrival_s:.2f}s, peak pool "
+        f"{max(t.pool_used for t in pool_trace)}, {sum(capped)} capped "
+        f"decisions in {sum(c > 0 for c in capped)} rounds; crash at round "
+        f"5 resumed to the same stats and trace; phase {phase_s:.1f}s")
+    return {"experiments": len(a.experiments), "runs": FLEET_RUNS,
+            "rounds": rounds, "campaign_s": campaign_s,
+            "decisions": decisions, "dispatches": dispatches,
+            "batched_away": batched_away, "adam_steps": steps,
+            "launches": launches, "launches_bwd": launches_bwd,
+            "round_ms_median": round_ms,
+            "round_ms_mean": campaign_s / sum(rounds) * 1e3,
+            "all_decide_round_ms": clock.profiled_ms,
+            "all_decide_round_busy_ms": clock.busy_ms,
+            "all_decide_round_busy_share":
+                clock.busy_ms / clock.profiled_ms,
+            "decide_j": j_max, "decide_ms_per_request": decide_ms,
+            "scratch_fit_s": scratch_s, "tune_fit_s_median":
+                float(np.median(tune_s)), "profile_s": profile_s,
+            "checkpoint": {"make_ms_median": float(np.median(made)) * 1e3,
+                           "pickle_ms": save_s * 1e3, "bytes": size,
+                           "load_ms": load_s * 1e3,
+                           "restore_ms": restore_s * 1e3,
+                           "crash_round": crash_at, "count": len(ckpts)},
+            "arrival": {"rounds": len(pool_trace), "seconds": arrival_s,
+                        "capped_decisions": sum(capped),
+                        "peak_pool": max(t.pool_used for t in pool_trace)},
+            "seconds": phase_s}
 
 
 LM_ARCH = "qwen3-0.6b"
@@ -2442,13 +2762,18 @@ def main() -> int:
         key: j["recommend_ms_median"] for key, j in jobs.items()})
     say(json.dumps({"card": card, "service": service}))
 
-    # 18. results
+    # 18. fleet campaigns on the card; only the campaign's launches count
+    fleet = run_fleet(device, card, ops)
+    say(json.dumps({"card": card, "fleet": fleet}))
+
+    # 19. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
-        "launches": launches + t_launches,
-        "launches_by_path": {"decision": launches, "training": t_launches},
+        "launches": launches + t_launches + fleet["launches"],
+        "launches_by_path": {"decision": launches, "training": t_launches,
+                             "fleet": fleet["launches"]},
         "check_launches": {"training_decision_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
@@ -2465,8 +2790,9 @@ def main() -> int:
         "name": "graph_prop_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
-        "launches": t_launches_bwd,
-        "launches_by_path": {"training": t_launches_bwd},
+        "launches": t_launches_bwd + fleet["launches_bwd"],
+        "launches_by_path": {"training": t_launches_bwd,
+                             "fleet": fleet["launches_bwd"]},
         "max_abs_err": max_err_bwd,
         "ms": bwd_graph_ms, "graph_ms": bwd_graph_ms,
         "back_to_back_ms": bwd_ms, "plain_ms": bwd_plain_ms,

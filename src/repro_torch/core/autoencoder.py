@@ -75,9 +75,12 @@ def train_autoencoder(vectors: np.ndarray, *, steps: int = 300,
     batch = torch.as_tensor(np.asarray(vectors, np.float32), device=dev)
     loss = torch.tensor(float("inf"))
     for t in range(1, max(1, steps // ADAM_CHUNK) * ADAM_CHUNK + 1):
-        leaves = [params[k].requires_grad_(True) for k in names]
-        loss = recon_loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # grad on whatever the caller's mode (a server may run under
+        # torch.no_grad); the step itself runs without it
+        with torch.enable_grad():
+            leaves = [params[k].requires_grad_(True) for k in names]
+            loss = recon_loss(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             for k, g in zip(names, grads):
                 mu[k] = 0.9 * mu[k] + 0.1 * g

@@ -580,6 +580,34 @@ class TrainingCache:
         dev_idx = torch.as_tensor(idx, device=self.device)
         return {k: v[dev_idx] for k, v in self.buffers.items()}, w
 
+    # --------------------------------------------------- checkpoint support
+    def snapshot(self) -> Dict:
+        """Picklable host copy of the full ring state (numpy buffers, the
+        reference's snapshot layout)."""
+        return {"capacity": self.capacity, "max_nodes": self.max_nodes,
+                "pos": self.pos, "count": self.count,
+                "latest": self.latest.copy(),
+                "slot_ok": self.slot_ok.copy(),
+                "quarantined": self.quarantined,
+                "buffers": {k: v.cpu().numpy().copy()
+                            for k, v in self.buffers.items()}}
+
+    @classmethod
+    def from_snapshot(cls, st: Dict, device: DeviceLike = "cuda"
+                      ) -> "TrainingCache":
+        """A ring on ``device`` in the state of a :meth:`snapshot` (of this
+        package's ring or of the reference's); the snapshot is left
+        untouched."""
+        cache = cls(st["capacity"], max_nodes=st["max_nodes"], device=device)
+        cache.buffers = {k: torch.tensor(np.asarray(v), device=cache.device)
+                         for k, v in st["buffers"].items()}
+        cache.pos = int(st["pos"])
+        cache.count = int(st["count"])
+        cache.latest = np.asarray(st["latest"]).copy()
+        cache.slot_ok = np.asarray(st["slot_ok"]).copy()
+        cache.quarantined = int(st["quarantined"])
+        return cache
+
     def stacked_host(self) -> Dict[str, np.ndarray]:
         """Host copy of the filled slots, oldest -> newest (tests/debug)."""
         if self.count < self.capacity:

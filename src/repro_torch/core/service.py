@@ -217,6 +217,16 @@ class DecisionResult:
                 self._per_np = self._per_dev.cpu().numpy()[:c, :k]
         return self._per_np
 
+    def __getstate__(self) -> Dict:
+        """Pickle on the host: the per-component predictions are fetched
+        and the device tensor is dropped, so a pickled campaign checkpoint
+        (whose replay logs hold results) loads in a process without a
+        card."""
+        st = dict(self.__dict__)
+        st["_per_np"] = self.per_component
+        st["_per_dev"] = None
+        return st
+
 
 @torch.no_grad()
 def _fleet_eval(params, base, h_onehot, deltas, edge_dst, edge_src,

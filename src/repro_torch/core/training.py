@@ -406,6 +406,50 @@ class EnelTrainer:
             return self.fit(history, steps=steps, from_scratch=True)
         return self.fit(latest, steps=fine_tune_steps)
 
+    # --------------------------------------------------- checkpoint support
+    def snapshot_state(self) -> Dict:
+        """Picklable host copy of the params, Adam state, cadence, guard
+        counters and ring (campaign checkpoints, ``dataflow/fleet.py``).
+        The leaves are numpy copies, not views of the live tensors, which
+        the Adam step overwrites in place.  Beside the reference's fields it
+        keeps ``init_params`` (every scratch fit restarts from them) and the
+        last fit's step count and losses."""
+        host = lambda t: t.detach().cpu().numpy().copy()
+        mu, nu, t = self.opt
+        return {"params": map_params(host, self.params),
+                "opt": (map_params(host, mu), map_params(host, nu), host(t)),
+                "init_params": map_params(host, self.init_params),
+                "runs_seen": self.runs_seen, "fit_calls": self._fit_calls,
+                "nonfinite_steps": self.nonfinite_steps,
+                "last_skipped_steps": self.last_skipped_steps,
+                "poisoned_fits": self.poisoned_fits,
+                "adam_steps": self.adam_steps,
+                "first_step_loss": self.first_step_loss,
+                "last_loss": self.last_loss,
+                "cache": None if self.cache is None
+                else self.cache.snapshot()}
+
+    def restore_state(self, st: Dict) -> None:
+        """Inverse of :meth:`snapshot_state`, into fresh tensors on this
+        trainer's device (so nothing keyed on the old tensors' identity, such
+        as the decision service's stack memo, can match them); the snapshot
+        is left untouched."""
+        dev = lambda a: torch.tensor(np.asarray(a), device=self.device)
+        mu, nu, t = st["opt"]
+        self.params = map_params(dev, st["params"])
+        self.opt = (map_params(dev, mu), map_params(dev, nu), dev(t))
+        self.init_params = map_params(dev, st["init_params"])
+        self.runs_seen = int(st["runs_seen"])
+        self._fit_calls = int(st["fit_calls"])
+        self.nonfinite_steps = int(st["nonfinite_steps"])
+        self.last_skipped_steps = int(st["last_skipped_steps"])
+        self.poisoned_fits = int(st["poisoned_fits"])
+        self.adam_steps = int(st["adam_steps"])
+        self.first_step_loss = float(st["first_step_loss"])
+        self.last_loss = float(st["last_loss"])
+        self.cache = None if st["cache"] is None else \
+            TrainingCache.from_snapshot(st["cache"], device=self.device)
+
     # -------------------------------------------------------- inference
     @torch.no_grad()
     def predict(self, graphs: Sequence[ComponentGraph]) -> np.ndarray:

@@ -5,9 +5,9 @@ runs where the scaler is consulted at every component boundary.  Enel
 retrains from scratch every 5th run and fine-tunes otherwise; Ellis refits
 its per-component model ensemble after every run.
 
-Counterpart of ``repro.dataflow.runner`` for a single job.  As there, the
-execution loop of :class:`JobExperiment` is a generator that YIELDS two
-kinds of requests and resumes with their results:
+Counterpart of ``repro.dataflow.runner``.  As there, the execution loop of
+:class:`JobExperiment` is a generator that YIELDS two kinds of requests and
+resumes with their results:
 
 * :class:`~repro_torch.sim.engine.SimStepRequest` — the next component's
   simulated execution, answered by a sim backend
@@ -15,21 +15,31 @@ kinds of requests and resumes with their results:
 * :class:`~repro_torch.core.service.DecisionRequest` — the pending Enel
   rescaling decision, answered by a
   :class:`~repro_torch.core.service.DecisionService` (shape-bucketed,
-  sparse-edge engine, guardrail, retry and breaker envelope).
+  sparse-edge engine, guardrail, retry and breaker envelope; cross-job
+  batched under a fleet campaign, ``repro_torch.dataflow.fleet``).
 
 :func:`run_gen` is that loop for one run; its ``decide`` callback turns a
 :class:`DecisionPoint` into a :class:`Decision`.  :func:`drive` runs such a
 generator to its end.  :func:`execute_run` drives one run whose decisions
 ask ``EnelScaler.recommend`` directly (the dense sweep through the
-``graph_prop`` kernel) and records every one.  Fleet campaigns,
-checkpoints and the batched simulator engine are not ported.
+``graph_prop`` kernel) and records every one.
+
+Disturbance scenarios (``repro_torch.sim.scenarios``) and dataset-size
+scaling (``size_scale``) parameterize the execution context;
+``share_models_from`` transplants a trained model into a new context.
+``JobExperiment.snapshot_state`` / ``restore_state`` are the campaign
+checkpoints' per-job state.  Not ported yet: the vectorized
+``BatchedClusterSim`` engine (``engine="batched"``, queue 1 item 8 of
+ROADMAP.md).
 """
 from __future__ import annotations
 
+import copy
 import time
+from collections import defaultdict
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -43,7 +53,8 @@ from repro_torch.core.training import EnelTrainer
 from repro_torch.dataflow.context import ContextEncoder
 from repro_torch.dataflow.simulator import (ClusterSim, ComponentRecord,
                                             RunRecord, rescale_overhead)
-from repro_torch.dataflow.workloads import JOBS, SCALEOUT_RANGE, JobSpec
+from repro_torch.dataflow.workloads import (JOBS, SCALEOUT_RANGE, JobSpec,
+                                            scale_job)
 from repro_torch.device import DeviceLike
 from repro_torch.sim.engine import NumpySimBackend, SimStepRequest
 from repro_torch.sim.scenarios import BASELINE, Scenario
@@ -113,6 +124,33 @@ def _future_nodes(encoder: ContextEncoder, job: JobSpec, comp_idx: int,
             start_scaleout=a if i == 0 else z, end_scaleout=z,
             time_fraction=1.0 if a == z else 0.8))
     return nodes
+
+
+def frozen_context_tables(encoder: ContextEncoder, job: JobSpec
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic node-context tables for the fused campaign planner.
+
+    Returns ``(ctx (C, S_max, NS, CTX_DIM) f32, n_stages (C,) int32)`` with
+    NS spanning the whole scale-out grid (``SCALEOUT_RANGE[0]..[1]``): entry
+    ``[c, i, s - lo]`` is component c / stage i's context at scale-out s.
+    Built with ``drop_versions=False`` so no encoder rng is consumed (the
+    fused campaign freezes contexts at plan time; ``attempt`` is frozen at
+    0).  The embed cache makes repeat lookups cheap.
+    """
+    lo, hi = SCALEOUT_RANGE
+    grid = np.arange(lo, hi + 1)
+    n_comp = job.n_components
+    s_max = max(len(job.stages(c)) for c in range(n_comp))
+    ctx = np.zeros((n_comp, s_max, len(grid), 24), np.float32)
+    n_stages = np.zeros(n_comp, np.int32)
+    for c in range(n_comp):
+        specs = job.stages(c)
+        n_stages[c] = len(specs)
+        for i, spec in enumerate(specs):
+            for si, s in enumerate(grid):
+                ctx[c, i, si] = encoder.node_context(
+                    job, spec.name, int(s * 4), drop_versions=False)
+    return ctx, n_stages
 
 
 def _to_graph(nodes: List[NodeAttrs], preds: List[NodeAttrs],
@@ -301,10 +339,15 @@ class JobExperiment:
 
     ``service`` answers Enel's decisions (a fresh
     :class:`~repro_torch.core.service.DecisionService` by default; several
-    experiments may share one); ``backend`` runs the simulated components
-    (a :class:`~repro_torch.sim.engine.NumpySimBackend` adopting this
-    experiment's simulator by default; ``engine="batched"`` is not ported).
-    ``scenario`` injects seeded disturbances; ``ae_params`` (the context
+    experiments may share one, as a fleet campaign's do); ``backend`` runs
+    the simulated components (a
+    :class:`~repro_torch.sim.engine.NumpySimBackend` adopting this
+    experiment's simulator by default; ``engine="batched"`` raises
+    ``NotImplementedError``, queue 1 item 8).  ``scenario`` injects seeded
+    disturbances; ``size_scale`` scales the dataset (cross-context axis);
+    ``share_models_from`` reuses another experiment's trained model,
+    encoder and scalers instead of fresh ones (transfer deployment; the
+    source experiment should be done running).  ``ae_params`` (the context
     encoder's auto-encoder weights, numpy) skip the encoder's own fit;
     ``chaos`` may hold a :class:`~repro_torch.sim.chaos.ChaosInjector`.
     """
@@ -314,6 +357,8 @@ class JobExperiment:
                  service: Optional[DecisionService] = None,
                  engine: str = "numpy",
                  scenario: Optional[Scenario] = None, backend=None,
+                 size_scale: float = 1.0,
+                 share_models_from: Optional["JobExperiment"] = None,
                  ae_params: Optional[Mapping] = None):
         if engine == "batched":
             raise NotImplementedError(
@@ -321,7 +366,10 @@ class JobExperiment:
                 "queue 1 item 8 of ROADMAP.md, not ported yet")
         if engine != "numpy":
             raise ValueError(f"unknown engine {engine!r}")
-        self.job = JOBS[job_key]
+        job = JOBS[job_key]
+        if size_scale != 1.0:
+            job = scale_job(job, size_scale)
+        self.job = job
         self.job_key = job_key
         self.seed = seed
         self.scenario = scenario or BASELINE
@@ -329,24 +377,102 @@ class JobExperiment:
         self.sim = ClusterSim(seed=seed, scenario=self.scenario)
         self.backend = backend if backend is not None else NumpySimBackend()
         self.sim_slot = self.backend.adopt(self.sim, self.job)
-        self.encoder = ContextEncoder([self.job], seed=seed, device=device,
-                                      ae_params=ae_params)
-        self.trainer = EnelTrainer(seed=seed, cache_capacity=HISTORY_WINDOW,
-                                   device=device)
-        self.enel = EnelScaler(self.trainer, SCALEOUT_RANGE,
-                               candidate_stride=candidate_stride)
-        self.ellis = EllisScaler(SCALEOUT_RANGE,
-                                 rescale_overhead=rescale_overhead(4, 8),
-                                 candidate_stride=candidate_stride)
+        if share_models_from is not None:
+            src = share_models_from
+            self.encoder = src.encoder
+            self.trainer = src.trainer
+            self.enel = src.enel
+            self.ellis = src.ellis
+        else:
+            self.encoder = ContextEncoder([self.job], seed=seed,
+                                          device=device, ae_params=ae_params)
+            self.trainer = EnelTrainer(seed=seed,
+                                       cache_capacity=HISTORY_WINDOW,
+                                       device=device)
+            self.enel = EnelScaler(self.trainer, SCALEOUT_RANGE,
+                                   candidate_stride=candidate_stride)
+            self.ellis = EllisScaler(SCALEOUT_RANGE,
+                                     rescale_overhead=rescale_overhead(4, 8),
+                                     candidate_stride=candidate_stride)
         self.service = service or DecisionService()
         # decision cadence: every component for short jobs, every 2nd for
         # the 22-component LR/MPC
         self.decision_interval = 2 if self.job.n_components > 15 else 1
+        self.scale_cap: Optional[int] = None   # multi-tenant capacity cap
+        self.best_effort = False     # shed first under service overload
         self.chaos = None            # optional per-experiment fault injector
         self.graph_history: List[ComponentGraph] = []
         self.target: Optional[float] = None
         self.stats: List[RunStats] = []
         self._run_idx = 0
+
+    # ----------------------------------------------------------- checkpoint
+    def snapshot_state(self) -> Dict:
+        """Everything a trace-identical resume needs: learned state (model
+        params, optimizer moments, the ring, observation histories), the
+        sim slot's rng/clock state and the bookkeeping counters, all on the
+        host.  Perf-only caches (sweep templates, memoized stacks) are
+        skipped; they repopulate deterministically.  Graph/summary lists
+        hold append-only immutable records, so shallow list copies
+        suffice."""
+        return {
+            "run_idx": int(self._run_idx),
+            "target": self.target,
+            "scale_cap": self.scale_cap,
+            "best_effort": bool(self.best_effort),
+            "stats": copy.deepcopy(self.stats),
+            "graph_history": list(self.graph_history),
+            # node_context draws the encoder's rng per call (the random
+            # version dropout of the v group), so replay must re-draw the
+            # same stream
+            "encoder_rng": self.encoder.rng.get_state(),
+            "trainer": self.trainer.snapshot_state(),
+            "enel": {
+                "hist_summaries": {k: list(v) for k, v in
+                                   self.enel.hist_summaries.items()},
+                "first_component_history":
+                    list(self.enel.first_component_history),
+                "fallback_decisions": int(self.enel.fallback_decisions),
+                # not perf-only: a probe-cache miss makes the sweep call the
+                # graph builder twice more, drawing encoder rng; the
+                # hit/miss pattern must replay exactly (entries are
+                # immutable tuples, a shallow dict copy suffices)
+                "probe_cache": dict(self.enel._probe_cache),
+            },
+            "ellis_history": {k: list(v) for k, v in
+                              self.ellis.history.items()},
+            # fitted models are snapshotted, not refit on restore: under
+            # method="enel" they are stale relative to the growing history
+            # (last fit at profile time), and a refit would move the s0
+            # recommendation off the uninterrupted trace
+            "ellis_models": copy.deepcopy(self.ellis.models),
+            "backend": self.backend.slot_state(self.sim_slot),
+        }
+
+    def restore_state(self, state: Dict) -> None:
+        """Inverse of :meth:`snapshot_state`; the snapshot itself is left
+        pristine (fresh copies are handed out, the model's tensors are new),
+        so one checkpoint can be restored any number of times."""
+        self._run_idx = int(state["run_idx"])
+        self.target = state["target"]
+        self.scale_cap = state["scale_cap"]
+        self.best_effort = bool(state["best_effort"])
+        self.stats = copy.deepcopy(state["stats"])
+        self.graph_history = list(state["graph_history"])
+        self.encoder.rng.set_state(state["encoder_rng"])
+        self.trainer.restore_state(state["trainer"])
+        self.enel.hist_summaries = defaultdict(
+            list, {k: list(v) for k, v in
+                   state["enel"]["hist_summaries"].items()})
+        self.enel.first_component_history = \
+            list(state["enel"]["first_component_history"])
+        self.enel.fallback_decisions = \
+            int(state["enel"]["fallback_decisions"])
+        self.enel._probe_cache = dict(state["enel"]["probe_cache"])
+        self.ellis.history = defaultdict(
+            list, {k: list(v) for k, v in state["ellis_history"].items()})
+        self.ellis.models = copy.deepcopy(state["ellis_models"])
+        self.backend.restore_slot(self.sim_slot, state["backend"])
 
     # ------------------------------------------------------------ execution
     def _decide_gen(self, point: DecisionPoint, *, method: str):
@@ -359,7 +485,8 @@ class JobExperiment:
             pick, predicted = self.ellis.recommend(**point.ellis_kwargs())
             return point.decision(pick, predicted, {},
                                   time.perf_counter() - t0)
-        req = self.enel.prepare_request(**point.enel_kwargs())
+        req = self.enel.prepare_request(**point.enel_kwargs(),
+                                        best_effort=self.best_effort)
         local = time.perf_counter() - t0
         result = yield req
         t0 = time.perf_counter()
@@ -440,6 +567,8 @@ class JobExperiment:
         s0, predicted = self.ellis.recommend(
             next_comp=0, n_components=job.n_components, elapsed=0.0,
             current_scaleout=SCALEOUT_RANGE[0], target_runtime=self.target)
+        if self.scale_cap is not None:      # multi-tenant admission headroom
+            s0 = max(SCALEOUT_RANGE[0], min(s0, int(self.scale_cap)))
         res = yield from self._execute_gen(
             method=method, inject_failures=inject_failures, initial_s=s0)
         run, graphs = res.run, res.graphs
@@ -498,3 +627,16 @@ class JobExperiment:
                      decide_seconds=round(st.decide_seconds, 6),
                      decide_calls=st.decide_calls)
         return st
+
+
+def window_stats(stats: List[RunStats], lo: int, hi: int) -> Dict[str, float]:
+    """CVC/CVS aggregates over adaptive runs lo..hi (1-based, inclusive)."""
+    sel = [s for s in stats if s.kind != "profiling" and lo <= s.run_idx <= hi]
+    if not sel:
+        return {"cvc_mean": float("nan"), "cvc_median": float("nan"),
+                "cvs_mean": float("nan"), "cvs_median": float("nan")}
+    cvc = np.array([s.cvc for s in sel], float)
+    cvs = np.array([s.violation / 60.0 for s in sel], float)   # minutes
+    return {"cvc_mean": float(cvc.mean()), "cvc_median": float(np.median(cvc)),
+            "cvs_mean": float(cvs.mean()), "cvs_median": float(np.median(cvs)),
+            "n": len(sel)}

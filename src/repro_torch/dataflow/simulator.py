@@ -122,6 +122,26 @@ class ClusterSim:
         self._runs_started += 1
         return self.run_idx
 
+    # ----------------------------------------------------------- checkpoint
+    def state_dict(self) -> Dict:
+        """Every mutable field a trace-identical resume needs.  The seeded
+        window tables and the stage-spec cache are deterministic in
+        (scenario, seed) and rebuilt on construction, so they stay out."""
+        return {
+            "rng": self.rng.get_state(),
+            "interf": F32(self._interf),
+            "run_idx": int(self.run_idx),
+            "runs_started": int(self._runs_started),
+            "stage_idx": int(self.stage_idx),
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.rng.set_state(state["rng"])
+        self._interf = F32(state["interf"])
+        self.run_idx = int(state["run_idx"])
+        self._runs_started = int(state["runs_started"])
+        self.stage_idx = int(state["stage_idx"])
+
     def _tables(self, spec: StageSpec, comp_idx: int) -> Dict:
         key = (spec, comp_idx)
         tab = self._spec_tab.get(key)

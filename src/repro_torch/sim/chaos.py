@@ -28,8 +28,9 @@ applies its per-run families inside ``JobExperiment``:
 
 Every fault is a pure function of ``(spec.seed, experiment seed, run/call
 index)`` and emits a ``chaos`` span (``repro_torch.obs``).  Counterpart of
-``repro.sim.chaos``; ``crash_rounds`` belongs to the fleet campaigns, which
-are not ported.
+``repro.sim.chaos``; ``crash_rounds`` is a schedule of controller crashes,
+the ``crash_rounds`` argument of
+``FleetCampaign.adaptive_campaign_resilient``.
 """
 from __future__ import annotations
 
@@ -130,6 +131,17 @@ class ChaosInjector:
             self.fits_poisoned += 1
             obs.emit("chaos", family="nan_fit", spec=self.spec.name,
                      run=run_idx)
+
+    # ------------------------------------------------------------ checkpoint
+    def snapshot(self) -> Dict:
+        return {"graphs_poisoned": self.graphs_poisoned,
+                "cache_rows_corrupted": self.cache_rows_corrupted,
+                "fits_poisoned": self.fits_poisoned}
+
+    def restore(self, st: Dict) -> None:
+        self.graphs_poisoned = int(st["graphs_poisoned"])
+        self.cache_rows_corrupted = int(st["cache_rows_corrupted"])
+        self.fits_poisoned = int(st["fits_poisoned"])
 
 
 class DispatchChaos:

@@ -6,17 +6,19 @@ from a sim backend, so a driver could batch every concurrent job's step.
 :class:`NumpySimBackend` answers each request through the per-job
 :class:`~repro_torch.dataflow.simulator.ClusterSim` event loop.
 
-Counterpart of the protocol part of ``repro.sim.engine``; the vectorized
-``BatchedClusterSim``, ``register`` (for fleets) and the checkpoint hooks
-(``slot_state`` / ``restore_slot``) are not ported.
+Counterpart of the protocol part of ``repro.sim.engine``, with the
+backend's fleet registration (``register``) and campaign-checkpoint hooks
+(``slot_state`` / ``restore_slot``).  The vectorized ``BatchedClusterSim``
+is not ported yet (queue 1 item 8 of ROADMAP.md).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.dataflow.simulator import ClusterSim, ComponentRecord
 from repro_torch.dataflow.workloads import JobSpec
+from repro_torch.sim.scenarios import Scenario
 
 
 @dataclass
@@ -49,8 +51,22 @@ class NumpySimBackend:
         self._slots.append((sim, job))
         return len(self._slots) - 1
 
+    def register(self, job: JobSpec, seed: int,
+                 scenario: Optional[Scenario] = None,
+                 interference_scale: float = 0.12) -> int:
+        return self.adopt(ClusterSim(seed=seed, scenario=scenario,
+                                     interference_scale=interference_scale),
+                          job)
+
     def begin_run(self, slot: int) -> None:
         self._slots[slot][0].begin_run()
+
+    def slot_state(self, slot: int) -> dict:
+        """Mutable state of one registered sim, for campaign checkpoints."""
+        return self._slots[slot][0].state_dict()
+
+    def restore_slot(self, slot: int, state: dict) -> None:
+        self._slots[slot][0].load_state_dict(state)
 
     def step(self, requests: Sequence[SimStepRequest]
              ) -> List[SimStepResult]:

@@ -218,6 +218,20 @@ def test_train_autoencoder_reduces_loss():
     assert np.isfinite(loss) and loss < 0.5 * start
 
 
+def test_train_autoencoder_ignores_the_callers_grad_mode():
+    """A fit started under ``torch.no_grad`` (as a server's code may run)
+    trains, and to the same weights."""
+    vecs = encoding.encode_properties(["K-Means", "Points", 64, 0])
+    want, want_loss = autoencoder.train_autoencoder(vecs, steps=100,
+                                                    device="cpu")
+    with torch.no_grad():
+        got, loss = autoencoder.train_autoencoder(vecs, steps=100,
+                                                  device="cpu")
+    assert loss == want_loss
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_bell_initial_scaleout_matches_reference():
     rng = np.random.RandomState(0)
     hist = [(float(s), 400.0 / s + 20 + rng.rand()) for s in (4, 8, 11, 14)]
