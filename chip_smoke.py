@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
 1. the card's name and power limit (``nvidia-smi``); no card -> exit 1;
 2. build every kernel (``graph_prop_fwd``, ``graph_prop_bwd``,
    ``flash_attention_fwd``, ``flash_decode``, ``mlstm_chunk``,
-   ``mamba_scan``) with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
-   all started together;
+   ``mamba_scan``, ``sim_step``) with ``nvcc`` for ``sm_90a``, one ``nvcc``
+   per source, all started together;
 3. each kernel against its plain PyTorch version on the card: the forward
    at atol = rtol = 1e-5, the backward against ``graph_prop_vjp_plain`` at
    the reference's gradient tolerance (atol 1e-4, rtol 1e-3) and bit for
@@ -17,7 +17,13 @@ Phases (any failure exits non-zero; nothing is caught):
    {1, 3, 5, 9, 16}; every other graph all-masked as the training ring
    holds an empty slot, rows without a predecessor, every row observed, no
    row observed; levels 0, 1, 8 and 64), one launch per call, repeats bit
-   for bit equal;
+   for bit equal; then ``sim_step``: engines driven on the card (each paper
+   job alone at J = 1, two stepped runs on ``node_failure``; the 24 (job,
+   scenario) pairs of the four jobs and six default scenarios at J = 24,
+   one stepped run and one ``run_full``; failures injected) with every
+   launch made twice and through the plain version on the same inputs, all
+   bit for bit equal, and no FFMA in the kernel's SASS (``cuobjdump``)
+   but the Newton steps of its IEEE divisions;
 4. the decision path of the four paper jobs (LR, MPC, K-Means, GBT): a
    context encoder on the card, a seeded simulated cluster, 3 profiling
    runs, then one normal and one failure-injected adaptive run with
@@ -197,7 +203,30 @@ Phases (any failure exits non-zero; nothing is caught):
    card: a round's wall time and the device-busy share of a round where
    all 8 decide, ``decide`` per request at the largest J, a checkpoint's
    make / pickle / restore time and size, fit seconds and the phase's;
-19. a ``{"kernels": [...]}`` line, then the device line last.
+19. the vectorized fleet engine on the card: (a) ``BatchedClusterSim`` on
+   the card against ``NumpySimBackend`` on the host, records bit for bit
+   (each paper job alone, two runs on ``node_failure`` with random rescale
+   schedules; four jobs under four scenarios; ``run_full`` of the 24 (job,
+   scenario) pairs against stepped numpy); (b) slot states taken in the
+   middle of a run and restored after the engine ran on resume to the same
+   records; (c) a four-job fleet (``profile(3)``, 2 adaptive runs with
+   failures) under ``FleetCampaign(engine="batched")`` gives the numpy
+   fleet's trace pick for pick, ``sim_step`` launching once per engine
+   dispatch (one per profiling component, one per lockstep round that
+   steps) and the graph kernels once per Adam step; (d) the harness:
+   ``run_scenario_campaign`` on ``node_failure`` and ``multi_tenant`` and
+   ``run_chaos_campaign("chaos_crashes")`` (2 restores) at the four jobs
+   (``profile_runs=3``, 1 adaptive run), ``chaos_trace_identity`` (2
+   runs) True, one transfer cell (``baseline`` 1.0 -> ``node_failure``
+   1.6, K-Means).
+   Launches of (c) and (d) count from 0 and each equals one dispatch.
+   Printed beside the card: ``sim_step`` in a CUDA graph and back to back
+   at J = 4, 8 and 32 (S = 5) beside its bound, the launch floor and its
+   plain version; a fleet step's wall time (enqueue, kernel wait + copy,
+   records) beside ``NumpySimBackend.step`` on the same requests; a
+   32-job ``run_full`` beside numpy; each campaign's compliance, rescales,
+   failures, decisions per second and wall time; the phase's seconds;
+20. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -1260,6 +1289,523 @@ def run_fleet(device, card, ops):
             "seconds": phase_s}
 
 
+SIM_MIXED = [("lr", "stragglers"), ("mpc", "interference_burst"),
+             ("kmeans", "spot_preemption"), ("gbt", "data_skew_drift")]
+SIM_TIMING_J = (4, 8, 32)    # fleet sizes of the timings; S = 5 with GBT
+SIM_FLEET = 32               # benchmarks/scenario_suite.py's fleet
+SIM_PROFILE_RUNS = 3         # phase 19's fleets and harness campaigns
+SIM_ADAPTIVE_RUNS = 2        # the four-job fleet's runs
+SIM_HARNESS_RUNS = 1         # the harness campaigns' (the reference: 3, 6)
+SIM_IDENTITY_RUNS = 2        # chaos_trace_identity's (the reference: 4)
+
+
+def sim_combos(n: int):
+    """``n`` (job, scenario) pairs cycled over the four paper jobs and the
+    six default scenarios; at 24 every pair once."""
+    from repro_torch.sim.evaluate import DEFAULT_SCENARIOS
+    if n == len(JOB_KEYS) * len(DEFAULT_SCENARIOS):
+        return [(k, s) for s in DEFAULT_SCENARIOS for k in JOB_KEYS]
+    return [(JOB_KEYS[i % 4], DEFAULT_SCENARIOS[i % 6]) for i in range(n)]
+
+
+def sim_engines(device, combos, seed0: int):
+    """(numpy backend on the host, batched engine on ``device``) with the
+    same (job, scenario) pairs registered, seeds ``seed0 + i``."""
+    from repro_torch.dataflow.workloads import JOBS
+    from repro_torch.sim.engine import BatchedClusterSim, NumpySimBackend
+    from repro_torch.sim.scenarios import make_scenario
+    nb, bb = NumpySimBackend(), BatchedClusterSim(device=device)
+    for i, (key, scn) in enumerate(combos):
+        for b in (nb, bb):
+            b.register(JOBS[key], seed=seed0 + i,
+                       scenario=make_scenario(scn, seed=5))
+    return nb, bb
+
+
+def sim_records_equal(want, got, ctx: str) -> None:
+    """Two component records equal field for field (start and runtime as
+    float32, metrics bit for bit)."""
+    assert len(want.stages) == len(got.stages), ctx
+    for sw, sg in zip(want.stages, got.stages):
+        assert (sw.name, np.float32(sw.start), np.float32(sw.runtime),
+                sw.start_scaleout, sw.end_scaleout,
+                np.float32(sw.time_fraction), sw.overhead, sw.failures) == \
+            (sg.name, np.float32(sg.start), np.float32(sg.runtime),
+             sg.start_scaleout, sg.end_scaleout,
+             np.float32(sg.time_fraction), sg.overhead, sg.failures), ctx
+        assert np.array_equal(sw.metrics, sg.metrics), ctx
+
+
+def drive_sim(backends, jobs, comps, rng, begin=True, clocks=None,
+              s_prev=None):
+    """Step every backend through one random rescale schedule from
+    component ``comps[0]`` on, failures injected; every backend's records,
+    kill seconds and end clocks must equal the first's.  Returns the kill
+    seconds seen, the clocks and the next scale-outs."""
+    from repro_torch.sim.engine import SimStepRequest
+    n = len(jobs)
+    if begin:
+        for b in backends:
+            for j in range(n):
+                b.begin_run(j)
+    clocks = clocks or [0.0] * n
+    s_prev = s_prev or [int(rng.choice([8, 16, 33]))] * n
+    s_cur = list(s_prev)
+    fails = 0
+    for k in comps:
+        idxs = [j for j in range(n) if k < jobs[j].n_components]
+        results = [b.step([SimStepRequest(j, k, s_prev[j], s_cur[j],
+                                          clocks[j], True) for j in idxs])
+                   for b in backends]
+        for pos, j in enumerate(idxs):
+            want = results[0][pos]
+            for res in results[1:]:
+                ctx = f"comp {k} job {j} ({jobs[j].name})"
+                sim_records_equal(want.component, res[pos].component, ctx)
+                assert want.failures == res[pos].failures, ctx
+                assert np.float32(want.clock_end) == \
+                    np.float32(res[pos].clock_end), ctx
+            fails += len(want.failures)
+            clocks[j] = want.clock_end
+            s_prev[j] = s_cur[j]
+            s_cur[j] = int(rng.choice([4, 8, 16, 24, 36]))
+    return fails, clocks, s_cur
+
+
+def sim_schedules(rng, jobs):
+    """Random (J, C_max) start and end scale-out schedules of a run."""
+    c_max = max(j.n_components for j in jobs)
+    a = rng.choice([8, 16, 24], (len(jobs), c_max)).astype(np.int32)
+    z = rng.choice([4, 8, 16, 24, 36], (len(jobs), c_max)).astype(np.int32)
+    return a, z
+
+
+def numpy_full_runs(nb, jobs, a, z):
+    """The numpy backend's records of one run per job at the schedules,
+    component by component."""
+    from repro_torch.sim.engine import SimStepRequest
+    out = []
+    for j, job in enumerate(jobs):
+        nb.begin_run(j)
+        clock, comps, fails = 0.0, [], []
+        for c in range(job.n_components):
+            r = nb.step([SimStepRequest(j, c, int(a[j, c]), int(z[j, c]),
+                                        clock, True)])[0]
+            clock = r.clock_end
+            comps.append(r.component)
+            fails.extend(r.failures)
+        out.append((comps, fails))
+    return out
+
+
+def check_sim_kernel(device, ss):
+    """Phase 3's ``sim_step`` checks: engines driven on the card with every
+    launch made twice and once through the plain version on the same
+    inputs, all three bit for bit equal: each paper job alone (J = 1, two
+    stepped runs), the 24 (job, scenario) pairs at J = 24 (one stepped run,
+    then ``run_full``), failures injected.  Returns the launches checked
+    per mode."""
+    inner = ss.sim_stages
+    checked = {"stepped": 0, "whole_run": 0}
+
+    def check(block, consts, **kw):
+        out = inner(block, consts, **kw)
+        again = inner(block, consts, **kw)
+        plain = ss.sim_stages_plain(block, consts, **kw)
+        torch.cuda.synchronize()
+        mode = "stepped" if kw.get("ctrl") is not None else "whole_run"
+        assert torch.equal(out, again), f"sim_step {mode}: not repeatable"
+        assert torch.equal(out, plain), \
+            f"sim_step {mode} differs from its plain version at " \
+            f"{int((out != plain).sum())} of {out.numel()} outputs"
+        checked[mode] += 1
+        return out
+    ss.sim_stages = check
+    try:
+        rng = np.random.RandomState(SEED)
+        for i, key in enumerate(JOB_KEYS):
+            _, bb = sim_engines(device, [(key, "node_failure")], 40 + i)
+            jobs = [bb._slots[0].job]
+            for _ in range(2):
+                drive_sim((bb,), jobs, range(jobs[0].n_components), rng)
+        combos = sim_combos(24)
+        _, bb = sim_engines(device, combos, 200)
+        jobs = [s.job for s in bb._slots]
+        drive_sim((bb,), jobs, range(max(j.n_components for j in jobs)),
+                  rng)
+        bb.run_full(*sim_schedules(rng, jobs), inject_failures=True)
+    finally:
+        ss.sim_stages = inner
+    return checked
+
+
+def sim_step_work(n_jobs: int, s_len: int):
+    """(float operations, bytes) one stepped launch needs: per job the
+    control row, per stage the 11 inputs it reads (noise, three gathered
+    table entries, three spec scalars, straggler), one burst and one
+    preemption entry, eight kill seconds, two global table entries; the
+    packed outputs written once.  Operations: ~25 per stage and ~10 per
+    kill window, float32 on the CUDA cores."""
+    reads = n_jobs * 8 + n_jobs * s_len * (11 + 2 + 8 + 2)
+    writes = 2 * n_jobs + n_jobs * s_len * 24
+    return n_jobs * s_len * (25 + 8 * 10), 4 * (reads + writes)
+
+
+def sass_ffma(lib_path):
+    """(all FFMA, FFMA outside IEEE divisions) in the built library's SASS
+    (``cuobjdump``).  A correctly rounded float division compiles to an
+    FCHK with five FFMA Newton steps around it, plus a shared slow-path
+    subroutine after the kernel's last EXIT; those fuse nothing of the
+    source.  Any other FFMA is a contraction of ``a*b + c``."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    ops_ = [m.group(1) for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", out)]
+    total = sum(op.startswith("FFMA") for op in ops_)
+    body = ops_[:max(i for i, op in enumerate(ops_) if op == "EXIT") + 1]
+    ffma = {i for i, op in enumerate(body) if op.startswith("FFMA")}
+    for k in (i for i, op in enumerate(body) if op.startswith("FCHK")):
+        near = sorted((i for i in ffma if abs(i - k) <= 8),
+                      key=lambda i: abs(i - k))
+        ffma -= set(near[:5])
+    return total, len(ffma)
+
+
+class StepClock:
+    """Host wall time of one batched fleet step cut into its parts: the
+    control row and upload up to the launch's enqueue, the wait for the
+    kernel plus the one device-to-host copy, and the record building."""
+
+    def __init__(self, bb, ss):
+        self.parts = {"enqueue": [], "wait_and_copy": [], "records": []}
+        inner_launch, inner_fetch = ss.sim_stages, bb._fetch
+        inner_records = bb._records
+        self._undo = (ss, inner_launch)
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.parts[key][-1] += time.perf_counter() - t0
+                return out
+            return run
+        ss.sim_stages = timed("enqueue", inner_launch)
+        bb._fetch = timed("wait_and_copy", inner_fetch)
+        bb._records = timed("records", inner_records)
+        self.bb = bb
+
+    def open_step(self):
+        for v in self.parts.values():
+            v.append(0.0)
+
+    def close(self):
+        ss, inner = self._undo
+        ss.sim_stages = inner
+        del self.bb._fetch, self.bb._records
+
+
+def time_fleet_steps(device, ss, n_jobs: int, runs: int = 3):
+    """Median host wall ms of a batched fleet step (``step()`` with every
+    job's request, record building included) and of the numpy backend's
+    ``step`` on the same requests, over ``runs`` runs of ``n_jobs`` jobs;
+    with the batched step's parts."""
+    from repro_torch.sim.engine import SimStepRequest
+    nb, bb = sim_engines(device, sim_combos(n_jobs), 300)
+    jobs = [s.job for s in bb._slots]
+    clock = StepClock(bb, ss)
+    rng = np.random.RandomState(n_jobs)
+    t_b, t_n = [], []
+    for _ in range(runs):
+        for b in (nb, bb):
+            for j in range(n_jobs):
+                b.begin_run(j)
+        clocks = [[0.0] * n_jobs, [0.0] * n_jobs]
+        s = [int(rng.choice([8, 16, 24]))] * n_jobs
+        for k in range(max(j.n_components for j in jobs)):
+            idxs = [j for j in range(n_jobs) if k < jobs[j].n_components]
+            z = [int(rng.choice([4, 8, 16, 24, 36])) for _ in idxs]
+            for which, b, times in ((0, bb, t_b), (1, nb, t_n)):
+                reqs = [SimStepRequest(j, k, s[j], zj, clocks[which][j], True)
+                        for j, zj in zip(idxs, z)]
+                if b is bb:
+                    clock.open_step()
+                t0 = time.perf_counter()
+                res = b.step(reqs)
+                times.append((time.perf_counter() - t0) * 1e3)
+                for j, r in zip(idxs, res):
+                    clocks[which][j] = r.clock_end
+            for j, zj in zip(idxs, z):
+                s[j] = zj
+    clock.close()
+    parts = {k: float(np.median(v)) * 1e3 for k, v in clock.parts.items()}
+    return float(np.median(t_b)), float(np.median(t_n)), parts, bb
+
+
+def run_sim_engine(device, card, ss, ops):
+    """Phase 19: the vectorized engine on the card.  (a) bit parity with
+    the numpy backend on the host, (b) a mid-run restore, (c) a four-job
+    fleet on the shared batched engine against the same fleet on the numpy
+    engine, (d) the evaluation harness; then timings.  The main path is
+    (c) and (d): their launches are counted from 0, and every launch must
+    be one engine dispatch."""
+    from repro_torch.core.service import DecisionService
+    from repro_torch.dataflow import FleetCampaign, JobExperiment
+    from repro_torch.sim import evaluate
+    from repro_torch.sim.engine import BatchedClusterSim, SimStepRequest
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 19)
+
+    # (a) bit parity with the numpy engine on the host
+    ss.LAUNCHES = 0
+    fails = 0
+    for i, key in enumerate(JOB_KEYS):
+        nb, bb = sim_engines(device, [(key, "node_failure")], 40 + i)
+        jobs = [bb._slots[0].job]
+        for _ in range(2):
+            fails += drive_sim((nb, bb), jobs, range(jobs[0].n_components),
+                               rng)[0]
+    nb, bb = sim_engines(device, SIM_MIXED, 60)
+    jobs = [s.job for s in bb._slots]
+    for _ in range(2):
+        fails += drive_sim((nb, bb), jobs,
+                           range(max(j.n_components for j in jobs)), rng)[0]
+    combos = sim_combos(24)
+    nb, bb = sim_engines(device, combos, 200)
+    jobs = [s.job for s in bb._slots]
+    a, z = sim_schedules(rng, jobs)
+    full = bb.run_full(a, z, inject_failures=True)
+    for j, (want, got) in enumerate(zip(numpy_full_runs(nb, jobs, a, z),
+                                        full)):
+        for c, (cw, cg) in enumerate(zip(want[0], got[0])):
+            sim_records_equal(cw, cg, f"run_full job {j} comp {c}")
+        assert want[1] == got[1], f"run_full job {j} kill seconds"
+        fails += len(got[1])
+    assert fails > 0, "no failure in the parity runs"
+    say(f"sim engine on {card}: BatchedClusterSim on the card equals "
+        f"NumpySimBackend on the host bit for bit (each paper job alone, "
+        f"2 runs on node_failure; 4 jobs x 4 scenarios, 2 runs; run_full "
+        f"of the 24 (job, scenario) pairs against stepped numpy; {fails} "
+        f"kill seconds)")
+
+    # (b) a mid-run restore, into the same engine after it ran on
+    pair = [("gbt", "stragglers"), ("kmeans", "stragglers")]
+    nb, bb = sim_engines(device, pair, 90)
+    jobs = [s.job for s in bb._slots]
+    _, clocks, s_next = drive_sim((nb, bb), jobs, range(4), rng)
+    states = [bb.slot_state(j) for j in range(2)]
+    drive_sim((bb,), jobs, range(4, 6), np.random.RandomState(1),
+              begin=False, clocks=list(clocks))
+    drive_sim((bb,), jobs, range(2), np.random.RandomState(2))
+    for j in range(2):
+        bb.restore_slot(j, states[j])
+    drive_sim((nb, bb), jobs, range(4, 8), rng, begin=False,
+              clocks=list(clocks), s_prev=s_next)
+    say("sim engine restore: slot states taken after 4 components, the "
+        "engine run on and into a new run, restored: the rest of the run "
+        "equals the uninterrupted numpy run")
+    check_launches = ss.LAUNCHES
+
+    # (c) + (d), the main path: launches counted from 0, one per dispatch
+    fetches = [0]
+    inner_fetch = BatchedClusterSim._fetch
+
+    def fetch(self, buf, s_len):
+        fetches[0] += 1
+        return inner_fetch(self, buf, s_len)
+    BatchedClusterSim._fetch = fetch
+    ss.LAUNCHES = ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+
+    def fleet(engine):
+        exps = [JobExperiment(k, seed=SEED + i, candidate_stride=2,
+                              device=device)
+                for i, k in enumerate(JOB_KEYS)]
+        return FleetCampaign(exps, DecisionService(), engine=engine)
+    t0 = time.perf_counter()
+    camp = fleet("batched")
+    backend = camp.experiments[0].backend
+    camp.profile(SIM_PROFILE_RUNS)
+    d_profile = backend.dispatches
+    stepping = [0]
+    inner_round = camp._round
+
+    def rnd(gens, pending, *args, **kw):
+        stepping[0] += any(isinstance(r, SimStepRequest)
+                           for r in pending.values())
+        return inner_round(gens, pending, *args, **kw)
+    camp._round = rnd
+    b_stats, _ = camp.adaptive_campaign(SIM_ADAPTIVE_RUNS, "enel", True)
+    torch.cuda.synchronize()
+    del camp._round
+    fleet_s = time.perf_counter() - t0
+    fleet_launches = ss.LAUNCHES
+    adam_steps = sum(ex.trainer.adam_steps for ex in camp.experiments)
+    assert fleet_launches == backend.dispatches == fetches[0], \
+        (fleet_launches, backend.dispatches, fetches[0])
+    assert backend.dispatches - d_profile == stepping[0] > 0, \
+        (backend.dispatches, d_profile, stepping[0])
+    assert d_profile == SIM_PROFILE_RUNS * sum(
+        ex.job.n_components for ex in camp.experiments), d_profile
+    assert ops.LAUNCHES == ops.LAUNCHES_BWD == adam_steps > 0, \
+        (ops.LAUNCHES, ops.LAUNCHES_BWD, adam_steps)
+    graph_launches = (ops.LAUNCHES, ops.LAUNCHES_BWD)
+    plain = fleet(None)
+    plain.profile(SIM_PROFILE_RUNS)
+    n_stats, _ = plain.adaptive_campaign(SIM_ADAPTIVE_RUNS, "enel", True)
+    assert ss.LAUNCHES == fleet_launches, (ss.LAUNCHES, fleet_launches)
+    assert fleet_trace(b_stats) == fleet_trace(n_stats), \
+        "the batched fleet's trace differs from the numpy fleet's"
+    n_fail = sum(s.n_failures for run in b_stats for s in run)
+    say(f"sim engine fleet on {card}: 4 jobs, profile({SIM_PROFILE_RUNS}) + "
+        f"{SIM_ADAPTIVE_RUNS} adaptive runs with failures under "
+        f"FleetCampaign(engine='batched'), trace equal pick for pick to the "
+        f"numpy fleet's ({n_fail} failures); sim_step launched "
+        f"{fleet_launches} times = dispatches ({d_profile} profiling steps "
+        f"+ {stepping[0]} lockstep rounds that stepped); graph_prop_fwd and "
+        f"graph_prop_bwd once per Adam step ({adam_steps}); "
+        f"{fleet_s:.1f}s")
+
+    ss.LAUNCHES = 0
+    fetches[0] = 0
+    campaigns = {}
+    t0 = time.perf_counter()
+    for name in ("node_failure", "multi_tenant"):
+        t1 = time.perf_counter()
+        rows = evaluate.run_scenario_campaign(
+            name, JOB_KEYS, device=device, profile_runs=SIM_PROFILE_RUNS,
+            adaptive_runs=SIM_HARNESS_RUNS)
+        campaigns[name] = (rows, time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    rows = evaluate.run_chaos_campaign(
+        "chaos_crashes", JOB_KEYS, device=device,
+        profile_runs=SIM_PROFILE_RUNS, adaptive_runs=SIM_HARNESS_RUNS)
+    campaigns["chaos_crashes"] = (rows, time.perf_counter() - t1)
+    assert rows[-1]["restores"] == 2, rows[-1]
+    t1 = time.perf_counter()
+    identity = evaluate.chaos_trace_identity(
+        device=device, adaptive_runs=SIM_IDENTITY_RUNS)
+    identity_s = time.perf_counter() - t1
+    assert identity is True, "chaos_trace_identity failed on the card"
+    t1 = time.perf_counter()
+    cell = evaluate.run_transfer_cell("baseline", 1.0, "node_failure", 1.6,
+                                      "kmeans", device=device)
+    cell_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    harness_s = time.perf_counter() - t0
+    harness_launches = ss.LAUNCHES
+    assert harness_launches == fetches[0] > 0, (harness_launches, fetches)
+    BatchedClusterSim._fetch = inner_fetch
+    mt = campaigns["multi_tenant"][0][-1]
+    assert 0 < mt["max_pool_used"] <= mt["pool_size"], mt
+    summary = {}
+    for name, (rows, wall) in campaigns.items():
+        per_job = rows[:-1]
+        for r in per_job:
+            assert r["runs"] > 0 and 0.0 <= r["compliance"] <= 1.0, r
+            assert np.isfinite(r["runtime_mean_s"]), r
+        fl = rows[-1]
+        summary[name] = {
+            "compliance": {r["job"]: r["compliance"] for r in per_job},
+            "rescales_mean": {r["job"]: r["rescales_mean"] for r in per_job},
+            "failures": sum(r["failures_total"] for r in per_job),
+            "decisions": fl.get("decisions", fl.get("svc_decisions")),
+            "decisions_per_s": fl.get("decisions_per_s"),
+            "wall_s_adaptive": fl["wall_s_adaptive"], "wall_s": wall}
+        say(f"harness {name} on {card}: compliance "
+            + ", ".join(f"{r['job']} {r['compliance']:.2f}" for r in per_job)
+            + "; rescales/run " + ", ".join(f"{r['rescales_mean']:.1f}"
+                                            for r in per_job)
+            + f"; failures {summary[name]['failures']}; decisions "
+            f"{summary[name]['decisions']}"
+            + (f" at {fl['decisions_per_s']:.1f}/s"
+               if "decisions_per_s" in fl else "")
+            + f"; adaptive wall {fl['wall_s_adaptive']:.2f}s, call "
+            f"{wall:.1f}s")
+    assert np.isfinite(cell["compliance"]) and cell["runs"] > 0, cell
+    say(f"harness transfer baseline 1.0 -> node_failure 1.6 (kmeans) on "
+        f"{card}: compliance {cell['compliance']:.2f}, rescales/run "
+        f"{cell['rescales_mean']:.1f}, failures {cell['failures_total']}, "
+        f"prediction rel err {cell.get('pred_rel_err_mean', float('nan')):.3f}"
+        f"; {cell_s:.1f}s; chaos_trace_identity True ({identity_s:.1f}s); "
+        f"harness {harness_s:.1f}s, sim_step launched {harness_launches} "
+        f"times = dispatches")
+
+    # timings: the kernel, a fleet step, a whole run
+    tiny = torch.zeros(1, device=device)
+    floor_graph = graph_ms(lambda: tiny.add_(1.0))
+    floor_b2b = median_ms(lambda: tiny.add_(1.0), burst=50)
+    kernel = {}
+    for n in SIM_TIMING_J:
+        _, bb = sim_engines(device, sim_combos(n), 400)
+        bb._build()
+        for j in range(n):
+            bb.begin_run(j)
+        ctrl = np.zeros((n, ss.N_CTRL), np.float32)
+        ctrl[:, 2] = 8
+        ctrl[:, 3] = 24
+        ctrl[:, 4] = 1
+        ctrl[:, 5] = [s.tables.n_stages[0] for s in bb._slots]
+        ctrl[:, 6] = 9.6
+        block, consts, ctrl_d = bb._run_block(), bb._consts(), bb._dev(ctrl)
+        s_len = bb._S
+        out = torch.empty(2 * n + s_len * n * ss.NO, device=device)
+        launch = lambda: ss._launch(block, consts, ctrl_d, s_len, None, None,
+                                    None, out)
+        t_graph = graph_ms(launch)
+        t_b2b = median_ms(launch, burst=50)
+        t_plain = median_ms(lambda: ss.sim_stages_plain(
+            block, consts, ctrl=ctrl_d, s_len=s_len), burst=2, reps=10)
+        flops, nbytes = sim_step_work(n, s_len)
+        t_bound, by = bound(flops, nbytes, FP32_FLOPS)
+        kernel[n] = {"ms": t_graph, "graph_ms": t_graph,
+                     "back_to_back_ms": t_b2b, "plain_ms": t_plain,
+                     "bound_ms": t_bound, "bound_by": by, "bytes": nbytes,
+                     "flops": flops, "S": s_len}
+        say(f"sim_step at J={n} S={s_len} on {card}: kernel {t_graph:.4f} ms "
+            f"in a CUDA graph, back to back {t_b2b:.4f} ms, plain "
+            f"{t_plain:.3f} ms, bound {t_bound:.6f} ms by {by} "
+            f"({nbytes} bytes, {flops} FLOP); launch floor (a 1-element "
+            f"add) {floor_graph:.4f} ms in a CUDA graph, {floor_b2b:.4f} "
+            f"back to back")
+    steps = {}
+    for n in SIM_TIMING_J:
+        t_b, t_n, parts, _ = time_fleet_steps(device, ss, n)
+        steps[n] = {"batched_ms": t_b, "numpy_ms": t_n, "parts_ms": parts}
+        say(f"fleet step at J={n} on {card}: batched {t_b:.3f} ms wall "
+            f"(enqueue {parts['enqueue']:.3f}, kernel wait + copy "
+            f"{parts['wait_and_copy']:.3f}, records {parts['records']:.3f}), "
+            f"numpy {t_n:.3f} ms on the same requests")
+    nb, bb = sim_engines(device, sim_combos(SIM_FLEET), 500)
+    jobs = [s.job for s in bb._slots]
+    a, z = sim_schedules(rng, jobs)
+    full_ms = median_wall_ms(lambda: bb.run_full(a, z, inject_failures=True),
+                             reps=5, warmup=1)
+    np_full_ms = median_wall_ms(lambda: numpy_full_runs(nb, jobs, a, z),
+                                reps=3, warmup=1)
+    phase_s = time.perf_counter() - t_phase
+    say(f"run_full of a {SIM_FLEET}-job fleet (T = {bb._T}) on {card}: "
+        f"{full_ms:.2f} ms wall in one launch, numpy {np_full_ms:.2f} ms; "
+        f"phase {phase_s:.1f}s")
+    return {"launches": fleet_launches + harness_launches,
+            "launches_by_path": {"fleet_batched": fleet_launches,
+                                 "harness": harness_launches},
+            "check_launches": {"parity_and_restore": check_launches},
+            "graph_launches_fleet": graph_launches,
+            "adam_steps_fleet": adam_steps,
+            "kernel": kernel, "fleet_step": steps,
+            "run_full": {"J": SIM_FLEET, "T": bb._T, "batched_ms": full_ms,
+                         "numpy_ms": np_full_ms},
+            "launch_floor": {"graph_ms": floor_graph,
+                             "back_to_back_ms": floor_b2b},
+            "campaigns": summary, "transfer": {
+                k: cell[k] for k in ("compliance", "rescales_mean",
+                                     "failures_total", "runs")},
+            "chaos_trace_identity": identity, "fleet_s": fleet_s,
+            "harness_s": harness_s, "seconds": phase_s}
+
+
 LM_ARCH = "qwen3-0.6b"
 LM_WAVES, LM_BATCH, LM_NEW, LM_MAX_LEN = 2, 8, 64, 2048
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels.py
@@ -2243,17 +2789,19 @@ def main() -> int:
     from repro_torch.kernels.graph_prop import ops
     from repro_torch.kernels.mamba_scan import ops as ms
     from repro_torch.kernels.mlstm_chunk import ops as ml
+    from repro_torch.kernels.sim_step import ops as ss
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(fn) for fn in (ops._kernel_fn,
                                              ops._bwd_kernel_fn,
                                              fa._kernel_fn, fd._kernel_fn,
-                                             ml._kernel_fn, ms._kernel_fn)]
+                                             ml._kernel_fn, ms._kernel_fn,
+                                             ss._kernel_fn)]
         for fut in builds:
             fut.result()
     say(f"build: {time.perf_counter() - t0:.2f}s wall")
     for kname in ("graph_prop_fwd", "graph_prop_bwd", "flash_attention_fwd",
-                  "flash_decode", "mlstm_chunk", "mamba_scan"):
+                  "flash_decode", "mlstm_chunk", "mamba_scan", "sim_step"):
         info = build.BUILDS[kname]
         say(f"build {kname}: nvcc {info.seconds:.2f}s, "
             f"compiled={info.compiled}")
@@ -2348,6 +2896,18 @@ def main() -> int:
             f"8, 64; B=95): both kernels vs plain, repeats bit-equal")
     say(f"with the edge cases: forward max abs err {max_err:.3g}, backward "
         f"{max_err_bwd:.3g}")
+    t0 = time.perf_counter()
+    sim_checked = check_sim_kernel(device, ss)
+    sim_ffma_all, sim_ffma = sass_ffma(build.BUILDS["sim_step"].path)
+    assert sim_ffma == 0, f"sim_step: {sim_ffma} contracted FFMA in its SASS"
+    sim_regs = ptxas_usage("sim_step", "sim_stages_kernel")
+    say(f"sim_step vs plain ({time.perf_counter() - t0:.1f}s): bit for bit "
+        f"equal at every launch of the four jobs at J = 1 (two runs each) "
+        f"and the 24 (job, scenario) pairs at J = 24 (a stepped run, then "
+        f"run_full), failures injected; {sim_checked['stepped']} stepped and "
+        f"{sim_checked['whole_run']} whole-run launches, each launched twice "
+        f"bit-equal; SASS: {sim_ffma_all} FFMA, all inside IEEE divisions, "
+        f"{sim_ffma} contracted; ptxas {sim_regs}")
 
     # 4. the decision path; only its launches count
     with PickRecorder() as picks:
@@ -2766,14 +3326,20 @@ def main() -> int:
     fleet = run_fleet(device, card, ops)
     say(json.dumps({"card": card, "fleet": fleet}))
 
-    # 19. results
+    # 19. the vectorized engine on the card; only (c) and (d) count
+    sim = run_sim_engine(device, card, ss, ops)
+    say(json.dumps({"card": card, "sim_engine": sim}))
+
+    # 20. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
-        "launches": launches + t_launches + fleet["launches"],
+        "launches": launches + t_launches + fleet["launches"]
+        + sim["graph_launches_fleet"][0],
         "launches_by_path": {"decision": launches, "training": t_launches,
-                             "fleet": fleet["launches"]},
+                             "fleet": fleet["launches"],
+                             "sim_fleet": sim["graph_launches_fleet"][0]},
         "check_launches": {"training_decision_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
@@ -2790,9 +3356,11 @@ def main() -> int:
         "name": "graph_prop_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
-        "launches": t_launches_bwd + fleet["launches_bwd"],
+        "launches": t_launches_bwd + fleet["launches_bwd"]
+        + sim["graph_launches_fleet"][1],
         "launches_by_path": {"training": t_launches_bwd,
-                             "fleet": fleet["launches_bwd"]},
+                             "fleet": fleet["launches_bwd"],
+                             "sim_fleet": sim["graph_launches_fleet"][1]},
         "max_abs_err": max_err_bwd,
         "ms": bwd_graph_ms, "graph_ms": bwd_graph_ms,
         "back_to_back_ms": bwd_ms, "plain_ms": bwd_plain_ms,
@@ -2858,6 +3426,26 @@ def main() -> int:
         "back_to_back_ms": jb["back_to_back_ms"], "plain_ms": jb["plain_ms"],
         "bound_ms": jb["bound_ms"], "bound_by": jb["bound_by"],
         "library_ms": None, "ptxas": jb["ptxas"], "shape": jb["shape"],
+    }, {
+        "name": "sim_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
+        "replaces": "src/repro/sim/engine.py:167",
+        "replaces_what": "a lax.scan under jax.jit, no pallas_call",
+        "launches": sim["launches"],
+        "launches_by_path": sim["launches_by_path"],
+        "check_launches": dict(sim["check_launches"], **{
+            f"kernel_vs_plain_{k}": v for k, v in sim_checked.items()}),
+        "max_abs_err": 0.0,
+        "ms": sim["kernel"][4]["ms"], "graph_ms": sim["kernel"][4]["ms"],
+        "back_to_back_ms": sim["kernel"][4]["back_to_back_ms"],
+        "plain_ms": sim["kernel"][4]["plain_ms"],
+        "bound_ms": sim["kernel"][4]["bound_ms"],
+        "bound_by": sim["kernel"][4]["bound_by"], "library_ms": None,
+        "launch_floor_ms": sim["launch_floor"]["graph_ms"],
+        "ptxas": sim_regs,
+        "sass_ffma": {"all": sim_ffma_all, "contracted": sim_ffma},
+        "shape": {"J": 4, "S": sim["kernel"][4]["S"]},
+        "at_J": {str(n): sim["kernel"][n] for n in SIM_TIMING_J},
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -28,11 +28,10 @@ resumed campaign's trace equals the uninterrupted one.  Snapshots hold host
 data only (numpy, python), so a checkpoint pickled on a card loads in a
 process without one.
 
-Counterpart of ``repro.dataflow.fleet``.  Not ported yet: the vectorized
-engine (``engine="batched"``, queue 1 item 8 of ROADMAP.md) and the fused
+Counterpart of ``repro.dataflow.fleet``.  Not ported yet: the fused
 single-scan campaign (``fused_campaign`` / ``resume_fused_campaign`` and
 their ``FusedCheckpoint``, ``FusedReport`` and ``materialize_fused``,
-queue 1 item 9); both raise ``NotImplementedError``.
+queue 1 item 9 of ROADMAP.md); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +46,7 @@ from repro_torch import obs
 from repro_torch.core.service import DecisionService, apply_capacity
 from repro_torch.dataflow.runner import JobExperiment, RunStats
 from repro_torch.dataflow.workloads import SCALEOUT_RANGE
-from repro_torch.sim.engine import SimStepRequest
+from repro_torch.sim.engine import BatchedClusterSim, SimStepRequest
 
 
 @dataclass
@@ -115,21 +114,32 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 class FleetCampaign:
     """Drive many concurrent job experiments through one decision service.
 
-    Every experiment keeps its own backend (the numpy per-job event loop);
-    ``engine="batched"``, one shared vectorized backend, raises
-    ``NotImplementedError`` (queue 1 item 8).
+    Pass ``engine="batched"`` to re-register every experiment on ONE shared
+    :class:`~repro_torch.sim.engine.BatchedClusterSim` (before any runs have
+    started), on the experiments' one device, so each lockstep round
+    advances the whole fleet's simulation in one ``sim_step`` launch.  The
+    default keeps each experiment's own backend (the numpy per-job event
+    loop unless it was built with another).
     """
 
     def __init__(self, experiments: Sequence[JobExperiment],
                  service: Optional[DecisionService] = None,
                  engine: Optional[str] = None):
-        if engine == "batched":
-            raise _not_ported("engine='batched' (the vectorized "
-                              "BatchedClusterSim)", 8)
         self.service = service or DecisionService()
         self.experiments = list(experiments)
         for exp in self.experiments:
             exp.service = self.service          # single-run calls batch too
+        if engine == "batched" and self.experiments:
+            devices = {exp.trainer.device for exp in self.experiments}
+            assert len(devices) == 1, \
+                f"one shared backend, one device: {sorted(map(str, devices))}"
+            shared = BatchedClusterSim(device=devices.pop())
+            for exp in self.experiments:
+                assert exp._run_idx == 0, \
+                    "attach the shared backend before any runs"
+                exp.backend = shared
+                exp.sim_slot = shared.register(exp.job, exp.seed,
+                                               exp.scenario)
 
     def profile(self, n_runs: int = 10) -> None:
         for exp in self.experiments:

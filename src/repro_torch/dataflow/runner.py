@@ -10,8 +10,11 @@ Counterpart of ``repro.dataflow.runner``.  As there, the execution loop of
 resumes with their results:
 
 * :class:`~repro_torch.sim.engine.SimStepRequest` — the next component's
-  simulated execution, answered by a sim backend
-  (:class:`~repro_torch.sim.engine.NumpySimBackend`);
+  simulated execution, answered by a sim backend: the per-job numpy event
+  loop (:class:`~repro_torch.sim.engine.NumpySimBackend`,
+  ``engine="numpy"``) or the vectorized fleet engine
+  (:class:`~repro_torch.sim.engine.BatchedClusterSim`, ``engine="batched"``,
+  one ``sim_step`` launch per step on the experiment's device);
 * :class:`~repro_torch.core.service.DecisionRequest` — the pending Enel
   rescaling decision, answered by a
   :class:`~repro_torch.core.service.DecisionService` (shape-bucketed,
@@ -28,9 +31,7 @@ Disturbance scenarios (``repro_torch.sim.scenarios``) and dataset-size
 scaling (``size_scale``) parameterize the execution context;
 ``share_models_from`` transplants a trained model into a new context.
 ``JobExperiment.snapshot_state`` / ``restore_state`` are the campaign
-checkpoints' per-job state.  Not ported yet: the vectorized
-``BatchedClusterSim`` engine (``engine="batched"``, queue 1 item 8 of
-ROADMAP.md).
+checkpoints' per-job state.
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ from repro_torch.dataflow.simulator import (ClusterSim, ComponentRecord,
 from repro_torch.dataflow.workloads import (JOBS, SCALEOUT_RANGE, JobSpec,
                                             scale_job)
 from repro_torch.device import DeviceLike
-from repro_torch.sim.engine import NumpySimBackend, SimStepRequest
+from repro_torch.sim.engine import (BatchedClusterSim, NumpySimBackend,
+                                    SimStepRequest)
 from repro_torch.sim.scenarios import BASELINE, Scenario
 
 PROFILING_SCALEOUTS = [4, 8, 11, 14, 18, 21, 25, 28, 32, 36]
@@ -340,10 +342,13 @@ class JobExperiment:
     ``service`` answers Enel's decisions (a fresh
     :class:`~repro_torch.core.service.DecisionService` by default; several
     experiments may share one, as a fleet campaign's do); ``backend`` runs
-    the simulated components (a
+    the simulated components: by default a
     :class:`~repro_torch.sim.engine.NumpySimBackend` adopting this
-    experiment's simulator by default; ``engine="batched"`` raises
-    ``NotImplementedError``, queue 1 item 8).  ``scenario`` injects seeded
+    experiment's simulator (``engine="numpy"``) or a
+    :class:`~repro_torch.sim.engine.BatchedClusterSim` on ``device`` with
+    this job registered (``engine="batched"``; bit-identical, and batched
+    across jobs when a shared ``backend`` is passed, as a fleet campaign
+    does).  ``scenario`` injects seeded
     disturbances; ``size_scale`` scales the dataset (cross-context axis);
     ``share_models_from`` reuses another experiment's trained model,
     encoder and scalers instead of fresh ones (transfer deployment; the
@@ -360,11 +365,7 @@ class JobExperiment:
                  size_scale: float = 1.0,
                  share_models_from: Optional["JobExperiment"] = None,
                  ae_params: Optional[Mapping] = None):
-        if engine == "batched":
-            raise NotImplementedError(
-                "engine='batched' needs the vectorized BatchedClusterSim, "
-                "queue 1 item 8 of ROADMAP.md, not ported yet")
-        if engine != "numpy":
+        if engine not in ("numpy", "batched"):
             raise ValueError(f"unknown engine {engine!r}")
         job = JOBS[job_key]
         if size_scale != 1.0:
@@ -375,8 +376,17 @@ class JobExperiment:
         self.scenario = scenario or BASELINE
         self.engine = engine
         self.sim = ClusterSim(seed=seed, scenario=self.scenario)
-        self.backend = backend if backend is not None else NumpySimBackend()
-        self.sim_slot = self.backend.adopt(self.sim, self.job)
+        if backend is not None:
+            self.backend = backend
+        elif engine == "batched":
+            self.backend = BatchedClusterSim(device=device)
+        else:
+            self.backend = NumpySimBackend()
+        if isinstance(self.backend, NumpySimBackend):
+            self.sim_slot = self.backend.adopt(self.sim, self.job)
+        else:
+            self.sim_slot = self.backend.register(self.job, seed,
+                                                  self.scenario)
         if share_models_from is not None:
             src = share_models_from
             self.encoder = src.encoder

@@ -2,7 +2,7 @@
 then run adaptive runs with Enel and Ellis, with a failure phase.
 
     PYTHONPATH=src python -m repro_torch.launch.dataflow [--job kmeans]
-        [--runs 6] [--profiling 6] [--device cpu]
+        [--runs 6] [--profiling 6] [--device cpu] [--engine batched]
     PYTHONPATH=src python -m repro_torch.launch.dataflow --fleet 8
 
 Counterpart of ``examples/enel_dataflow.py``, with its arguments.
@@ -10,8 +10,11 @@ Counterpart of ``examples/enel_dataflow.py``, with its arguments.
 job classes in turn (LR, MPC, K-Means, GBT; seeds ``--seed``,
 ``--seed + 1``, ... for each class), each profiled, then ``--runs``
 lockstep Enel runs of all of them behind one shared ``DecisionService``,
-failures injected in the last two.  Runs on the card unless ``--device
-cpu``.
+failures injected in the last two.  ``--engine batched`` simulates the
+cluster on the vectorized engine (one ``sim_step`` launch per component
+step, every experiment of a fleet on one shared engine) instead of the
+per-job numpy event loop; both give the same records.  Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ JOB_CLASSES = ("lr", "mpc", "kmeans", "gbt")
 def single(args) -> None:
     from repro_torch.dataflow import JobExperiment, window_stats
 
-    exp = JobExperiment(args.job, seed=args.seed, device=args.device)
+    exp = JobExperiment(args.job, seed=args.seed, device=args.device,
+                        engine=args.engine)
     print(f"profiling {args.profiling} runs ...")
     exp.profile(args.profiling)
     print(f"runtime target: {exp.target:.0f}s")
@@ -47,7 +51,9 @@ def fleet(args) -> None:
 
     exps = [JobExperiment(JOB_CLASSES[i % 4], seed=args.seed + i // 4,
                           device=args.device) for i in range(args.fleet)]
-    camp = FleetCampaign(exps, DecisionService())
+    camp = FleetCampaign(exps, DecisionService(),
+                         engine="batched" if args.engine == "batched"
+                         else None)
     print(f"profiling {args.profiling} runs of {len(exps)} experiments ...")
     camp.profile(args.profiling)
     for i in range(args.runs):
@@ -75,6 +81,10 @@ def main(argv=None) -> None:
     ap.add_argument("--fleet", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="numpy", choices=("numpy", "batched"),
+                    help="cluster simulator: the per-job numpy event loop "
+                         "or the vectorized engine (one sim_step launch per "
+                         "step; a fleet shares one)")
     args = ap.parse_args(argv)
     if args.fleet > 0:
         fleet(args)

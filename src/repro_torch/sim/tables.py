@@ -14,6 +14,7 @@ makes the table trick exact rather than an approximation.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import TYPE_CHECKING, Dict, Tuple
 
 import numpy as np
@@ -67,6 +68,62 @@ def global_tables() -> Dict[str, np.ndarray]:
 
 
 GLOBAL = global_tables()
+
+
+@dataclass
+class FlatJobTables:
+    """A job's full run flattened to its stage sequence (length T).
+
+    The vectorized engine advances over this layout (components are
+    contiguous stage ranges), reading the same float32 table entries the
+    per-job simulator reads stage by stage.
+    """
+    job: JobSpec
+    names: list                      # stage name per flat slot
+    comp_of: np.ndarray              # (T,) int32 component index
+    first_of_comp: np.ndarray        # (T,) bool  first stage of its component
+    comp_start: np.ndarray           # (C,) int32 offset of each component
+    n_stages: np.ndarray             # (C,) int32 stages per component
+    rt: np.ndarray                   # (T, 37) f32
+    sq: np.ndarray                   # (T, 37) f32
+    slow: np.ndarray                 # (T, 37) f32
+    cpu0: np.ndarray                 # (T,) f32
+    shuffle0: np.ndarray             # (T,) f32
+    io0: np.ndarray                  # (T,) f32
+
+    @property
+    def total_stages(self) -> int:
+        return len(self.names)
+
+
+def flat_job_tables(job: JobSpec, skew_growth: float = 1.0) -> FlatJobTables:
+    names, comp_of, first, rts, sqs, slows = [], [], [], [], [], []
+    cpu0, shuffle0, io0, comp_start, n_stages = [], [], [], [], []
+    for c in range(job.n_components):
+        specs = job.stages(c)
+        comp_start.append(len(names))
+        n_stages.append(len(specs))
+        growth = float(skew_growth) ** c
+        for i, spec in enumerate(specs):
+            tab = stage_tables(spec, growth)
+            names.append(spec.name)
+            comp_of.append(c)
+            first.append(i == 0)
+            rts.append(tab["rt"])
+            sqs.append(tab["sq"])
+            slows.append(tab["slow"])
+            cpu0.append(tab["cpu0"])
+            shuffle0.append(tab["shuffle0"])
+            io0.append(tab["io0"])
+    return FlatJobTables(
+        job=job, names=names,
+        comp_of=np.array(comp_of, np.int32),
+        first_of_comp=np.array(first, bool),
+        comp_start=np.array(comp_start, np.int32),
+        n_stages=np.array(n_stages, np.int32),
+        rt=np.stack(rts), sq=np.stack(sqs), slow=np.stack(slows),
+        cpu0=np.array(cpu0, F32), shuffle0=np.array(shuffle0, F32),
+        io0=np.array(io0, F32))
 
 
 def overhead_f32(a: int, z: int) -> F32:

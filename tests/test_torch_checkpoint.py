@@ -2,9 +2,10 @@
 trace-identical.
 
 The port's contracts mirror ``tests/test_checkpoint.py`` on the numpy sim
-engine: a ``FleetCampaign`` killed at a lockstep round and restored from its
-latest checkpoint (pickled to disk and loaded back, also in a fresh
-process) produces exactly the trace of an uninterrupted campaign;
+engine and on one shared batched engine: a ``FleetCampaign`` killed at a
+lockstep round and restored from its latest checkpoint (pickled to disk
+and loaded back, also in a fresh process) produces exactly the trace of an
+uninterrupted campaign;
 checkpointing changes nothing; ``JobExperiment`` snapshots restore any
 number of times, into fresh tensors, so the decision service's stack memo
 cannot serve stale parameters.  The checkpoint's building blocks
@@ -24,7 +25,7 @@ import torch
 from repro_torch.core.service import DecisionService
 from repro_torch.dataflow import FleetCampaign, JobExperiment
 from repro_torch.dataflow.fleet import CampaignCheckpoint
-from repro_torch.sim.engine import SimStepRequest
+from repro_torch.sim.engine import BatchedClusterSim, SimStepRequest
 
 FOUR_JOBS = ("lr", "mpc", "kmeans", "gbt")
 TWO_JOBS = ("kmeans", "gbt")
@@ -44,15 +45,17 @@ def _one_thread():
 _PROFILED = {}
 
 
-def _campaign(job_keys, seed=7, stride=4):
-    """A fresh campaign over experiments after ``profile(2)``.  The first
-    campaign of a kind profiles; later ones restore its snapshots (the
-    scratch fit dominates a test's time on the CPU)."""
+def _campaign(job_keys, seed=7, stride=4, engine="numpy"):
+    """A fresh campaign over experiments after ``profile(2)``, on the numpy
+    engine or on one shared batched engine.  The first campaign of a kind
+    profiles; later ones restore its snapshots (the scratch fit dominates a
+    test's time on the CPU)."""
     exps = [JobExperiment(k, seed=seed + i, candidate_stride=stride,
-                          device="cpu")
+                          device="cpu", engine=engine)
             for i, k in enumerate(job_keys)]
-    c = FleetCampaign(exps, DecisionService(seed=3))
-    key = (tuple(job_keys), seed, stride)
+    c = FleetCampaign(exps, DecisionService(seed=3),
+                      engine="batched" if engine == "batched" else None)
+    key = (tuple(job_keys), seed, stride, engine)
     if key not in _PROFILED:
         c.profile(2)
         _PROFILED[key] = [exp.snapshot_state() for exp in exps]
@@ -70,9 +73,10 @@ def _trace(all_stats):
             for run in all_stats for s in run]
 
 
-def _kill_and_resume(job_keys, tmp_path):
-    ref, _ = _campaign(job_keys).adaptive_campaign(2, "enel", True)
-    crash = _campaign(job_keys)
+def _kill_and_resume(job_keys, tmp_path, engine="numpy"):
+    ref, _ = _campaign(job_keys, engine=engine).adaptive_campaign(
+        2, "enel", True)
+    crash = _campaign(job_keys, engine=engine)
     out, ckpts = crash.adaptive_campaign(2, "enel", True,
                                          checkpoint_every=1,
                                          stop_after_round=3)
@@ -98,6 +102,15 @@ def test_two_job_campaign_killed_at_round3_resumes_identically(tmp_path):
 @pytest.mark.slow
 def test_four_job_campaign_killed_at_round3_resumes_identically(tmp_path):
     _kill_and_resume(FOUR_JOBS, tmp_path)
+
+
+def test_two_job_batched_campaign_killed_at_round3_resumes_identically(
+        tmp_path):
+    """The same on one shared batched engine (the reference's own
+    checkpoint contract runs there): the mid-run generators replay, then
+    the shared engine's slots are pinned to their checkpoint-time state
+    and re-pack their run block at the next launch."""
+    _kill_and_resume(TWO_JOBS, tmp_path, engine="batched")
 
 
 def test_checkpointing_is_observer_free():
@@ -175,6 +188,25 @@ def test_job_experiment_snapshot_restore_roundtrip():
     assert np.float32(third.runtime) == np.float32(ref.runtime)
 
 
+def test_batched_job_experiment_snapshot_restore_roundtrip():
+    """The single-job checkpoint contract on the batched engine: restored
+    twice, the same run twice, through one launch per component."""
+    a = JobExperiment("gbt", seed=5, engine="batched", candidate_stride=4,
+                      device="cpu")
+    assert isinstance(a.backend, BatchedClusterSim)
+    a.profile(2)
+    snap = a.snapshot_state()
+    before = a.backend.dispatches
+    ref = a.adaptive_run("enel", inject_failures=True)
+    assert a.backend.dispatches == before + a.job.n_components
+    for _ in range(2):
+        a.restore_state(snap)
+        again = a.adaptive_run("enel", inject_failures=True)
+        assert np.float32(again.runtime) == np.float32(ref.runtime)
+        assert again.scaleouts == ref.scaleouts
+        assert again.n_failures == ref.n_failures
+
+
 def test_trainer_snapshot_is_a_host_copy():
     """The Adam step updates the params in place: a snapshot must not
     change when the trainer trains on."""
@@ -214,15 +246,39 @@ def test_restore_leaves_no_stale_service_stack():
 
 
 def test_unported_engines_name_their_queue_items():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FleetCampaign([], engine="batched")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        JobExperiment("gbt", device="cpu", engine="batched")
     c = FleetCampaign([])
     with pytest.raises(NotImplementedError, match="item 9"):
         c.fused_campaign(1)
     with pytest.raises(NotImplementedError, match="item 9"):
         c.resume_fused_campaign(None, None)
+
+
+def test_batched_entry_points_build_a_shared_backend():
+    """``JobExperiment(engine="batched")`` gets a batched engine of its
+    own on its device; ``FleetCampaign(engine="batched")`` re-registers
+    every experiment on ONE shared engine, in order, and refuses a fleet
+    whose experiments live on several devices or have run already."""
+    one = JobExperiment("gbt", device="cpu", engine="batched")
+    assert isinstance(one.backend, BatchedClusterSim)
+    assert one.backend.device == torch.device("cpu") and one.sim_slot == 0
+    exps = [JobExperiment(k, seed=i, device="cpu")
+            for i, k in enumerate(TWO_JOBS)]
+    c = FleetCampaign(exps, engine="batched")
+    shared = exps[0].backend
+    assert isinstance(shared, BatchedClusterSim)
+    assert all(ex.backend is shared for ex in c.experiments)
+    assert [ex.sim_slot for ex in exps] == [0, 1]
+    assert [s.job for s in shared._slots] == [ex.job for ex in exps]
+    with pytest.raises(ValueError, match="unknown engine"):
+        JobExperiment("gbt", device="cpu", engine="jax")
+    meta = JobExperiment("gbt", device="cpu")
+    meta.trainer.device = torch.device("meta")
+    with pytest.raises(AssertionError, match="one device"):
+        FleetCampaign([one, meta], engine="batched")
+    ran = JobExperiment("gbt", device="cpu")
+    ran._run_idx = 1
+    with pytest.raises(AssertionError, match="before any runs"):
+        FleetCampaign([ran], engine="batched")
 
 
 # --------------------------------------------- byte parity with the reference

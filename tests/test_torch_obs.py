@@ -11,6 +11,7 @@
 * neutrality: with ``ENEL_OBS`` off a K-Means run through the service
   decides bit for bit as with it on, and adds no dispatch signature.
 """
+import contextlib
 import json
 import math
 
@@ -124,28 +125,76 @@ def test_recorder_matches_reference(tmp_path):
     assert twin.state() == rec.state()
 
 
+@contextlib.contextmanager
+def _left_as_found(*mods):
+    """Each obs module's registry, flight recorder and gate as they were on
+    entry: series made inside are dropped and the others restored, so a
+    test of the module-level singletons leaves nothing that another test
+    file, run later in the same process, reads."""
+    saved = [(m, m.registry().snapshot(), m.recorder().state(), m.enabled())
+             for m in mods]
+    try:
+        yield
+    finally:
+        for m, snap, rec, on in saved:
+            reg = m.registry()
+            for name in reg.names():
+                kept = snap.get(name, {}).get("series", {})
+                metric = reg.get(name)
+                for key in list(metric.series()):
+                    if json.dumps(key) not in kept:
+                        metric.drop(**dict(key))
+            reg.restore(snap)
+            m.recorder().load(rec)
+            m.set_enabled(on)
+
+
 def test_module_api_matches_reference():
     """emit/observe/snapshot/restore of the module-level singletons, with
-    the gate, against the reference's module."""
+    the gate, against the reference's module.  The series is one that no
+    reference test uses, and both modules are left as they were found."""
     out = []
-    for mod in (obs, jobs):
-        mod.recorder().clear()
-        with mod.obs_enabled(True):
-            mod.observe("t_rt_seconds", 0.2, phase="x")
-            seq = mod.emit("t.span", _ts=1.0, a=1)
-            snap = mod.snapshot()
-            mod.observe("t_rt_seconds", 0.9, phase="x")
-        with mod.obs_enabled(False):
-            assert mod.emit("t.off") == -1
-            mod.observe("t_rt_seconds", 5.0, phase="x")
-            assert not mod.enabled() and mod.enabled(True)
-        mod.restore(snap)
-        h = mod.registry().get("t_rt_seconds").labels(phase="x")
-        out.append((seq, h.count, mod.registry().snapshot(prefix="t_rt"),
-                    mod.recorder().stream()))
-        json.dumps(snap, default=str)
+    with _left_as_found(obs, jobs):
+        for mod in (obs, jobs):
+            mod.recorder().clear()
+            with mod.obs_enabled(True):
+                mod.observe("t_port_rt_seconds", 0.2, phase="x")
+                seq = mod.emit("t.span", _ts=1.0, a=1)
+                snap = mod.snapshot()
+                mod.observe("t_port_rt_seconds", 0.9, phase="x")
+            with mod.obs_enabled(False):
+                assert mod.emit("t.off") == -1
+                mod.observe("t_port_rt_seconds", 5.0, phase="x")
+                assert not mod.enabled() and mod.enabled(True)
+            mod.restore(snap)
+            h = mod.registry().get("t_port_rt_seconds").labels(phase="x")
+            out.append((seq, h.count,
+                        mod.registry().snapshot(prefix="t_port_rt"),
+                        mod.recorder().stream()))
+            json.dumps(snap, default=str)
     assert out[0] == out[1]
     assert out[0][1] == 1
+    for mod in (obs, jobs):
+        assert not mod.registry().get("t_port_rt_seconds").series()
+
+
+def test_obs_left_as_found_restores_a_reference_series():
+    """The guard's own contract on the series the reference's
+    ``test_obs_snapshot_roundtrips_registry_and_recorder`` reads: counts
+    made inside are rewound, series made inside are gone, and the
+    recorder's stream is back."""
+    def seen():
+        snap = jobs.registry().snapshot(prefix="t_rt_seconds")
+        return ({k: v["series"] for k, v in snap.items() if v["series"]},
+                jobs.recorder().stream())
+    before = seen()
+    with _left_as_found(jobs):
+        with jobs.obs_enabled(True):
+            jobs.observe("t_rt_seconds", 0.5, phase="x")
+            jobs.observe("t_rt_seconds", 0.5, phase="y")
+            jobs.emit("t.guard", a=1)
+        assert seen() != before
+    assert seen() == before
 
 
 # ------------------------------------------------- attribute-API counters

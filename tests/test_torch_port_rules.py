@@ -100,6 +100,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import init_cache, init_model
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sim import evaluate
+    from repro_torch.sim.engine import BatchedClusterSim
     cfg = smoke_config(get_config("qwen3-0.6b"))
     cpu_params = init_model(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -119,7 +121,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: TrainingCache(8),
              lambda: JobExperiment("kmeans"),
              lambda: JobExperiment("kmeans", service=DecisionService()),
-             lambda: EnelTrainer(cache_capacity=8).fit([empty_graph()])]
+             lambda: EnelTrainer(cache_capacity=8).fit([empty_graph()]),
+             lambda: BatchedClusterSim(),
+             lambda: JobExperiment("kmeans", engine="batched"),
+             lambda: evaluate.run_scenario_campaign("baseline"),
+             lambda: evaluate.run_scenario_campaign("multi_tenant"),
+             lambda: evaluate.run_chaos_campaign("chaos_crashes"),
+             lambda: evaluate.chaos_trace_identity(),
+             lambda: evaluate.run_transfer_cell("baseline", 1.0,
+                                                "node_failure", 1.6,
+                                                "kmeans"),
+             lambda: evaluate.run_transfer_cells()]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
