@@ -226,7 +226,32 @@ Phases (any failure exits non-zero; nothing is caught):
    records) beside ``NumpySimBackend.step`` on the same requests; a
    32-job ``run_full`` beside numpy; each campaign's compliance, rescales,
    failures, decisions per second and wall time; the phase's seconds;
-20. a ``{"kernels": [...]}`` line, then the device line last.
+20. the fused campaign (``repro_torch.core.campaign_kernel``) on the card:
+   8 experiments (the four jobs, each with seeds SEED and SEED + 1,
+   ``candidate_stride=2``; ``node_failure`` on the SEED + 1 half) on one
+   shared batched engine, ``profile(3)`` and two live adaptive runs,
+   then ``nan_fit`` chaos on K-Means SEED + 1; one plan of 3 runs (66
+   steps at ``c_max`` 22: fine-tunes after runs 1 and 2, the cadence's
+   scratch fit after run 3, the chaos job poisoned after run 2; sweeps of
+   18 candidates x 24 components; 96-row rings).  (a) ``run_fused``, enqueued
+   under ``torch.cuda.set_sync_debug_mode("error")`` (its copies to the
+   host after the loop excepted), and ``run_stepped`` give bit-equal
+   outputs and carry;
+   (b) per driver ``sim_step`` launches once per step and both graph
+   kernels once per Adam step (none for the decisions, which run the
+   sparse engine in plain ops), counted from 0; (c) no non-finite pick,
+   fallbacks on the chaos job, picks in [4, 36]; (d) the fused schedule
+   replayed through ``run_full`` on the fleet restored to its state
+   before the plan gives the same stage runtimes and clocks bit for bit; (e)
+   ``fused_campaign`` with a checkpoint every run, its last checkpoint
+   pickled, loaded and resumed, equals the single pass (outputs, stats);
+   (f) after the write-back ``adaptive_round`` runs run 9 with finite
+   runtimes.  Printed beside the card: the wall time of both drivers and
+   of the same fleet's live ``adaptive_campaign(3)``, the host's enqueue
+   ms per step without a fit and per Adam step, the device-busy share of
+   the step body (run 1's steps before its fit), the launches and the
+   phase's seconds;
+21. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -1806,6 +1831,268 @@ def run_sim_engine(device, card, ss, ops):
             "harness_s": harness_s, "seconds": phase_s}
 
 
+FUSED_PROFILE_RUNS = 3      # phase 20: profile(3), 2 live adaptive runs,
+FUSED_WARM_RUNS = 2         # then 3 fused runs: the cadence (a scratch fit
+FUSED_RUNS = 3              # every 5th run) retrains in the 3rd
+FUSED_CHAOS = ("kmeans", SEED + 1)   # nan_fit after every 2nd fit
+
+
+def fused_fleet(device):
+    """Phase 20's fleet: the four paper jobs, each with seeds SEED and
+    SEED + 1 (``candidate_stride=2``; ``node_failure`` on the SEED + 1
+    half), on one shared batched engine, after ``profile(3)`` and two
+    live adaptive runs."""
+    from repro_torch.core.service import DecisionService
+    from repro_torch.dataflow import FleetCampaign, JobExperiment
+    from repro_torch.sim.scenarios import make_scenario
+    camp = FleetCampaign(
+        [JobExperiment(key, seed=s, candidate_stride=2, device=device,
+                       scenario=make_scenario("baseline" if s == SEED
+                                              else "node_failure"))
+         for key in JOB_KEYS for s in FLEET_SEEDS],
+        DecisionService(), engine="batched")
+    camp.profile(FUSED_PROFILE_RUNS)
+    camp.adaptive_campaign(FUSED_WARM_RUNS, "enel")
+    return camp
+
+
+def fused_twin(camp, base):
+    """``camp`` back in the state ``base`` (its experiments' snapshots,
+    backend slots included), ``nan_fit`` chaos attached to the
+    ``FUSED_CHAOS`` experiment after profiling, as the chaos suite
+    does."""
+    from repro_torch.sim.chaos import ChaosInjector, ChaosSpec
+    for ex, st in zip(camp.experiments, base):
+        ex.restore_state(st)
+        ex.chaos = None
+        if (ex.job_key, ex.seed) == FUSED_CHAOS:
+            ex.chaos = ChaosInjector(ChaosSpec(name="nan_fit",
+                                               nan_fit_every=2),
+                                     exp_seed=ex.seed)
+    return camp
+
+
+def fused_adam_steps(plan) -> int:
+    """Adam steps of a fused plan's fits, summed over its jobs and runs."""
+    st = plan.static
+    return plan.n_jobs * sum(st.scratch_steps if s else st.tune_steps
+                             for s in plan.host["scratch_at"])
+
+
+def timed_drive(plan, driver, strict: bool):
+    """``driver(plan)`` (``run_fused`` or ``run_stepped``) with the host's
+    enqueue time of each step taken (``campaign_kernel._step`` wrapped for
+    the run), under ``torch.cuda.set_sync_debug_mode("error")`` when
+    ``strict`` -> (carry, ys, wall seconds, median enqueue ms per step
+    without a fit, enqueue ms per Adam step in the fit steps)."""
+    from repro_torch.core import campaign_kernel as ck
+    enqueue = {}
+    inner_step = ck._step
+
+    def timed_step(plan_, carry, t):
+        t0 = time.perf_counter()
+        out = inner_step(plan_, carry, t)
+        enqueue[t] = time.perf_counter() - t0
+        return out
+    torch.cuda.synchronize()
+    ck._step = timed_step
+    if strict:                  # any host sync in run_fused's loop raises
+        torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        carry, ys = driver(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        ck._step = inner_step
+    wall = time.perf_counter() - t0
+    c_max = plan.static.c_max
+    fit_t = [t for t in enqueue if t % c_max == c_max - 1]
+    step_ms = float(np.median([s for t, s in enqueue.items()
+                               if t not in fit_t])) * 1e3
+    adam_ms = sum(enqueue[t] for t in fit_t) * 1e3 / fused_adam_steps(plan)
+    return carry, ys, wall, step_ms, adam_ms
+
+
+def tree_leaves(tree, path=""):
+    """(path, leaf) pairs of nested dicts, lists and tuples, keys sorted."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def trees_equal(a, b, what: str) -> None:
+    """Same structure, dtypes and values bit for bit (NaN equal to NaN)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert [p for p, _ in la] == [p for p, _ in lb], what
+    for (p, x), (_, y) in zip(la, lb):
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype and x.shape == y.shape, f"{what}{p}"
+        assert np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), \
+            f"{what}{p} differs"
+
+
+def run_fused_campaign(device, card, ss, ops):
+    """Phase 20: the fused campaign (``repro_torch.core.campaign_kernel``)
+    on the card.  The main path is ``run_fused`` over a plan of 8 jobs x 3
+    runs: its launches count from 0, and it must enqueue all 66 steps
+    under ``torch.cuda.set_sync_debug_mode("error")`` (its copies to the
+    host after the loop excepted).  Held against ``run_stepped`` on the same
+    plan (bit for bit), ``run_full`` on the fleet restored to its state
+    before the plan, and a checkpointed, pickled and resumed
+    ``FleetCampaign.fused_campaign``; then the stepped path continues."""
+    import os
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import campaign_kernel as ck
+    from repro_torch.dataflow.fleet import FusedCheckpoint, materialize_fused
+    from repro_torch.dataflow.workloads import SCALEOUT_RANGE
+    t_phase = time.perf_counter()
+    camp = fused_fleet(device)
+    base = [ex.snapshot_state() for ex in camp.experiments]
+    profile_s = time.perf_counter() - t_phase
+    fused_twin(camp, base)
+    plan = ck.build_plan(camp.experiments, FUSED_RUNS)
+    st, n_jobs = plan.static, plan.n_jobs
+    adam = fused_adam_steps(plan)
+    want = {"sim_step": plan.n_steps, "graph_prop_fwd": adam,
+            "graph_prop_bwd": adam}
+    lo, hi = SCALEOUT_RANGE
+
+    def drive(driver, strict: bool):
+        ss.LAUNCHES = ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+        carry, ys, wall, step_ms, adam_ms = timed_drive(plan, driver, strict)
+        got = {"sim_step": ss.LAUNCHES, "graph_prop_fwd": ops.LAUNCHES,
+               "graph_prop_bwd": ops.LAUNCHES_BWD}
+        assert got == want, (driver.__name__, got, want)
+        return ck.carry_to_host(carry), ys, wall, got, step_ms, adam_ms
+
+    # (a), (b): the main path, each step's enqueue timed on the host clock
+    c_f, ys_f, fused_s, launches, step_ms, adam_ms = drive(ck.run_fused,
+                                                           strict=True)
+    c_s, ys_s, stepped_s, _, _, _ = drive(ck.run_stepped, strict=False)
+    trees_equal(ys_f, ys_s, "fused vs stepped ys")
+    trees_equal(c_f, c_s, "fused vs stepped carry")
+    # (c) the guardrail
+    chaos_j = [(ex.job_key, ex.seed) for ex in camp.experiments].index(
+        FUSED_CHAOS)
+    picks = ys_f["s_next"][ys_f["decided"]]
+    assert (c_f["nonfinite"] == 0).all(), c_f["nonfinite"]
+    assert c_f["fallbacks"][chaos_j] > 0, c_f["fallbacks"]
+    assert ((picks >= lo) & (picks <= hi)).all(), picks
+    say(f"fused campaign on {card}: {n_jobs} jobs x {FUSED_RUNS} runs = "
+        f"{plan.n_steps} steps (c_max {st.c_max}, scratch fits in runs "
+        f"{(np.flatnonzero(plan.host['scratch_at']) + 1).tolist()}, "
+        f"sweep {len(plan.dev['cand'])} "
+        f"candidates x {plan.dev['sw_comp'].numel()} components, ring "
+        f"{c_f['ring']['slot_ok'].shape[1]}), run_fused enqueued under "
+        f"sync debug mode 'error' and equal to run_stepped bit for bit; "
+        f"launches per driver {launches} ({adam} Adam steps); "
+        f"{int(ys_f['decided'].sum())} decisions, fallbacks "
+        f"{c_f['fallbacks'].tolist()} (chaos job {chaos_j}), no non-finite "
+        f"pick, picks in [{lo}, {hi}]")
+
+    # the busy share of the step body: run 1's 21 steps before its fit
+    # step, device time in a trace over the wall time of an untraced run
+    # of the same steps (a trace of the fit step's ~170,000 kernels takes
+    # minutes to read; phase 7 traces a fit)
+    n_body = st.c_max - 1
+    t0 = time.perf_counter()
+    ck.run_fused(plan, None, 0, n_body)
+    seg_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ck.run_fused(plan, None, 0, n_body)
+    dev_ev = [ev for ev in prof.key_averages()
+              if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+                  for ev in dev_ev) / 1e3
+    kernels = sum(ev.count for ev in dev_ev)
+    drivers_s = time.perf_counter() - t_phase - profile_s
+
+    # (d) the fused sim against run_full on the fleet in its state before
+    # the plan
+    backend = fused_twin(camp, base).experiments[0].backend
+    a, z = ys_f["a"].astype(np.int64), ys_f["z"].astype(np.int64)
+    for r in range(FUSED_RUNS):
+        t0 = r * st.c_max
+        res = backend.run_full(a[t0:t0 + st.c_max].T.copy(),
+                               z[t0:t0 + st.c_max].T.copy())
+        for j, (comps, _) in enumerate(res):
+            for k, comp in enumerate(comps):
+                for i, stage in enumerate(comp.stages):
+                    assert np.float32(stage.runtime) == \
+                        ys_f["rt"][t0 + k, i, j], (r, j, k, i)
+            nc = camp.experiments[j].job.n_components
+            assert np.float32(backend.slot_state(j)["clock"]) == \
+                ys_f["clock"][t0 + nc - 1, j], (r, j)
+
+    # the live campaign of the same fleet, for its wall time
+    fused_twin(camp, base)
+    t0 = time.perf_counter()
+    live, _ = camp.adaptive_campaign(FUSED_RUNS, "enel")
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0
+
+    # (e) checkpointed, pickled, loaded and resumed = the single pass;
+    # (f) the written-back fleet goes on with the stepped path
+    fused_twin(camp, base)
+    single = materialize_fused(plan, ys_f)
+    stats_c, rep_c = camp.fused_campaign(FUSED_RUNS, write_back=False,
+                                         checkpoint_every_runs=1)
+    assert len(rep_c.checkpoints) == FUSED_RUNS - 1
+    trees_equal(rep_c.ys, ys_f, "checkpointed ys")
+    assert repr(stats_c) == repr(single)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fused.ckpt")
+        rep_c.checkpoints[-1].save(path)
+        size = os.path.getsize(path)
+        loaded = FusedCheckpoint.load(path)
+    stats_r, rep_r = camp.resume_fused_campaign(rep_c.plan, loaded)
+    trees_equal(rep_r.ys, ys_f, "resumed ys")
+    trees_equal(rep_r.carry, c_f, "resumed carry")
+    assert repr(stats_r) == repr(single)
+    post = camp.adaptive_round()
+    assert all(np.isfinite(s.runtime) and s.runtime > 0 for s in post)
+    run_next = FUSED_PROFILE_RUNS + FUSED_WARM_RUNS + FUSED_RUNS + 1
+    assert [s.run_idx for s in post] == [run_next] * n_jobs, post
+    phase_s = time.perf_counter() - t_phase
+    compliance = float(np.mean([s.violation == 0.0 for run in single
+                                for s in run]))
+    say(f"fused campaign checks on {card}: the fused sim equals run_full "
+        f"on the fleet's state before the plan bit for bit; fused_campaign "
+        f"checkpointed every run ({size} bytes pickled), loaded and resumed "
+        f"from run 3 equals the single pass (ys, stats); after write-back "
+        f"adaptive_round runs run {run_next}")
+    say(f"fused campaign timing on {card}: run_fused {fused_s:.2f}s wall, "
+        f"run_stepped {stepped_s:.2f}s, the live adaptive_campaign("
+        f"{FUSED_RUNS}) of the same fleet {live_s:.2f}s; host enqueue "
+        f"{step_ms:.3f} ms per step without a fit (median), "
+        f"{adam_ms:.3f} ms per Adam step in the fit steps; run 1's "
+        f"{n_body} step bodies before its fit traced: {busy_ms:.2f} ms "
+        f"device busy of {seg_s * 1e3:.1f} ms wall (busy share "
+        f"{busy_ms / (seg_s * 1e3):.3f}, {kernels / n_body:.0f} kernels a "
+        f"step); compliance {compliance:.3f}; profile and "
+        f"{FUSED_WARM_RUNS} live runs {profile_s:.1f}s, both drivers and "
+        f"the trace {drivers_s:.1f}s; phase {phase_s:.1f}s")
+    return {"jobs": n_jobs, "runs": FUSED_RUNS, "steps": plan.n_steps,
+            "c_max": st.c_max, "adam_steps": adam, "launches": launches,
+            "fused_s": fused_s, "stepped_s": stepped_s, "live_s": live_s,
+            "enqueue_ms_per_step": step_ms, "enqueue_ms_per_adam_step":
+                adam_ms, "body_steps": n_body, "body_wall_ms": seg_s * 1e3,
+            "body_busy_ms": busy_ms, "body_busy_share":
+                busy_ms / (seg_s * 1e3), "body_kernels": kernels,
+            "fallbacks": c_f["fallbacks"].tolist(),
+            "decisions": int(ys_f["decided"].sum()),
+            "checkpoint_bytes": size, "compliance": compliance,
+            "profile_s": profile_s, "drivers_s": drivers_s,
+            "seconds": phase_s}
+
+
 LM_ARCH = "qwen3-0.6b"
 LM_WAVES, LM_BATCH, LM_NEW, LM_MAX_LEN = 2, 8, 64, 2048
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels.py
@@ -3330,16 +3617,22 @@ def main() -> int:
     sim = run_sim_engine(device, card, ss, ops)
     say(json.dumps({"card": card, "sim_engine": sim}))
 
-    # 20. results
+    # 20. the fused campaign on the card; only run_fused's launches count
+    fused = run_fused_campaign(device, card, ss, ops)
+    say(json.dumps({"card": card, "fused_campaign": fused}))
+    f_launch = fused["launches"]
+
+    # 21. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
         "launches": launches + t_launches + fleet["launches"]
-        + sim["graph_launches_fleet"][0],
+        + sim["graph_launches_fleet"][0] + f_launch["graph_prop_fwd"],
         "launches_by_path": {"decision": launches, "training": t_launches,
                              "fleet": fleet["launches"],
-                             "sim_fleet": sim["graph_launches_fleet"][0]},
+                             "sim_fleet": sim["graph_launches_fleet"][0],
+                             "fused": f_launch["graph_prop_fwd"]},
         "check_launches": {"training_decision_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
@@ -3357,10 +3650,11 @@ def main() -> int:
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
         "launches": t_launches_bwd + fleet["launches_bwd"]
-        + sim["graph_launches_fleet"][1],
+        + sim["graph_launches_fleet"][1] + f_launch["graph_prop_bwd"],
         "launches_by_path": {"training": t_launches_bwd,
                              "fleet": fleet["launches_bwd"],
-                             "sim_fleet": sim["graph_launches_fleet"][1]},
+                             "sim_fleet": sim["graph_launches_fleet"][1],
+                             "fused": f_launch["graph_prop_bwd"]},
         "max_abs_err": max_err_bwd,
         "ms": bwd_graph_ms, "graph_ms": bwd_graph_ms,
         "back_to_back_ms": bwd_ms, "plain_ms": bwd_plain_ms,
@@ -3431,8 +3725,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/sim_step/csrc/sim_step.cu",
         "replaces": "src/repro/sim/engine.py:167",
         "replaces_what": "a lax.scan under jax.jit, no pallas_call",
-        "launches": sim["launches"],
-        "launches_by_path": sim["launches_by_path"],
+        "launches": sim["launches"] + f_launch["sim_step"],
+        "launches_by_path": dict(sim["launches_by_path"],
+                                 fused=f_launch["sim_step"]),
         "check_launches": dict(sim["check_launches"], **{
             f"kernel_vs_plain_{k}": v for k, v in sim_checked.items()}),
         "max_abs_err": 0.0,

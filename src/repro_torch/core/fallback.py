@@ -14,14 +14,17 @@ scale-out is ALWAYS one of the real candidates (hence always inside
 ``[min_scaleout, max_scaleout]``), for arbitrary finite/non-finite
 prediction vectors, elapsed times and targets.
 
-A pure-Python copy of ``repro.core.fallback.FallbackPolicy``; the in-scan
-twin ``fallback_pick`` comes with the fused campaign.
+A pure-Python copy of ``repro.core.fallback.FallbackPolicy``, and its
+device twin :func:`fallback_pick` for the fused campaign's step
+(``core/campaign_kernel.py``).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
 
 
 def _finite(x) -> bool:
@@ -109,3 +112,56 @@ class FallbackPolicy:
             if s >= want:
                 return s
         return hi
+
+
+def fallback_pick(candidates: torch.Tensor, cand_valid: torch.Tensor,
+                  totals: torch.Tensor, current: torch.Tensor,
+                  elapsed: torch.Tensor, target: torch.Tensor,
+                  max_step: int = 4, press_lo: float = 0.5,
+                  press_hi: float = 0.85) -> torch.Tensor:
+    """Device mirror of :meth:`FallbackPolicy.decide`, in tensor ops.
+
+    ``candidates`` (..., C) is ascending and duplicate-free over its
+    ``cand_valid`` entries, ``totals`` (..., C); ``current``, ``elapsed``
+    and ``target`` carry the leading shape (a job axis, or none).  Returns
+    the picked index into ``candidates`` (int32, the leading shape), not
+    the scale-out.  Same contract as the host policy: salvage the smallest
+    compliant candidate among finite totals, else the least (total,
+    scale-out) pair, else the urgency-scaled bounded clamp.  Every argmax
+    and argmin returns the first index of a tie, as ``jnp``'s do.
+    """
+    f32 = torch.float32
+    candidates = candidates.to(f32)
+    inf = torch.full_like(totals, math.inf)
+    finite = cand_valid & torch.isfinite(totals)
+    # salvage: the smallest compliant candidate (ascending: the first
+    # feasible index), else the first argmin of the finite totals (the
+    # smallest scale-out on ties, as min(key=(total, s)) picks)
+    feasible = finite & (totals <= target[..., None])
+    idx_feas = torch.argmax(feasible.to(torch.int32), dim=-1)
+    idx_min = torch.argmin(torch.where(finite, totals, inf), dim=-1)
+    use_feas = torch.isfinite(target) & feasible.any(dim=-1)
+    idx_salvage = torch.where(use_feas, idx_feas, idx_min)
+    # clamp: an urgency-proportional bounded step from the current
+    # allocation
+    cand_inf = torch.full_like(candidates, math.inf)
+    lo = torch.where(cand_valid, candidates, cand_inf).amin(dim=-1)
+    hi = torch.where(cand_valid, candidates, -cand_inf).amax(dim=-1)
+    cur = torch.where(torch.isfinite(current), current.to(f32), lo)
+    cur = torch.minimum(torch.maximum(cur, lo), hi)
+    ok_u = (torch.isfinite(elapsed) & torch.isfinite(target) & (target > 0)
+            & (elapsed >= 0))
+    urgency = elapsed / target
+    zero = torch.zeros_like(cur)
+    half = max(1, max_step // 2)
+    step = torch.where(ok_u & (urgency >= press_hi), zero + max_step,
+                       torch.where(ok_u & (urgency >= press_lo),
+                                   zero + half, zero))
+    want = torch.minimum(torch.maximum(cur + step, lo), hi)
+    ge = cand_valid & (candidates >= want[..., None])
+    idx_hi = torch.argmax(torch.where(cand_valid, candidates, -cand_inf),
+                          dim=-1)
+    idx_clamp = torch.where(ge.any(dim=-1),
+                            torch.argmax(ge.to(torch.int32), dim=-1), idx_hi)
+    return torch.where(finite.any(dim=-1), idx_salvage,
+                       idx_clamp).to(torch.int32)

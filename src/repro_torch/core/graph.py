@@ -435,9 +435,10 @@ def compact_rows(graphs: Sequence[ComponentGraph],
 
 
 def ring_append(buffers: Dict[str, torch.Tensor],
-                rows: Dict[str, torch.Tensor], idx: torch.Tensor) -> None:
-    """Write ``rows`` into the ring ``buffers`` at slots ``idx``, in place
-    (the reference's functional ``.at[idx].set``)."""
+                rows: Dict[str, torch.Tensor], idx) -> None:
+    """Write ``rows`` into the ring ``buffers`` at slots ``idx`` (an index
+    tensor of the leading axis, or a tuple of them for leading axes such as
+    (job, slot)), in place (the reference's functional ``.at[idx].set``)."""
     for k, b in buffers.items():
         b[idx] = rows[k].to(b.dtype)
 

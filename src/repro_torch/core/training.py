@@ -21,8 +21,10 @@ Both differentiate through ``forward_stacked``: on a card eqs. 6-7 go
 through the ``graph_prop`` kernels (forward and backward), on the CPU
 through the inline PyTorch route.  The reference's ``jax.lax.scan`` over
 Adam steps is a Python loop here; losses and the skipped-step count stay on
-the device and are fetched once per fit.  Every fit emits the reference's
-``fit`` span and observes ``enel_fit_seconds`` (``repro_torch.obs``).
+the device and are fetched once per fit (the fused campaign,
+``core/campaign_kernel.py``, keeps them there).  Every fit emits the
+reference's ``fit`` span and observes ``enel_fit_seconds``
+(``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -164,17 +166,21 @@ def _adam_run(params: Dict, opt: Opt, batch: Dict[str, torch.Tensor],
     return _fetch(losses, oks)
 
 
-def _adam_run_resident(params: Dict, opt: Opt,
-                       batch: Dict[str, torch.Tensor], weights: torch.Tensor,
-                       generator: torch.Generator, lr: float,
-                       dropout_p: float, steps: int
-                       ) -> Tuple[float, float, int]:
-    """Adam over a resident batch with per-step metric dropout.
+def _adam_run_resident_device(params: Dict, opt: Opt,
+                              batch: Dict[str, torch.Tensor],
+                              weights: torch.Tensor,
+                              generator: torch.Generator, lr: float,
+                              dropout_p: float, steps: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Adam over a resident batch with per-step metric dropout, enqueued
+    without a host sync.
 
     Each step draws a fresh mask on the device hiding task-set metrics with
     probability ``dropout_p`` (summary nodes kept), so runtime prediction is
     also trained through the metric-propagation path.  Returns (first-step
-    loss, last loss, skipped steps), fetched once.
+    loss, last loss, skipped steps as int32) as device scalars; ``steps``
+    must be at least 1.
     """
     losses, oks = [], []
     mv = batch["metrics_valid"]
@@ -187,7 +193,21 @@ def _adam_run_resident(params: Dict, opt: Opt,
         loss, ok = _adam_update(params, opt, b, lr, weights)
         losses.append(loss)
         oks.append(ok)
-    return _fetch(losses, oks)
+    skipped = (~torch.stack(oks)).sum().to(torch.int32)
+    return losses[0], losses[-1], skipped
+
+
+def _adam_run_resident(params: Dict, opt: Opt,
+                       batch: Dict[str, torch.Tensor], weights: torch.Tensor,
+                       generator: torch.Generator, lr: float,
+                       dropout_p: float, steps: int
+                       ) -> Tuple[float, float, int]:
+    """:func:`_adam_run_resident_device`, its (first-step loss, last loss,
+    skipped steps) fetched once."""
+    if steps < 1:
+        return float("nan"), float("nan"), 0
+    return _to_host(*_adam_run_resident_device(
+        params, opt, batch, weights, generator, lr, dropout_p, steps))
 
 
 def _fetch(losses: List[torch.Tensor], oks: List[torch.Tensor]
@@ -195,9 +215,12 @@ def _fetch(losses: List[torch.Tensor], oks: List[torch.Tensor]
     """(first loss, last loss, count of not-ok steps) in one transfer."""
     if not losses:
         return float("nan"), float("nan"), 0
-    skipped = (~torch.stack(oks)).sum().float()
-    host = torch.stack([losses[0].float(), losses[-1].float(),
-                        skipped]).cpu()
+    return _to_host(losses[0], losses[-1], (~torch.stack(oks)).sum())
+
+
+def _to_host(first: torch.Tensor, last: torch.Tensor,
+             skipped: torch.Tensor) -> Tuple[float, float, int]:
+    host = torch.stack([first.float(), last.float(), skipped.float()]).cpu()
     return float(host[0]), float(host[1]), int(host[2])
 
 

@@ -28,10 +28,12 @@ resumed campaign's trace equals the uninterrupted one.  Snapshots hold host
 data only (numpy, python), so a checkpoint pickled on a card loads in a
 process without one.
 
-Counterpart of ``repro.dataflow.fleet``.  Not ported yet: the fused
-single-scan campaign (``fused_campaign`` / ``resume_fused_campaign`` and
-their ``FusedCheckpoint``, ``FusedReport`` and ``materialize_fused``,
-queue 1 item 9 of ROADMAP.md); both raise ``NotImplementedError``.
+:meth:`FleetCampaign.fused_campaign` runs a whole campaign through the
+fused step body of ``repro_torch.core.campaign_kernel``, enqueued without a
+host synchronisation, and materializes its traces once at the end;
+:class:`FusedCheckpoint` snapshots its carry between runs.
+
+Counterpart of ``repro.dataflow.fleet``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import obs
 from repro_torch.core.service import DecisionService, apply_capacity
@@ -106,9 +109,88 @@ class CampaignCheckpoint:
             return pickle.load(f)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is queue 1 item {item} of ROADMAP.md, not ported yet")
+@dataclass
+class FusedCheckpoint:
+    """Resumable snapshot of a fused campaign.
+
+    The whole mutable state of a fused campaign is its carry: a host copy
+    of it plus the step index is a complete checkpoint.  ``ys`` holds the
+    stacked per-step outputs for steps ``[0, step)`` so a resumed campaign
+    can materialize the SAME traces as an uninterrupted one.  Host data
+    only (numpy), so it loads in a process without a card.
+    """
+    step: int
+    n_steps: int
+    carry: Dict
+    ys: Dict
+    obs_state: Optional[Dict] = None       # registry + flight-recorder state
+
+    def save(self, path: str) -> None:
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+
+    @staticmethod
+    def load(path: str) -> "FusedCheckpoint":
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+
+@dataclass
+class FusedReport:
+    """Campaign-level outcome of a fused run: the plan it executed, the
+    final host carry, the per-step host traces and the guardrail counters
+    (``nonfinite`` must be all zero: the step body clamps any non-finite
+    pick to the current scale-out and counts it here)."""
+    plan: object
+    carry: Dict
+    ys: Dict
+    fallbacks: np.ndarray        # (J,) fallback-clamped decisions
+    nonfinite: np.ndarray        # (J,) non-finite sweep picks (clamped)
+    checkpoints: List[FusedCheckpoint] = field(default_factory=list)
+
+
+def materialize_fused(plan, ys) -> List[List[RunStats]]:
+    """Host materialization of a fused campaign's traces: one
+    :class:`RunStats` per (run, experiment), shaped like
+    :meth:`FleetCampaign.adaptive_campaign`'s stats.  Pure host numpy,
+    called once at campaign end (or resume)."""
+    host = plan.host
+    c_max = plan.static.c_max
+    n_runs = host["n_runs"]
+    J = len(host["job_names"])
+    clock = np.asarray(ys["clock"])
+    z = np.asarray(ys["z"])
+    s_next = np.asarray(ys["s_next"])
+    decided = np.asarray(ys["decided"])
+    fallback = np.asarray(ys["fallback"])
+    failed = np.asarray(ys["failed"])            # (T, s_max, J)
+    stage_live = (np.arange(failed.shape[1])[None, :, None]
+                  < host["n_stage"][:, None, :])  # (c_max, s_max, J)
+    stage_live = np.tile(stage_live, (n_runs, 1, 1))
+    all_stats: List[List[RunStats]] = []
+    for r in range(n_runs):
+        t0 = r * c_max
+        row: List[RunStats] = []
+        for j in range(J):
+            nc = int(host["n_comp"][j])
+            runtime = float(clock[t0 + nc - 1, j])
+            target = float(host["targets"][j])
+            scaleouts = [int(host["s0"][j])]
+            for t in range(t0, t0 + nc):
+                if decided[t, j] and s_next[t, j] != z[t, j]:
+                    scaleouts.append(int(s_next[t, j]))
+            nfail = int(np.sum(
+                failed[t0:t0 + c_max] * stage_live[t0:t0 + c_max],
+                axis=(0, 1))[j])
+            row.append(RunStats(
+                host["run_idx0"][j] + r + 1, "enel", runtime, target,
+                max(0.0, runtime - target),
+                predicted=host["predicted"][j], scaleouts=scaleouts,
+                n_failures=nfail, n_rescales=len(scaleouts) - 1,
+                decide_calls=int(decided[t0:t0 + c_max, j].sum()),
+                fallback_decisions=int(fallback[t0:t0 + c_max, j].sum())))
+        all_stats.append(row)
+    return all_stats
 
 
 class FleetCampaign:
@@ -422,13 +504,132 @@ class FleetCampaign:
 
     # ------------------------------------------------------- fused campaigns
     def fused_campaign(self, n_runs: int, method: str = "enel",
-                       inject_failures: bool = False, **kw):
-        """The whole campaign in one scanned dispatch: not ported yet."""
-        raise _not_ported("fused_campaign (core/campaign_kernel.py)", 9)
+                       inject_failures: bool = False, *,
+                       write_back: bool = True,
+                       checkpoint_every_runs: int = 0,
+                       plan=None
+                       ) -> Tuple[List[List[RunStats]], FusedReport]:
+        """``n_runs`` adaptive runs of the whole fleet through the fused
+        step body, enqueued without a host synchronisation.
 
-    def resume_fused_campaign(self, plan, ckpt, **kw):
-        raise _not_ported("resume_fused_campaign "
-                          "(core/campaign_kernel.py)", 9)
+        The stepped path (:meth:`adaptive_campaign`) re-enters Python
+        between every component and reads every result on the host; this
+        runs the entire campaign (sim step, ring append, decision sweep and
+        per-run resident fit) through ``repro_torch.core.campaign_kernel``
+        and materializes the traces once at the end.  Decisions are guarded
+        in the step: a non-finite sweep falls back to the model-free pick
+        and a non-finite pick is clamped to the current scale-out (counted
+        in ``report.nonfinite``).
+
+        ``checkpoint_every_runs=k`` splits the campaign every k runs and
+        snapshots the carry (:class:`FusedCheckpoint`); resume with
+        :meth:`resume_fused_campaign` for traces identical to an
+        uninterrupted campaign.  ``write_back=True`` syncs the final
+        model, ring and backend state into the experiments, so stepped
+        runs can continue after a fused campaign.
+        """
+        assert method == "enel", "the fused step body sweeps Enel's model"
+        from repro_torch.core import campaign_kernel as ck
+        if plan is None:
+            plan = ck.build_plan(self.experiments, n_runs,
+                                 inject_failures=inject_failures)
+        carry = ck.init_carry(plan)
+        return self._fused_drive(ck, plan, carry, start=0, pieces=[],
+                                 ckpts=[],
+                                 checkpoint_every_runs=checkpoint_every_runs,
+                                 write_back=write_back)
+
+    def resume_fused_campaign(self, plan, ckpt: FusedCheckpoint, *,
+                              write_back: bool = True,
+                              checkpoint_every_runs: int = 0
+                              ) -> Tuple[List[List[RunStats]], FusedReport]:
+        """Continue a fused campaign from a :class:`FusedCheckpoint`; the
+        completed campaign's stats match an uninterrupted one exactly."""
+        from repro_torch.core import campaign_kernel as ck
+        ck.check_fit_calls(plan, ckpt.carry["fit_calls"], ckpt.step)
+        if ckpt.obs_state is not None and obs.enabled():
+            obs.restore(ckpt.obs_state)
+        obs.emit("restore", kind="fused", step=ckpt.step,
+                 n_steps=ckpt.n_steps)
+        carry = ck.carry_from_host(ckpt.carry, plan.device)
+        return self._fused_drive(
+            ck, plan, carry, start=ckpt.step, pieces=[ckpt.ys],
+            ckpts=[], checkpoint_every_runs=checkpoint_every_runs,
+            write_back=write_back)
+
+    def _fused_drive(self, ck, plan, carry, *, start, pieces, ckpts,
+                     checkpoint_every_runs, write_back):
+        cat = lambda ps: {k: np.concatenate([p[k] for p in ps])
+                          for k in ps[0]}
+        seg = (checkpoint_every_runs * plan.static.c_max
+               if checkpoint_every_runs > 0 else plan.n_steps)
+        t = start
+        while t < plan.n_steps:
+            t1 = min(t + seg, plan.n_steps)
+            carry, ys = ck.run_fused(plan, carry, t, t1)
+            pieces.append(ys)
+            t = t1
+            if checkpoint_every_runs > 0 and t < plan.n_steps:
+                obs.emit("checkpoint", kind="fused", step=t,
+                         n_steps=plan.n_steps)
+                ckpts.append(FusedCheckpoint(
+                    step=t, n_steps=plan.n_steps,
+                    carry=ck.carry_to_host(carry), ys=cat(pieces),
+                    obs_state=obs.snapshot() if obs.enabled() else None))
+        ys_all = cat(pieces)
+        stats = materialize_fused(plan, ys_all)
+        carry_h = ck.carry_to_host(carry)
+        report = FusedReport(
+            plan=plan, carry=carry_h, ys=ys_all,
+            fallbacks=np.asarray(carry_h["fallbacks"]),
+            nonfinite=np.asarray(carry_h["nonfinite"]), checkpoints=ckpts)
+        if write_back:
+            self._fused_write_back(plan, carry_h, stats, ys=ys_all)
+        return stats, report
+
+    def _fused_write_back(self, plan, carry: Dict,
+                          stats: List[List[RunStats]],
+                          ys: Optional[Dict] = None) -> None:
+        """Sync the campaign's final (host) carry into the experiments:
+        model params and Adam state, the resident training ring, run
+        counters, per-run stats, and the backend slots' clock and
+        interference (the rng streams were already advanced by
+        ``campaign_run_blocks``).  The host ``graph_history`` and Enel's
+        ``hist_summaries`` are NOT back-filled: a fused campaign trades
+        those growing host mirrors for the synchronisation-free path
+        (documented deviation)."""
+        from repro_torch.core.training import map_params
+        if ys is not None and obs.enabled():
+            # the telemetry block becomes the span stream the stepped
+            # driver would have produced
+            from repro_torch.core import campaign_kernel as ck
+            ck.replay_spans(plan, ys)
+        n_runs = plan.host["n_runs"]
+        ring = carry["ring"]
+        for j, exp in enumerate(self.experiments):
+            tr = exp.trainer
+            up = lambda a: torch.tensor(np.asarray(a)[j], device=tr.device)
+            mu, nu, t = carry["opt"]
+            tr.params = map_params(up, carry["params"])
+            tr.opt = (map_params(up, mu), map_params(up, nu), up(t))
+            tr._fit_calls = int(carry["fit_calls"][j])
+            tr.runs_seen += n_runs
+            cache = tr.cache
+            cache.buffers = {k: up(v) for k, v in ring["buffers"].items()}
+            cache.pos = int(ring["pos"][j])
+            cache.count = int(ring["count"][j])
+            cache.slot_ok = np.asarray(ring["slot_ok"][j]).copy()
+            nc = int(plan.host["n_comp"][j])
+            cache.latest = ((cache.pos - nc + np.arange(nc))
+                            % cache.capacity).astype(np.int64)
+            exp._run_idx += n_runs
+            exp.enel.fallback_decisions += int(carry["fallbacks"][j])
+            for r in range(n_runs):
+                exp.stats.append(stats[r][j])
+            st = exp.backend.slot_state(exp.sim_slot)
+            st["clock"] = np.float32(carry["clock"][j])
+            st["interf"] = np.float32(carry["interf"][j])
+            exp.backend.restore_slot(exp.sim_slot, st)
 
     # ------------------------------------------------------ multi-tenant pool
     def arrival_campaign(self, *, pool_size: int, arrival_rate: float,

@@ -245,14 +245,6 @@ def test_restore_leaves_no_stale_service_stack():
     assert first_decision() == before
 
 
-def test_unported_engines_name_their_queue_items():
-    c = FleetCampaign([])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        c.fused_campaign(1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        c.resume_fused_campaign(None, None)
-
-
 def test_batched_entry_points_build_a_shared_backend():
     """``JobExperiment(engine="batched")`` gets a batched engine of its
     own on its device; ``FleetCampaign(engine="batched")`` re-registers
