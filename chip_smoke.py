@@ -251,7 +251,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ms per step without a fit and per Adam step, the device-busy share of
    the step body (run 1's steps before its fit), the launches and the
    phase's seconds;
-21. a ``{"kernels": [...]}`` line, then the device line last.
+21. LM training on the card (``repro_torch.train``): (a) under grad,
+   ``mha``, ``mlstm`` and ``selective_scan`` on phases 8, 11 and 14's
+   sweeps and one model shape each launch their kernel once per call and
+   give the gradients of autograd of their plain versions (float32 at
+   atol 1e-4 / rtol 1e-3, bf16 within 3e-2 of the largest element); (b)
+   qwen3-0.6b as published (28 layers, d 1024, 16 / 8 heads of 128,
+   vocab 151,936, bf16 parameters, float32 moments, ``remat="full"``,
+   seeded weights) takes 8 steps of ``make_train_step`` (AdamW, warmup 2
+   of 8) on the deterministic token stream at global batch 8 x 1024
+   (``TRAIN_4K``'s 256 x 4096 cut to the time limit), under
+   ``torch.use_deterministic_algorithms``: every loss and grad norm
+   finite, ``flash_attention_fwd`` launching 2 x 28 times a step (the
+   remat recompute runs each attention forward again); step 0 at 2 layers
+   gives the plain ops' loss and grad norm within 3e-2; (c) a checkpoint
+   saved at step 4 and restored into a fresh state (every leaf, the bf16
+   ones included, bit for bit) runs steps 5-8 to the uninterrupted run's
+   losses, parameters and moments bit for bit; (d) ``ElasticTrainer`` at
+   full width cut to 2 layers (global batch 8, sequence 512; 4 components
+   of 2 steps, DP choices (1, 2, 4), a worker-group loss at component 2,
+   checkpoints in a temporary directory): 8 steps, at least one rescale
+   and two DP degrees, every re-mesh restoring the state it saved bit for
+   bit, ``graph_prop_bwd`` launching once per Enel fine-tune Adam step and
+   ``graph_prop_fwd`` once per step and once per decision.  Printed beside
+   the card: ms per train step, tokens/s, peak memory, the device-busy
+   share, kernels per step and the top kernels, the checkpoint's bytes and
+   save / restore seconds, the elastic DP trace and stage times, the
+   phase's seconds;
+22. a ``{"kernels": [...]}`` line, then the device line last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -3052,6 +3079,426 @@ def jamba_path(device, card, ms, fa, fd, others, cfg=None):
                       "x_dtype": "bfloat16"}}
 
 
+# ------------------------------------------------------------------ phase 21
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024      # TRAIN_4K (256 x 4096) cut to the limit
+TRAIN_STEPS, TRAIN_CKPT_AT = 8, 4
+TRAIN_CHECK_LAYERS = 2      # step 0 through the kernels vs the plain ops
+ELASTIC_LAYERS, ELASTIC_SEQ = 2, 512
+ELASTIC = dict(n_components=4, steps_per_component=2, dp_choices=(1, 2, 4),
+               fail_at_component=2)
+ELASTIC_TARGET_S = 30.0
+# (a): the kernels' own sweeps (phases 8, 11, 14) and one model shape each
+GRAD_MHA = [(c, dt) for c in MHA_SWEEP
+            for dt in (torch.float32, torch.bfloat16)] + \
+    [(MHA_MODEL[0], torch.bfloat16)]
+GRAD_MLSTM = [(c, dt) for c in MLSTM_SWEEP
+              for dt in (torch.float32, torch.bfloat16)] + \
+    [(MLSTM_MODEL[1], torch.bfloat16)]
+GRAD_MAMBA = [(c, torch.float32) for c in MAMBA_SWEEP] + \
+    [(MAMBA_MODEL[0], torch.bfloat16)]
+
+
+def vjp_pair(call, plain, inputs, mod, rng):
+    """Gradients of one random projection of every output, through the
+    wrapper (``call``) and through autograd of the plain version; the
+    wrapper must launch its kernel exactly once, the plain route never.
+    Returns (wrapper grads, plain grads, forward max abs error)."""
+    def grads(fn):
+        live = [t.detach().requires_grad_(True) for t in inputs]
+        with torch.enable_grad():
+            outs = fn(live)
+            outs = [o for o in (outs if isinstance(outs, tuple) else (outs,))]
+            outs = [t for o in outs for t in (
+                [o[k] for k in sorted(o)] if isinstance(o, dict) else [o])]
+            loss = sum((o.float() * w).sum() for o, w in zip(outs, cot))
+            return [o.detach() for o in outs], \
+                torch.autograd.grad(loss, live)
+    with torch.no_grad():
+        shapes = plain(inputs)
+    shapes = shapes if isinstance(shapes, tuple) else (shapes,)
+    shapes = [t for o in shapes for t in (
+        [o[k] for k in sorted(o)] if isinstance(o, dict) else [o])]
+    cot = [_randn(rng, tuple(o.shape), torch.float32, o.device)
+           for o in shapes]
+    before = mod.LAUNCHES
+    out, got = grads(call)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1, (mod.LAUNCHES, before)
+    ref_out, want = grads(plain)
+    assert mod.LAUNCHES == before + 1
+    fwd = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(out, ref_out))
+    return got, want, fwd
+
+
+def grad_close(got, want, what) -> float:
+    """float32 at the reference's gradient tolerance, bf16 within LM_TOL of
+    the largest element; returns the largest abs error."""
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, i)
+        assert torch.isfinite(a).all(), (what, i)
+        if a.dtype == torch.bfloat16:
+            e = float((a.float() - b.float()).abs().max())
+            assert e <= LM_TOL[a.dtype] * float(b.float().abs().max()), \
+                (what, i, e)
+        else:
+            e = close(a, b, f"{what} grad {i}", ATOL_BWD, RTOL_BWD)
+        err = max(err, e)
+    return err
+
+
+def check_lm_grads(device, fa, ml, ms):
+    """Phase 21 (a): under grad, ``mha``, ``mlstm`` and ``selective_scan``
+    launch their kernel once per call and their gradients (the plain ops'
+    VJP, ``kernels/vjp.py``) equal autograd of the plain versions on the
+    card.  Returns {op: (largest grad error, largest forward error, calls)};
+    the launches are checks, not a path's."""
+    rng = np.random.RandomState(SEED + 21)
+    out = {}
+    cases = []
+    for (b, s, h, kh, d, causal, win, cap), dt in GRAD_MHA:
+        q = _randn(rng, (b, s, h, d), dt, device)
+        k, v = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
+        kw = dict(causal=causal, window=win, softcap=cap)
+        cases.append(("mha", fa, f"mha {dt} B={b} S={s} H={h} Kh={kh} D={d} "
+                      f"{kw}", (q, k, v),
+                      lambda x, kw=kw: fa.mha(*x, **kw),
+                      lambda x, kw=kw: fa.mha_plain(*x, **kw)))
+    for (b, s, h, d, chunk), dt in GRAD_MLSTM:
+        args = mlstm_inputs(rng, b, s, h, d, dt, device)
+        cases.append(("mlstm", ml, f"mlstm {dt} B={b} S={s} H={h} D={d} "
+                      f"chunk={chunk}", args,
+                      lambda x, c=chunk: ml.mlstm(*x, chunk=c,
+                                                  return_state=True),
+                      lambda x, c=chunk: ml.mlstm_plain(*x, chunk=c,
+                                                        return_state=True)))
+    for (b, s, d, n, dtr), xdt in GRAD_MAMBA:
+        args = mamba_inputs(rng, b, s, d, n, dtr, xdt, device)
+        cases.append(("selective_scan", ms, f"selective_scan x {xdt} B={b} "
+                      f"S={s} D={d} N={n}", args,
+                      lambda x: ms.selective_scan(*x, return_state=True),
+                      lambda x: ms.selective_scan_plain(*x,
+                                                        return_state=True)))
+    for name, mod, what, args, call, plain in cases:
+        got, want, fwd = vjp_pair(call, plain, args, mod, rng)
+        err = grad_close(got, want, what)
+        g, f, n = out.get(name, (0.0, 0.0, 0))
+        out[name] = (max(g, err), max(f, fwd), n + 1)
+        say(f"  {what}: one launch, grads vs autograd of plain max abs err "
+            f"{err:.3g}, forward {fwd:.3g}")
+        del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_backward_ms(device, cfg, fa):
+    """One layer's attention at the train shape (bf16, causal): the plain
+    ops' VJP that ``Mha``'s backward runs (forward recompute + backward),
+    the kernel's forward, and SDPA forward + backward, each timed with CUDA
+    events (median of 5)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.vjp import plain_vjp
+    rng = np.random.RandomState(SEED + 22)
+    b, s, h, kh, d = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.d_head)
+    q = _randn(rng, (b, s, h, d), torch.bfloat16, device)
+    k, v = (_randn(rng, (b, s, kh, d), torch.bfloat16, device)
+            for _ in range(2))
+    g = _randn(rng, (b, s, h, d), torch.bfloat16, device)
+    vjp = lambda: plain_vjp(lambda *x: fa.mha_plain(*x, causal=True),
+                            (q, k, v), (g,), (True, True, True))
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+
+    def sdpa():
+        live = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*live, is_causal=True,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, live, gt)
+    out = torch.empty_like(q)
+    return {"plain_vjp_ms": median_ms(vjp, burst=1, reps=5, warmup=2),
+            "kernel_ms": median_ms(lambda: fa._launch(q, k, v, out, True, 0,
+                                                      0.0, 0),
+                                   burst=10, reps=5),
+            "sdpa_fwd_bwd_ms": median_ms(sdpa, burst=1, reps=5, warmup=2)}
+
+
+def clone_tree(state):
+    from repro_torch import tree
+    return tree.tree_map(torch.clone, state)
+
+
+def trees_bit_equal(a, b, what: str) -> None:
+    from repro_torch import tree
+    la, lb = tree.leaves_with_paths(a), tree.leaves_with_paths(b)
+    assert [p for p, _ in la] == [p for p, _ in lb], what
+    for (p, x), (_, y) in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y), f"{what} {p}"
+
+
+def ckpt_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def run_lm_training(device, card, fa, ml, ms, ops):
+    """Phase 21: LM training on the card.  (a) gradients through the three
+    LM wrappers; (b) 8 train steps of qwen3-0.6b at its published width
+    and depth (bf16, float32 moments, remat, seeded weights, the
+    deterministic token stream at global batch 8 x 1024), with 2 x 28
+    ``flash_attention_fwd`` launches a step, and step 0 at 2 layers through
+    the kernels against the plain ops; (c) a checkpoint at step 4 restored
+    into a fresh state runs steps 5-8 to the same losses and state bit for
+    bit (deterministic algorithms on); (d) the Enel-driven elastic trainer
+    at full width, 2 layers, a worker-group loss at component 2."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import (batch_to_device, init_train_state,
+                                         make_train_step)
+    import repro_torch.models.attention as attn_mod
+    t_phase = time.perf_counter()
+    grads = check_lm_grads(device, fa, ml, ms)
+    say(f"phase 21 (a) grads through the wrappers vs autograd of plain "
+        f"({time.perf_counter() - t_phase:.1f}s): " + ", ".join(
+            f"{k} {v[2]} cases, grads {v[0]:.3g}, forward {v[1]:.3g}"
+            for k, v in grads.items()))
+
+    # (b) the full model, deterministic so that (c) can be bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # no NaN fill of every torch.empty: it only finds reads of uninitialized
+    # memory, and it cost ~1850 fills (34 ms) a step
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    cfg = get_config(TRAIN_ARCH)
+    assert cfg.remat == "full" and cfg.param_dtype == "bfloat16"
+    opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    dcfg = DataConfig(seed=SEED)
+    batches = [batch_to_device(global_batch(dcfg, cfg, shape, i), device)
+               for i in range(TRAIN_STEPS)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # step 0 at 2 layers: kernels, then the plain ops (attention's mha)
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    fa_before = fa.LAUNCHES
+    small = {}
+    for route in ("kernel", "plain"):
+        st2 = init_train_state(SEED, cfg2, opt, device=device)
+        if route == "plain":
+            attn_mod.mha = lambda *a, **kw: fa.mha_plain(*a, **kw)
+        try:
+            _, m2 = make_train_step(cfg2, opt)(st2, batches[0])
+            small[route] = (float(m2["loss"]), float(m2["grad_norm"]))
+        finally:
+            attn_mod.mha = fa.mha
+        del st2
+    check_fa = fa.LAUNCHES - fa_before
+    assert check_fa == 2 * TRAIN_CHECK_LAYERS, check_fa
+    for i, what in enumerate(("loss", "grad norm")):
+        k_, p_ = small["kernel"][i], small["plain"][i]
+        assert abs(k_ - p_) <= LM_TOL[torch.bfloat16] * abs(p_), \
+            (what, k_, p_)
+    say(f"step 0 at {TRAIN_CHECK_LAYERS} layers, kernels vs plain ops: loss "
+        f"{small['kernel'][0]:.6f} / {small['plain'][0]:.6f}, grad norm "
+        f"{small['kernel'][1]:.6f} / {small['plain'][1]:.6f} (tol "
+        f"{LM_TOL[torch.bfloat16]} relative)")
+
+    state = init_train_state(SEED, cfg, opt, device=device)
+    step = make_train_step(cfg, opt)
+    n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    losses, gnorms, step_s, per_step_fa = [], [], [], []
+    ckdir = ROOT / "build"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ckdir) as tmp:
+        saved = None
+        for i in range(TRAIN_STEPS):
+            before = fa.LAUNCHES
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))          # waits for the card
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(m["grad_norm"]))
+            per_step_fa.append(fa.LAUNCHES - before)
+            if i + 1 == TRAIN_CKPT_AT:
+                peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                saved = clone_tree(state)
+                t0 = time.perf_counter()
+                path = ckpt.save_checkpoint(tmp, TRAIN_CKPT_AT, state,
+                                            metadata={"arch": TRAIN_ARCH})
+                save_s = time.perf_counter() - t0
+                nbytes = ckpt_bytes(path)
+        train_fa = fa.LAUNCHES
+        assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), \
+            (losses, gnorms)
+        assert per_step_fa == [2 * cfg.n_layers] * TRAIN_STEPS, per_step_fa
+        say(f"train {TRAIN_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{n_params / 1e6:.1f} M params, bf16, remat {cfg.remat}) B="
+            f"{TRAIN_BATCH} S={TRAIN_SEQ} on {card}: losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+            + ", ".join(f"{x:.3f}" for x in gnorms)
+            + f"; flash_attention_fwd {per_step_fa[0]} launches a step "
+            f"(2 x {cfg.n_layers}: the remat recompute runs it again); peak "
+            f"{peak_gib:.2f} GiB")
+
+        # (c) restore step 4 into a fresh state, run steps 5-8
+        fresh = init_train_state(SEED + 1, cfg, opt, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh, at, meta = ckpt.restore_checkpoint(tmp, fresh, device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert at == TRAIN_CKPT_AT and meta == {"arch": TRAIN_ARCH}
+        trees_bit_equal(fresh, saved, "restored")
+        bf16 = [p for p, t in tree.leaves_with_paths(fresh)
+                if t.dtype == torch.bfloat16]
+        assert bf16, "no bf16 leaf"
+        del saved
+        resumed = []
+        for i in range(TRAIN_CKPT_AT, TRAIN_STEPS):
+            fresh, m = step(fresh, batches[i])
+            resumed.append(float(m["loss"]))
+        assert resumed == losses[TRAIN_CKPT_AT:], (resumed, losses)
+        trees_bit_equal(fresh, state, "resumed vs uninterrupted")
+        resume_fa = fa.LAUNCHES - train_fa
+        del fresh
+    say(f"checkpoint at step {TRAIN_CKPT_AT}: {nbytes / 1e9:.3f} GB "
+        f"({len(tree.leaves(state))} leaves, {len(bf16)} bf16) saved in "
+        f"{save_s:.2f} s, restored in {restore_s:.2f} s, bit for bit; steps "
+        f"{TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} from it: losses and the final "
+        f"params and moments bit for bit equal to the uninterrupted run's")
+    ms_step = float(np.median(step_s[1:])) * 1e3
+    one_step = lambda: float(step(state, batches[0])[1]["loss"])
+    busy, per, kernels = profile_device(one_step, reps=1,
+                                        names=("fa_fwd", "gemm", "elementwise"))
+    top = top_device_kernels(one_step, k=8)
+    torch.use_deterministic_algorithms(False)
+    torch.utils.deterministic.fill_uninitialized_memory = fill
+    attn = attention_backward_ms(device, cfg, fa)
+    say(f"train step on {card}: {ms_step:.1f} ms median (steps 2-8: "
+        + ", ".join(f"{s * 1e3:.1f}" for s in step_s[1:])
+        + f"), first {step_s[0] * 1e3:.1f} ms; {tokens / ms_step * 1e3:.0f} "
+        f"tokens/s; device busy {busy:.1f} ms of a step (idle share "
+        f"{1 - busy / ms_step:.3f}), flash_attention_fwd "
+        f"{per['fa_fwd']:.2f} ms, GEMMs {per['gemm']:.2f} ms, elementwise "
+        f"{per['elementwise']:.2f} ms, {kernels:.0f} kernels a step")
+    for name, t, n in top:
+        say(f"  top kernel {t:8.2f} ms x{n:5d}  {name}")
+    share = cfg.n_layers * attn["plain_vjp_ms"] / ms_step
+    say(f"attention backward at B={TRAIN_BATCH} S={TRAIN_SEQ} H="
+        f"{cfg.n_heads} Kh={cfg.n_kv_heads} D={cfg.d_head} bf16 causal on "
+        f"{card}: the plain ops' VJP (forward recompute + backward, float32 "
+        f"scores) {attn['plain_vjp_ms']:.2f} ms a layer, x {cfg.n_layers} = "
+        f"{share:.3f} of a step; flash_attention_fwd {attn['kernel_ms']:.3f} "
+        f"ms; SDPA forward + backward {attn['sdpa_fwd_bwd_ms']:.3f} ms "
+        f"(a library yardstick, unused by the port)")
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # (d) the elastic trainer at full width, 2 layers
+    ecfg_model = dataclasses.replace(cfg, n_layers=ELASTIC_LAYERS)
+    eshape = dataclasses.replace(TRAIN_4K, seq_len=ELASTIC_SEQ,
+                                 global_batch=TRAIN_BATCH)
+    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+    fa_before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ckdir) as tmp:
+        ecfg = elastic.ElasticConfig(target_runtime=ELASTIC_TARGET_S,
+                                     ckpt_dir=tmp, seed=SEED, **ELASTIC)
+        tr = elastic.ElasticTrainer(ecfg_model, eshape, ecfg, device=device)
+        remesh = []
+        build = tr._build
+
+        def checked_build(dp, restore_from=None):
+            before = None if restore_from is None else clone_tree(tr._state)
+            build(dp, restore_from)
+            if before is not None:
+                trees_bit_equal(tr._state, before, f"re-mesh to dp={dp}")
+                remesh.append(dp)
+        tr._build = checked_build
+        res = tr.run()
+        torch.cuda.synchronize()
+        e_bytes = ckpt_bytes(tmp)
+    elastic_s = time.perf_counter() - t0
+    e_fwd, e_bwd = ops.LAUNCHES, ops.LAUNCHES_BWD
+    e_fa = fa.LAUNCHES - fa_before
+    decisions = ecfg.n_components - 1
+    assert res["final_step"] == 8, res
+    assert res["n_rescales"] >= 1, res
+    assert len(set(res["dp_trace"])) >= 2, res
+    assert remesh, "no re-mesh restored a checkpoint"
+    assert e_bwd == tr.enel.adam_steps > 0, (e_bwd, tr.enel.adam_steps)
+    assert e_fwd == tr.enel.adam_steps + decisions, (e_fwd, decisions)
+    assert e_fa == 2 * ELASTIC_LAYERS * res["final_step"], e_fa
+    assert all(np.isfinite(tr.losses)), tr.losses
+    say(f"elastic ({ELASTIC_LAYERS} layers at full width, B={TRAIN_BATCH} "
+        f"S={ELASTIC_SEQ}, target {ELASTIC_TARGET_S} s) on {card}: DP trace "
+        f"{res['dp_trace']}, {res['n_rescales']} rescales (re-meshes "
+        f"restored bit for bit to dp {remesh}), {res['final_step']} steps, "
+        f"elapsed {res['elapsed']:.2f} s (met {res['met_target']}); "
+        f"graph_prop_bwd {e_bwd} = {tr.enel.adam_steps} Adam steps, "
+        f"graph_prop_fwd {e_fwd} = steps + {decisions} decisions; "
+        f"flash_attention_fwd {e_fa}; {elastic_s:.1f} s in all, "
+        f"{e_bytes / 1e9:.2f} GB of checkpoints")
+    for log in tr.logs:
+        say(f"  component {log.comp_idx}: dp {log.dp}"
+            + (f" (from {log.rescaled_from})" if log.rescaled_from else "")
+            + (" FAILED" if log.failed else "")
+            + "; " + ", ".join(f"{k} {v:.3f} s"
+                               for k, v in log.stage_times.items()))
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 21: {phase_s:.1f} s")
+    return {
+        "launches": {"training_lm": train_fa + resume_fa,
+                     "elastic_fa": e_fa, "elastic_fwd": e_fwd,
+                     "elastic_bwd": e_bwd},
+        "check_launches": {"flash_attention_fwd": check_fa
+                           + grads["mha"][2],
+                           "mlstm_chunk": grads["mlstm"][2],
+                           "mamba_scan": grads["selective_scan"][2]},
+        "grads": {k: {"grad_max_abs_err": v[0], "fwd_max_abs_err": v[1],
+                      "cases": v[2]} for k, v in grads.items()},
+        "train": {"arch": TRAIN_ARCH, "layers": cfg.n_layers,
+                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                  "params_m": n_params / 1e6, "losses": losses,
+                  "grad_norms": gnorms, "resumed_losses": resumed,
+                  "ms_per_step": ms_step,
+                  "step_ms": [s * 1e3 for s in step_s],
+                  "tokens_per_s": tokens / ms_step * 1e3,
+                  "busy_ms": busy, "idle_share": 1 - busy / ms_step,
+                  "kernels_per_step": kernels,
+                  "flash_attention_ms": per["fa_fwd"],
+                  "gemm_ms": per["gemm"], "elementwise_ms": per["elementwise"],
+                  "fa_launches_per_step": per_step_fa[0],
+                  "peak_gib": peak_gib, "top_kernels": top,
+                  "attention_backward": dict(attn, share_of_step=share),
+                  "step0_2layers": small},
+        "checkpoint": {"bytes": nbytes, "save_s": save_s,
+                       "restore_s": restore_s},
+        "elastic": {"result": res, "remesh_restores": remesh,
+                    "adam_steps": tr.enel.adam_steps,
+                    "decisions": decisions, "seconds": elastic_s,
+                    "ckpt_bytes": e_bytes,
+                    "components": [{"comp": l.comp_idx, "dp": l.dp,
+                                    "from": l.rescaled_from,
+                                    "failed": l.failed,
+                                    "stage_s": l.stage_times}
+                                   for l in tr.logs]},
+        "seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -3622,17 +4069,25 @@ def main() -> int:
     say(json.dumps({"card": card, "fused_campaign": fused}))
     f_launch = fused["launches"]
 
-    # 21. results
+    # 21. LM training and the elastic trainer; only (b)-(d) count
+    lm_train = run_lm_training(device, card, fa, ml, ms, ops)
+    say(json.dumps({"card": card, "lm_training": lm_train}))
+    t_launch = lm_train["launches"]
+    t_check = lm_train["check_launches"]
+
+    # 22. results
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
         "launches": launches + t_launches + fleet["launches"]
-        + sim["graph_launches_fleet"][0] + f_launch["graph_prop_fwd"],
+        + sim["graph_launches_fleet"][0] + f_launch["graph_prop_fwd"]
+        + t_launch["elastic_fwd"],
         "launches_by_path": {"decision": launches, "training": t_launches,
                              "fleet": fleet["launches"],
                              "sim_fleet": sim["graph_launches_fleet"][0],
-                             "fused": f_launch["graph_prop_fwd"]},
+                             "fused": f_launch["graph_prop_fwd"],
+                             "elastic": t_launch["elastic_fwd"]},
         "check_launches": {"training_decision_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
@@ -3650,11 +4105,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_bwd.cu",
         "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
         "launches": t_launches_bwd + fleet["launches_bwd"]
-        + sim["graph_launches_fleet"][1] + f_launch["graph_prop_bwd"],
+        + sim["graph_launches_fleet"][1] + f_launch["graph_prop_bwd"]
+        + t_launch["elastic_bwd"],
         "launches_by_path": {"training": t_launches_bwd,
                              "fleet": fleet["launches_bwd"],
                              "sim_fleet": sim["graph_launches_fleet"][1],
-                             "fused": f_launch["graph_prop_bwd"]},
+                             "fused": f_launch["graph_prop_bwd"],
+                             "elastic": t_launch["elastic_bwd"]},
         "max_abs_err": max_err_bwd,
         "ms": bwd_graph_ms, "graph_ms": bwd_graph_ms,
         "back_to_back_ms": bwd_ms, "plain_ms": bwd_plain_ms,
@@ -3666,9 +4123,15 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
-        "launches": fa_launches + jb["launches"][1],
+        "launches": fa_launches + jb["launches"][1]
+        + t_launch["training_lm"] + t_launch["elastic_fa"],
         "launches_by_path": {"serving": fa_launches,
-                             "serving_jamba": jb["launches"][1]},
+                             "serving_jamba": jb["launches"][1],
+                             "training_lm": t_launch["training_lm"],
+                             "elastic": t_launch["elastic_fa"]},
+        "check_launches": {"grad_and_plain_route_checks":
+                           t_check["flash_attention_fwd"]},
+        "grad_max_abs_err": lm_train["grads"]["mha"]["grad_max_abs_err"],
         "max_abs_err": max(lm_errs["mha"].values()),
         "max_abs_err_f32": lm_errs["mha"][torch.float32],
         "ms": fa_dev, "back_to_back_ms": fa_ms, "plain_ms": fa_plain_ms,
@@ -3702,6 +4165,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:69",
         "launches": xl["launches"],
         "launches_by_path": {"serving_xlstm": xl["launches"]},
+        "check_launches": {"grad_checks": t_check["mlstm_chunk"]},
+        "grad_max_abs_err": lm_train["grads"]["mlstm"]["grad_max_abs_err"],
         "max_abs_err": max(ml_errs[torch.float32], ml_errs[torch.bfloat16]),
         "max_abs_err_f32": ml_errs[torch.float32],
         "max_abs_err_state": ml_errs["state"],
@@ -3715,6 +4180,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:49",
         "launches": jb["launches"][0],
         "launches_by_path": {"serving_jamba": jb["launches"][0]},
+        "check_launches": {"grad_checks": t_check["mamba_scan"]},
+        "grad_max_abs_err":
+            lm_train["grads"]["selective_scan"]["grad_max_abs_err"],
         "max_abs_err": ms_errs["y"], "max_abs_err_state": ms_errs["h"],
         "ms": jb["ms"], "graph_ms": jb["graph_ms"],
         "back_to_back_ms": jb["back_to_back_ms"], "plain_ms": jb["plain_ms"],

@@ -44,3 +44,9 @@ def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {list(SHAPES)}")
+    return SHAPES[name]

@@ -5,9 +5,9 @@ applies ``np.asarray`` to every leaf) and return the same structure as
 tensors on ``device``: the layout is already the port's, ``(in, out)``
 weights and 1-D biases, so nothing is transposed.  Besides the parameters,
 the Adam state and a training ring convert, so that both packages can start
-a fit from one state.  For the LM, :func:`lm_params_from_numpy` and
-:func:`lm_cache_from_numpy` unstack the reference's scanned layer groups
-into the port's flat list of layers.
+a fit from one state.  For the LM, :func:`lm_params_from_numpy`,
+:func:`lm_cache_from_numpy` and :func:`train_state_from_numpy` unstack the
+reference's scanned layer groups into the port's flat list of layers.
 """
 from __future__ import annotations
 
@@ -123,3 +123,18 @@ def lm_cache_from_numpy(cache: Mapping, cfg: ModelConfig,
     dev = resolve_device(device)
     return {"layers": _unstack(cache["groups"], cache.get("tail", []), cfg,
                                dev)}
+
+
+def train_state_from_numpy(state: Mapping, cfg: ModelConfig,
+                           device: DeviceLike = "cuda") -> Dict:
+    """The reference's train state ``{"params", "opt": {"mu", "nu",
+    "step"}}`` (numpy leaves) -> the port's: params and both moments
+    unstacked into the flat list of layers, each leaf in its own dtype;
+    ``step`` as an int64 scalar."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    return {"params": lm_params_from_numpy(state["params"], cfg, dev),
+            "opt": {"mu": lm_params_from_numpy(opt["mu"], cfg, dev),
+                    "nu": lm_params_from_numpy(opt["nu"], cfg, dev),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int64, device=dev)}}

@@ -77,11 +77,12 @@ z-schedule (bit-exact stage runtimes and clocks).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.core.fallback import fallback_pick
 from repro_torch.core.graph import (CAND_LADDER, COMP_LADDER, CTX_DIM,
                                     EDGE_LADDER, LEVEL_LADDER, N_METRICS,
@@ -490,14 +491,6 @@ def _note_signature(plan: CampaignPlan) -> None:
         record_trace("fused_campaign")
 
 
-def _tree_map(fn: Callable, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _stack(trees: List):
     """Trees of one structure -> one tree, each leaf stacked on a new
     leading (job) axis."""
@@ -513,7 +506,7 @@ def _stack(trees: List):
 def init_carry(plan: CampaignPlan):
     """A fresh carry: device copies of ``plan.init``, so two runs of one
     plan share no tensor."""
-    return _tree_map(torch.clone, plan.init)
+    return tree.tree_map(torch.clone, plan.init)
 
 
 def _expected_fit_calls(plan: CampaignPlan, start: int) -> np.ndarray:
@@ -605,14 +598,14 @@ def run_stepped(plan: CampaignPlan, carry=None, start: int = 0,
 
 def carry_to_host(carry) -> Dict[str, Any]:
     """Picklable numpy copy of a carry (a mid-campaign checkpoint)."""
-    return _tree_map(lambda t: t.detach().cpu().numpy().copy(), carry)
+    return tree.tree_map(lambda t: t.detach().cpu().numpy().copy(), carry)
 
 
 def carry_from_host(carry, device: DeviceLike = "cuda") -> Dict[str, Any]:
     """A carry on ``device`` from :func:`carry_to_host`'s copy (which is
     left untouched)."""
     dev = resolve_device(device)
-    return _tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
+    return tree.tree_map(lambda a: torch.tensor(np.asarray(a), device=dev),
                      carry)
 
 
@@ -1050,7 +1043,7 @@ def build_plan(experiments, n_runs: int, *, inject_failures: bool = False,
         "p_met": torch.zeros((J, N_METRICS), device=device),
         "p_a": torch.ones(J, device=device),
         "p_z": torch.ones(J, device=device),
-        "ring": _tree_map(up, ring0),
+        "ring": tree.tree_map(up, ring0),
         "params": params0, "opt": opt0,
         "fit_calls": up(fit_calls),
         "fallbacks": torch.zeros(J, dtype=torch.int32, device=device),

@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import itertools
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, tree
 from repro_torch.core import model as enel_model
 from repro_torch.core.graph import (ComponentGraph, SweepTemplate,
                                     TrainingCache, empty_graph, pow2_bucket,
@@ -47,25 +47,10 @@ HUBER_DELTA = 10.0
 Opt = Tuple[Dict, Dict, torch.Tensor]      # (mu, nu, t) of Adam
 
 
-def map_params(fn: Callable[[torch.Tensor], torch.Tensor],
-               params: Dict) -> Dict:
-    """``fn`` applied to every tensor of a parameter dict, same structure."""
-    return {k: ([{kk: fn(t) for kk, t in layer.items()} for layer in v]
-                if isinstance(v, list) else fn(v))
-            for k, v in params.items()}
-
-
-def param_leaves(params: Dict) -> List[torch.Tensor]:
-    """The tensors of a parameter dict in a fixed order."""
-    out: List[torch.Tensor] = []
-    for k in sorted(params):
-        v = params[k]
-        if isinstance(v, list):
-            for layer in v:
-                out += [layer[kk] for kk in sorted(layer)]
-        else:
-            out.append(v)
-    return out
+# ``fn`` at every tensor of a parameter dict (same structure), and its
+# tensors in a fixed order
+map_params = tree.tree_map
+param_leaves = tree.leaves
 
 
 def _huber(err: torch.Tensor, delta: float = HUBER_DELTA) -> torch.Tensor:

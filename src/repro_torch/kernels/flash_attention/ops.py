@@ -6,6 +6,12 @@ first use) or raises; it never falls back.  On CPU tensors it runs
 :func:`mha_plain`, the same function in plain PyTorch ops, which is also
 what the kernel is held against on the card.
 
+When grad is enabled and an input requires it, the launch goes through
+:class:`Mha`, whose backward recomputes :func:`mha_plain` on the saved
+inputs and differentiates it: the VJP of the op's own math, as the
+reference trains (its models differentiate plain ops; the Pallas kernel
+has no VJP).
+
 The kernel has two routes: bfloat16 runs on the tensor cores (``wgmma``, fed
 by 16-byte ``cp.async``), float32 on the CUDA cores.  Both read the model's
 layout through strides and mask the ragged tail of S themselves.  The
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.vjp import plain_vjp
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 NEG_INF = -1e30         # the mask value of the reference kernel
@@ -171,11 +178,37 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     runs.
     """
     _check(q, k, v, window, softcap, kv_len)
+    opts = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len)
     if q.device.type == "cpu":
-        return mha_plain(q, k, v, causal=causal, window=window,
-                         softcap=softcap, kv_len=kv_len)
+        return mha_plain(q, k, v, **opts)
     if q.device.type != "cuda":
         raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return Mha.apply(opts, q, k, v)
+    return _mha_cuda(q, k, v, **opts)
+
+
+class Mha(torch.autograd.Function):
+    """:func:`mha` on checked CUDA tensors with a gradient: the forward
+    launches the kernel; the backward is autograd of :func:`mha_plain`,
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, opts, q, k, v):
+        ctx.opts = opts
+        ctx.save_for_backward(q, k, v)
+        return _mha_cuda(q, k, v, **opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + plain_vjp(
+            lambda *x: mha_plain(*x, **ctx.opts), ctx.saved_tensors, (g,),
+            ctx.needs_input_grad[1:])
+
+
+def _mha_cuda(q, k, v, *, causal: bool, window: int, softcap: float,
+              kv_len: int) -> torch.Tensor:
+    """One kernel launch for :func:`mha` on checked CUDA tensors."""
     d = q.shape[-1]
     if q.dtype == torch.bfloat16:
         d_pad = -(-d // 8) * 8

@@ -4,7 +4,11 @@
 launches the hand-written kernel ``csrc/mamba_scan.cu`` (built with
 ``nvcc`` at first use) or raises; it never falls back.  On CPU tensors it
 runs :func:`selective_scan_plain`, the same recurrence in plain PyTorch
-ops, which is also what the kernel is held against on the card.
+ops, which is also what the kernel is held against on the card.  When grad
+is enabled and an input requires it, the launch goes through
+:class:`SelectiveScan`, whose backward is autograd of
+:func:`selective_scan_plain` recomputed on the saved inputs
+(``kernels/vjp.py``).
 
 Counterpart of ``repro.kernels.mamba_scan.ops.selective_scan`` (whose
 kernel is ``mamba_scan``), with the same arguments.  It computes the strict
@@ -22,6 +26,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.vjp import plain_vjp
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 STATE_DIMS = (1, 2, 4, 8, 16, 32)
@@ -127,9 +132,39 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
     if dt.device.type != "cuda":
         raise ValueError(f"selective_scan runs on cpu or cuda, not "
                          f"{dt.device}")
+    inputs = (dt, a, x, b, c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        y, h = SelectiveScan.apply(*inputs)
+    else:
+        y, h = _scan_cuda(*inputs)
+    return (y, h) if return_state else y
+
+
+class SelectiveScan(torch.autograd.Function):
+    """:func:`selective_scan` on checked CUDA tensors with a gradient: the
+    forward launches the kernel and returns (y, h); the backward is
+    autograd of :func:`selective_scan_plain`, recomputed on the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, dt, a, x, b, c):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, a, x, b, c)
+        return _scan_cuda(dt, a, x, b, c)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        return plain_vjp(
+            lambda *t: selective_scan_plain(*t, return_state=True),
+            ctx.saved_tensors, (g_y, g_h), ctx.needs_input_grad)
+
+
+def _scan_cuda(dt, a, x, b, c):
+    """One kernel launch for :func:`selective_scan` on checked CUDA
+    tensors: (y, h)."""
     bsz, _, d = dt.shape
     y = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
     h = torch.empty((bsz, d, a.shape[1]), dtype=torch.float32,
                     device=dt.device)
     _launch(dt, a, x, b, c, y, h)
-    return (y, h) if return_state else y
+    return y, h

@@ -4,7 +4,10 @@
 hand-written kernel ``csrc/mlstm_chunk.cu`` (built with ``nvcc`` at first
 use) or raises; it never falls back.  On CPU tensors it runs
 :func:`mlstm_plain`, the same function in plain PyTorch ops, which is also
-what the kernel is held against on the card.
+what the kernel is held against on the card.  When grad is enabled and an
+input requires it, the launch goes through :class:`Mlstm`, whose backward
+is autograd of :func:`mlstm_plain` recomputed on the saved inputs
+(``kernels/vjp.py``).
 
 Counterpart of ``repro.kernels.mlstm_chunk.ops.mlstm`` (whose kernel is
 ``mlstm_chunk``); unlike it, nothing is transposed, and the final state
@@ -21,6 +24,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.vjp import plain_vjp
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_chunk.cu"
 M_INIT = -1e30          # the stabiliser's start, as in the reference
@@ -168,16 +172,48 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            return_state=return_state)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm runs on cpu or cuda, not {q.device}")
-    b, s, h, d = q.shape
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must start on a 16-byte boundary")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    state = {"C": torch.empty((b, h, d, d), dtype=torch.float32,
-                              device=q.device),
-             "n": torch.empty((b, h, d), dtype=torch.float32,
-                              device=q.device),
-             "m": torch.empty((b, h), dtype=torch.float32, device=q.device)}
-    _launch(q, k, v, i, f, out, state["C"], state["n"], state["m"])
+    inputs = (q, k, v, i, f)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        out, C, n, m = Mlstm.apply(chunk, *inputs)
+    else:
+        out, C, n, m = _mlstm_cuda(*inputs)
     if return_state:
-        return out, state
+        return out, {"C": C, "n": n, "m": m}
     return out
+
+
+class Mlstm(torch.autograd.Function):
+    """:func:`mlstm` on checked CUDA tensors with a gradient: the forward
+    launches the kernel and returns (h, C, n, m); the backward is autograd
+    of :func:`mlstm_plain` (at the caller's ``chunk``), recomputed on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, chunk, q, k, v, i, f):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, i, f)
+        return _mlstm_cuda(q, k, v, i, f)
+
+    @staticmethod
+    def backward(ctx, g_out, g_C, g_n, g_m):
+        def plain(*x):
+            out, st = mlstm_plain(*x, chunk=ctx.chunk, return_state=True)
+            return out, st["C"], st["n"], st["m"]
+        return (None,) + plain_vjp(plain, ctx.saved_tensors,
+                                   (g_out, g_C, g_n, g_m),
+                                   ctx.needs_input_grad[1:])
+
+
+def _mlstm_cuda(q, k, v, i, f):
+    """One kernel launch for :func:`mlstm` on checked CUDA tensors: (h, C,
+    n, m)."""
+    b, s, h, d = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    C = torch.empty((b, h, d, d), dtype=torch.float32, device=q.device)
+    n = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, i, f, out, C, n, m)
+    return out, C, n, m

@@ -1,4 +1,5 @@
-"""Public model API: init / apply / prefill for the ported architectures.
+"""Public model API: init / apply / prefill / parameter counts for the
+ported architectures.
 
 Counterpart of ``repro.models.model``.
 """
@@ -9,6 +10,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 
@@ -38,10 +40,16 @@ def param_count(cfg: ModelConfig) -> int:
     """Total parameter count, from an init on the ``meta`` device (nothing
     is allocated)."""
     params = init_model(cfg, device="meta")
-    leaves = [params["embed"], params["final_norm"]] + \
-        ([params["unembed"]] if "unembed" in params else [])
-    for layer in params["layers"]:
-        for part in layer.values():
-            leaves += list(part.values()) if isinstance(part, dict) \
-                else [part]
-    return sum(math.prod(t.shape) for t in leaves)
+    return sum(math.prod(t.shape) for t in tree.leaves(params))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: only top_k experts active)."""
+    total = param_count(cfg)
+    if not cfg.n_experts:
+        return total
+    n_moe_layers = sum(1 for i in range(cfg.n_layers)
+                       if "moe" in cfg.ffn_kind(i))
+    expert_params = 3 * cfg.d_model * cfg.moe_d_ff
+    inactive = n_moe_layers * expert_params * (cfg.n_experts - cfg.top_k)
+    return total - inactive

@@ -26,9 +26,11 @@ ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -170,7 +172,13 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward over ``batch["tokens"]`` (B, S), positions
     0..S-1.  Returns (logits (B, S, V), the MoE layers' summed aux loss
-    (float32; 0 without MoE), cache or None)."""
+    (float32; 0 without MoE), cache or None).
+
+    With ``cfg.remat == "full"`` in train mode under grad, each layer runs
+    under ``torch.utils.checkpoint`` (the reference wraps each scanned layer
+    group in ``jax.checkpoint``): its activations are recomputed in the
+    backward, so each attention layer launches its forward kernel twice per
+    step; the numbers do not change."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
     check_supported(cfg)
@@ -179,10 +187,13 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries: List[Dict] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = _layer_apply
+    if cfg.remat == "full" and mode == "train" and torch.is_grad_enabled():
+        layer = functools.partial(checkpoint, _layer_apply,
+                                  use_reentrant=False)
     for i, lp in enumerate(params["layers"]):
-        x, entry, a = _layer_apply(lp, cfg, cfg.layer_kind(i),
-                                   cfg.ffn_kind(i), x, mode, positions, None,
-                                   None)
+        x, entry, a = layer(lp, cfg, cfg.layer_kind(i), cfg.ffn_kind(i), x,
+                            mode, positions, None, None)
         entries.append(entry)
         if a is not None:
             aux = aux + a
