@@ -66,14 +66,18 @@ Phases (any failure exits non-zero; nothing is caught):
    ``mha`` on ``tests/test_kernels.py``'s sweep in float32 (atol = rtol =
    2e-5) and bfloat16 (3e-2), plus qwen3-0.6b's shapes (B = 8, S up to
    1024, H = 16, Kh = 8, D = 128, bf16), jamba's (H = 32, Kh = 8, D =
-   128), a D = 256 case with window and softcap, and the tensor-core
-   route's own cases (S = 812 and 1000, ragged against its 128-row and
-   128-key tiles; kv_len < S); ``decode_attn`` on that file's decode sweep
-   plus the models' shapes (B = 8, cache 2048, pos near 0, mid-cache and at
-   the end, with and without a window; H = 16 and 32) and split-K's own
-   cases (1023, 1024 and 1025 visible keys around a chunk boundary of
-   ``split_plan``; windows that end inside a chunk); every case launched
-   twice, bit for bit equal;
+   128), pixtral-12b's (S = 1900, H = 32, Kh = 8, D = 128), a D = 256 case
+   with window and softcap, the tensor-core route's own cases (S = 812 and
+   1000, ragged against its 128-row and 128-key tiles; kv_len < S), and,
+   in both dtypes, k and v of their own length, non-causal (whisper's
+   cross-attention, Sq = 4, 37 and 224 over Sk = 1500, and its encoder,
+   1500 over 1500); ``decode_attn`` on that file's decode sweep plus the
+   models' shapes (B = 8, cache 2048, pos near 0, mid-cache and at the
+   end, with and without a window; H = 16 and 32; pixtral's cache of 2176)
+   and split-K's own cases (1023, 1024 and 1025 visible keys around a
+   chunk boundary of ``split_plan``; windows that end inside a chunk), and
+   whisper's in both dtypes (1500 encoder rows at pos 1499, its self cache
+   of 448); every case launched twice, bit for bit equal;
 9. the serving path: ``ServeEngine`` over the full qwen3-0.6b config (28
    layers, bf16, seeded ``init_model`` weights, ``max_len`` = 2048) serves
    two waves of 8 requests (prompt lengths in [128, 1024] from
@@ -246,9 +250,10 @@ Phases (any failure exits non-zero; nothing is caught):
    ``fused_campaign`` with a checkpoint every run, its last checkpoint
    pickled, loaded and resumed, equals the single pass (outputs, stats);
    (f) after the write-back ``adaptive_round`` runs run 9 with finite
-   runtimes.  Printed beside the card: the wall time of both drivers and
-   of the same fleet's live ``adaptive_campaign(3)``, the host's enqueue
-   ms per step without a fit and per Adam step, the device-busy share of
+   runtimes.  Printed beside the card: the wall time of both drivers, the
+   host's enqueue ms per step without a fit and per Adam step (the same
+   fleet's live ``adaptive_campaign(3)`` is not timed, for the smoke's
+   time limit), the device-busy share of
    the step body (run 1's steps before its fit), the launches and the
    phase's seconds;
 21. LM training on the card (``repro_torch.train``): (a) under grad,
@@ -278,7 +283,32 @@ Phases (any failure exits non-zero; nothing is caught):
    share, kernels per step and the top kernels, the checkpoint's bytes and
    save / restore seconds, the elastic DP trace and stage times, the
    phase's seconds;
-22. a ``{"kernels": [...]}`` line, then the device line last.
+22. whisper-medium and pixtral-12b served on the card at their published
+   sizes (bf16, seeded ``init_model`` weights; stub frontends' inputs
+   made on the card, N(0, 1) x 0.1): (a) whisper-medium (24 encoder + 24
+   decoder layers, d 1024, 16 heads of 64, vocab 51,968; 1,012,525,056
+   parameters), 1500 frames a request, two waves of 8 prompts of 4-224
+   tokens, 64 new tokens each, ``max_len`` 448 (its published decoder
+   context), each wave twice; (b) pixtral-12b (40 layers, d 5120, 32 / 8
+   heads of 128, vocab 131,072; 12,247,782,400 parameters), one
+   1024-patch image a request before a prompt of 128-1024 tokens, two
+   waves of 8, 64 new tokens each from position n_patches + P, ``max_len``
+   2176, each twice.  (c) Gates: both runs of a wave give the same
+   tokens; per wave ``flash_attention_fwd`` launches 72 times for whisper
+   (24 encoder, 24 self, 24 cross-attention with Sq = P, Sk = 1500) and 40
+   for pixtral, ``flash_decode`` 48 times a step for whisper (24 self, 24
+   over every encoder row) and 40 for pixtral, no other kernel; the
+   logits of ``decode_step`` over a prompt's last 4 positions against
+   ``forward``'s within 5e-2 (bf16, full depth, both) and 5e-3 (float32
+   weights: whisper at full depth; pixtral on its first 8 layers at B =
+   2, before the bf16 model is resident).  (d) Printed beside the card:
+   warm prefill ms (time to the first token) and decode ms per step,
+   tokens/s, device-busy and idle shares, kernels and top kernels of a
+   prefill and of a step, peak memory; each attention kernel at these
+   shapes in a CUDA graph beside one SDPA call and its bound;
+23. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
+    script started), a ``{"kernels": [...]}`` line, then the device line
+    last.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -308,6 +338,15 @@ REPS = 30
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+T_START = time.perf_counter()
+PHASE_CLOCK = []            # (phase, seconds since the script started)
+
+
+def mark(phase: str) -> None:
+    """Note the end of ``phase``; the results print every mark."""
+    PHASE_CLOCK.append((phase, round(time.perf_counter() - T_START, 1)))
 
 
 def card_line() -> str:
@@ -431,12 +470,12 @@ def bwd_raw_launcher(ops, params, x, adj, m, valid, g_e, g_m, levels):
     return launch
 
 
-def profile_device(fn, reps: int = 10, names=("graph_prop",)):
-    """(device busy ms, {name: ms of the kernels whose name holds it},
-    kernels launched), each per call of ``fn``, from a torch.profiler
-    (CUPTI) trace of ``reps`` calls.  Only device events are summed: a CPU
-    op also carries the device time of the kernels it launched, and those
-    kernels appear again as events of their own."""
+def device_rows(fn, reps: int = 1):
+    """[(kernel name, device ms, launches)] over ``reps`` calls of ``fn``
+    after one warm-up call, from one torch.profiler (CUPTI) trace.  Only
+    device events are kept: a CPU op also carries the device time of the
+    kernels it launched, and those kernels appear again as events of
+    their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -446,19 +485,31 @@ def profile_device(fn, reps: int = 10, names=("graph_prop",)):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy, kernels = 0.0, 0
-    per = dict.fromkeys(names, 0.0)
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        t = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
-        busy += t
-        kernels += ev.count
-        for nm in names:
-            if nm in ev.key:
-                per[nm] += t
-    return (busy / 1e3 / reps, {nm: t / 1e3 / reps for nm, t in per.items()},
-            kernels / reps)
+    return [(ev.key, float(getattr(ev, "self_device_time_total", 0.0)
+                           or 0.0) / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA]
+
+
+def busy_summary(rows, reps: int = 1, names=("graph_prop",)):
+    """(device busy ms, {name: ms of the kernels whose name holds it},
+    kernels launched) of ``device_rows``, each per call."""
+    per = {nm: sum(t for key, t, _ in rows if nm in key) / reps
+           for nm in names}
+    return (sum(t for _, t, _ in rows) / reps, per,
+            sum(c for _, _, c in rows) / reps)
+
+
+def top_rows(rows, k: int = 6):
+    """The ``k`` kernels of ``device_rows`` that take the most time: [(name
+    cut to 70 characters, ms, launches)]."""
+    return sorted(((key[:70], t, c) for key, t, c in rows),
+                  key=lambda r: -r[1])[:k]
+
+
+def profile_device(fn, reps: int = 10, names=("graph_prop",)):
+    """``busy_summary`` of a trace of ``reps`` calls of ``fn``."""
+    return busy_summary(device_rows(fn, reps), reps, names)
 
 
 def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
@@ -473,24 +524,6 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
         for _ in range(calls):
             fn()
     return median_ms(graph.replay, burst=1, reps=reps) / calls
-
-
-def top_device_kernels(fn, k: int = 6):
-    """The ``k`` device kernels that take the most time in one call of
-    ``fn`` (a torch.profiler trace): [(name cut to 70 characters, ms,
-    launches)]."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(ev.key[:70], float(ev.self_device_time_total) / 1e3, ev.count)
-            for ev in prof.key_averages()
-            if getattr(ev, "device_type", None) == DeviceType.CUDA]
-    return sorted(rows, key=lambda r: -r[1])[:k]
 
 
 XD, HID, ED, NM = 30, 32, 16, 5     # f3 input per node, hidden, edge, metrics
@@ -2058,13 +2091,6 @@ def run_fused_campaign(device, card, ss, ops):
             assert np.float32(backend.slot_state(j)["clock"]) == \
                 ys_f["clock"][t0 + nc - 1, j], (r, j)
 
-    # the live campaign of the same fleet, for its wall time
-    fused_twin(camp, base)
-    t0 = time.perf_counter()
-    live, _ = camp.adaptive_campaign(FUSED_RUNS, "enel")
-    torch.cuda.synchronize()
-    live_s = time.perf_counter() - t0
-
     # (e) checkpointed, pickled, loaded and resumed = the single pass;
     # (f) the written-back fleet goes on with the stepped path
     fused_twin(camp, base)
@@ -2096,8 +2122,7 @@ def run_fused_campaign(device, card, ss, ops):
         f"from run 3 equals the single pass (ys, stats); after write-back "
         f"adaptive_round runs run {run_next}")
     say(f"fused campaign timing on {card}: run_fused {fused_s:.2f}s wall, "
-        f"run_stepped {stepped_s:.2f}s, the live adaptive_campaign("
-        f"{FUSED_RUNS}) of the same fleet {live_s:.2f}s; host enqueue "
+        f"run_stepped {stepped_s:.2f}s; host enqueue "
         f"{step_ms:.3f} ms per step without a fit (median), "
         f"{adam_ms:.3f} ms per Adam step in the fit steps; run 1's "
         f"{n_body} step bodies before its fit traced: {busy_ms:.2f} ms "
@@ -2108,7 +2133,7 @@ def run_fused_campaign(device, card, ss, ops):
         f"the trace {drivers_s:.1f}s; phase {phase_s:.1f}s")
     return {"jobs": n_jobs, "runs": FUSED_RUNS, "steps": plan.n_steps,
             "c_max": st.c_max, "adam_steps": adam, "launches": launches,
-            "fused_s": fused_s, "stepped_s": stepped_s, "live_s": live_s,
+            "fused_s": fused_s, "stepped_s": stepped_s,
             "enqueue_ms_per_step": step_ms, "enqueue_ms_per_adam_step":
                 adam_ms, "body_steps": n_body, "body_wall_ms": seg_s * 1e3,
             "body_busy_ms": busy_ms, "body_busy_share":
@@ -2160,6 +2185,22 @@ DECODE_SPLIT = [(8, 2048, 16, 8, 128, pos, 0, 0.0)
                 for pos in (1022, 1023, 1024)] + \
     [(8, 2048, 16, 8, 128, 1023, 100, 0.0),
      (8, 2048, 16, 8, 128, 1500, 300, 0.0)]
+# phase 22's shapes.  mha with k and v of their own length, non-causal
+# (B, Sq, Sk, H, Kh, D): whisper-medium's cross-attention (P of 4 and 224
+# over its 1500 encoder rows), its encoder (1500 against 1500; 1500 is
+# ragged against the 128-key tile), a ragged q tile; both dtypes
+MHA_CROSS = [(8, 224, 1500, 16, 16, 64), (8, 4, 1500, 16, 16, 64),
+             (8, 1500, 1500, 16, 16, 64), (8, 37, 1500, 16, 16, 64)]
+# pixtral-12b's prefill (1024 patches + a text of 876: ragged), bf16 only
+MHA_PIXTRAL = [(8, 1900, 32, 8, 128, True, 0, 0.0)]
+# decode_attn (B, S, H, Kh, D, pos, window, softcap): whisper's cross
+# decode over every encoder row, its self cache of 448 (the published
+# max_target_positions) at the end and mid-cache, both dtypes; pixtral's
+# cache of 2176 late in a wave, bf16
+DECODE_WHISPER = [(8, 1500, 16, 16, 64, 1499, 0, 0.0),
+                  (8, 448, 16, 16, 64, 447, 0, 0.0),
+                  (8, 448, 16, 16, 64, 231, 0, 0.0)]
+DECODE_PIXTRAL = [(8, 2176, 32, 8, 128, 2111, 0, 0.0)]
 
 
 def _randn(rng, shape, dtype, device):
@@ -2173,24 +2214,30 @@ def check_lm_kernels(device, fa, fd):
     f32, bf16 = torch.float32, torch.bfloat16
     rng = np.random.RandomState(SEED)
     errs = {"mha": {f32: 0.0, bf16: 0.0}, "decode": {f32: 0.0, bf16: 0.0}}
-    mha_cases = [(c, dt) for c in MHA_SWEEP for dt in (f32, bf16)] + \
-        [(c, bf16) for c in MHA_MODEL + MHA_TC] + [(MHA_MODEL[-1], f32)]
-    for (b, s, h, kh, d, causal, win, cap, *kv_len), dt in mha_cases:
+    # (B, Sq, Sk, H, Kh, D, causal, window, softcap, kv_len)
+    mha_cases = [((b, s, s, *rest), dt)
+                 for (b, s, *rest), dt in
+                 [(c, dt) for c in MHA_SWEEP for dt in (f32, bf16)]
+                 + [(c, bf16) for c in MHA_MODEL + MHA_TC + MHA_PIXTRAL]
+                 + [(MHA_MODEL[-1], f32)]] + \
+        [((*c, False, 0, 0.0), dt) for c in MHA_CROSS for dt in (f32, bf16)]
+    for (b, s, sk, h, kh, d, causal, win, cap, *kv_len), dt in mha_cases:
         q = _randn(rng, (b, s, h, d), dt, device)
-        k, v = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
+        k, v = (_randn(rng, (b, sk, kh, d), dt, device) for _ in range(2))
         kw = dict(causal=causal, window=win, softcap=cap,
                   kv_len=kv_len[0] if kv_len else 0)
         got, again = fa.mha(q, k, v, **kw), fa.mha(q, k, v, **kw)
         torch.cuda.synchronize()
-        what = f"mha {dt} B={b} S={s} H={h} Kh={kh} D={d} {kw}"
+        what = f"mha {dt} B={b} S={s} Sk={sk} H={h} Kh={kh} D={d} {kw}"
         assert torch.equal(got, again), f"{what}: not repeatable"
         err = close(got.float(), fa.mha_plain(q, k, v, **kw).float(), what,
                     LM_TOL[dt], LM_TOL[dt])
         errs["mha"][dt] = max(errs["mha"][dt], err)
         say(f"  {what}: max abs err {err:.3g}, repeat bit-equal")
-    dec_cases = [(c, dt) for c in DECODE_SWEEP + DECODE_SPLIT
+    dec_cases = [(c, dt) for c in DECODE_SWEEP + DECODE_SPLIT + DECODE_WHISPER
                  for dt in (f32, bf16)] + \
-        [(c, bf16) for c in DECODE_MODEL] + [(DECODE_MODEL[-1], f32)]
+        [(c, bf16) for c in DECODE_MODEL + DECODE_PIXTRAL] + \
+        [(DECODE_MODEL[-1], f32)]
     for (b, s, h, kh, d, pos, win, cap), dt in dec_cases:
         q = _randn(rng, (b, 1, h, d), dt, device)
         ck, cv = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
@@ -2227,19 +2274,21 @@ def padded(prompts) -> np.ndarray:
     return toks
 
 
-def serve_twice(cfg, params, device, waves, after_wave=None):
-    """Each wave served twice by one engine; both runs must give the same
-    tokens, LM_NEW in range for each request.  ``after_wave()`` runs after
-    each serve_wave call.  Returns [[(tokens, stats), (tokens, stats)],
-    ...]."""
+def serve_twice(cfg, params, device, waves, after_wave=None,
+                max_len=LM_MAX_LEN, extras=None):
+    """Each wave served twice by one engine (``extras[w]``: wave w's
+    frames or patches); both runs must give the same tokens, LM_NEW in
+    range for each request.  ``after_wave()`` runs after each serve_wave
+    call.  Returns [[(tokens, stats), (tokens, stats)], ...]."""
     from repro_torch.serve.engine import Request, ServeEngine
-    eng = ServeEngine(cfg, params, max_len=LM_MAX_LEN, device=device)
+    eng = ServeEngine(cfg, params, max_len=max_len, device=device)
     results = []
     for w, prompts in enumerate(waves):
         runs = []
         for _ in range(2):
             reqs = [Request(prompt=p, max_new_tokens=n) for p, n in prompts]
-            runs.append(([r.out_tokens for r in reqs], eng.serve_wave(reqs)))
+            runs.append(([r.out_tokens for r in reqs], eng.serve_wave(
+                reqs, None if extras is None else extras[w])))
             if after_wave is not None:
                 after_wave()
         assert runs[0][0] == runs[1][0], f"wave {w}: runs differ"
@@ -2253,31 +2302,58 @@ def serve_twice(cfg, params, device, waves, after_wave=None):
     return results
 
 
+def serve_counted(cfg, params, device, counted, others, waves, per_wave,
+                  max_len=LM_MAX_LEN, extras=None):
+    """``serve_twice`` with every count from 0: each wave (one prefill and
+    its LM_NEW decode steps) must launch ``per_wave[i]`` kernels of
+    ``counted[i]`` and no kernel of ``others``.  Returns (served, the
+    counted modules' totals, prefills, decode steps)."""
+    counts = [(m, n) for m in tuple(counted) + tuple(others)
+              for n in ("LAUNCHES", "LAUNCHES_BWD") if hasattr(m, n)]
+    for m, n in counts:
+        setattr(m, n, 0)
+    seen, last = [], [0] * len(counted)
+
+    def after_wave():
+        now = [m.LAUNCHES for m in counted]
+        seen.append(tuple(a - b for a, b in zip(now, last)))
+        last[:] = now
+    served = serve_twice(cfg, params, device, waves, after_wave, max_len,
+                         extras)
+    assert seen == [tuple(per_wave)] * len(seen), (seen, per_wave)
+    others_launched = sum(getattr(m, n) for m, n in counts
+                          if m not in counted)
+    assert others_launched == 0, others_launched
+    steps = sum(st.decode_steps for runs in served for _, st in runs)
+    return served, tuple(m.LAUNCHES for m in counted), len(seen), steps
+
+
 def run_serving(cfg, params, device, fa, fd):
-    """Phase 9: each wave served twice; launch counts from 0."""
+    """Phase 9: each wave served twice; launch counts from 0, one of each
+    kernel per layer and prefill / decode step."""
     waves = lm_waves(cfg)
-    fa.LAUNCHES = fd.LAUNCHES = 0
-    results = serve_twice(cfg, params, device, waves)
-    launches = (fa.LAUNCHES, fd.LAUNCHES)
-    prefills = 2 * len(waves)
-    steps = sum(st.decode_steps for runs in results for _, st in runs)
-    assert launches == (cfg.n_layers * prefills, cfg.n_layers * steps), \
-        (launches, prefills, steps)
+    results, launches, prefills, steps = serve_counted(
+        cfg, params, device, (fa, fd), (), waves,
+        (cfg.n_layers, cfg.n_layers * LM_NEW))
     return waves, results, launches, prefills, steps
 
 
-def teacher_forced_err(params, cfg, toks: torch.Tensor, p: int) -> float:
+def teacher_forced_err(params, cfg, toks: torch.Tensor, p: int,
+                       extras=None, off: int = 0) -> float:
     """max over TF_STEPS decode steps of max|forward - decode_step| logits
-    at positions p..p+TF_STEPS-1, relative to the largest forward logit."""
+    at text positions p..p+TF_STEPS-1, relative to the largest forward
+    logit.  ``extras`` (frames or patches) go to both; a vlm's text
+    positions follow its ``off`` = n_patches patch rows."""
     from repro_torch.models import apply_model, decode_step, prefill
-    full, _ = apply_model(params, cfg, {"tokens": toks})
-    _, cache = prefill(params, cfg, {"tokens": toks[:, :p]},
-                       cache_len=p + TF_STEPS)
+    extras = extras or {}
+    full, _ = apply_model(params, cfg, dict(extras, tokens=toks))
+    _, cache = prefill(params, cfg, dict(extras, tokens=toks[:, :p]),
+                       cache_len=off + p + TF_STEPS)
     errs = []
     for t in range(TF_STEPS):
         dec, cache = decode_step(params, cfg, cache, toks[:, p + t:p + t + 1],
-                                 p + t)
-        a, d = full[:, p + t].float(), dec[:, 0].float()
+                                 off + p + t)
+        a, d = full[:, off + p + t].float(), dec[:, 0].float()
         errs.append(float((a - d).abs().max() / a.abs().max()))
     del full, cache
     return max(errs)
@@ -2380,12 +2456,13 @@ def bound(flops, nbytes, peak):
 
 
 def as_float32(params):
-    """A copy of LM params with every leaf in float32."""
-    def leaf(x):
-        return {k: leaf(v) for k, v in x.items()} if isinstance(x, dict) \
-            else x.float()
-    return {k: [leaf(layer) for layer in v] if k == "layers" else leaf(v)
-            for k, v in params.items()}
+    """A copy of LM params (nested dicts and lists) with every leaf in
+    float32."""
+    if isinstance(params, dict):
+        return {k: as_float32(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [as_float32(v) for v in params]
+    return params.float()
 
 
 XLSTM_ARCH = "xlstm-350m"
@@ -2491,21 +2568,10 @@ def run_xlstm_serving(cfg, params, device, ml, others):
     steps) must launch ``mlstm_chunk`` once per mLSTM layer and no kernel
     of ``others`` (the modules of the other kernels)."""
     n_mlstm = sum(cfg.layer_kind(i) == "mlstm" for i in range(cfg.n_layers))
-    counts = [(m, n) for m in (ml,) + tuple(others)
-              for n in ("LAUNCHES", "LAUNCHES_BWD") if hasattr(m, n)]
-    for m, n in counts:
-        setattr(m, n, 0)
-    per_wave = []
-
-    def after_wave():
-        per_wave.append(ml.LAUNCHES - sum(per_wave))
-    results = serve_twice(cfg, params, device, capped_waves(cfg, XLSTM_TOP),
-                          after_wave)
-    assert per_wave == [n_mlstm] * len(per_wave), (per_wave, n_mlstm)
-    others_launched = sum(getattr(m, n) for m, n in counts if m is not ml)
-    assert others_launched == 0, others_launched
-    steps = sum(st.decode_steps for runs in results for _, st in runs)
-    return results, ml.LAUNCHES, len(per_wave), steps, n_mlstm
+    results, (launches,), prefills, steps = serve_counted(
+        cfg, params, device, (ml,), others, capped_waves(cfg, XLSTM_TOP),
+        (n_mlstm,))
+    return results, launches, prefills, steps, n_mlstm
 
 
 def mlstm_work(b, s, h, d, elt=2):
@@ -2526,9 +2592,8 @@ def xlstm_path(device, card, ml, others):
     ``kernels`` line reports of ``mlstm_chunk``."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.models import init_model
     bf16 = torch.bfloat16
-    n_loop = 16
     # 12. the xLSTM serving path; only its launches count
     xcfg = get_config(XLSTM_ARCH)
     t0 = time.perf_counter()
@@ -2608,45 +2673,17 @@ def xlstm_path(device, card, ml, others):
         f"{ml_bound:.5f} ms by {ml_by} ({fl / 1e9:.2f} GFLOP, "
         f"{nb / 1e6:.1f} MB), no library call; ptxas {ml_regs}")
     del q, k, v, gi, gf, out, st
-    x_first = [runs[0][1] for runs in x_served]
-    for w, stt in enumerate(x_first):
-        say(f"xLSTM wave {w}: P={padded(x_waves[w]).shape[1]}, prefill "
-            f"{stt.prefill_s * 1e3:.1f} ms, decode {stt.decode_steps} steps "
-            f"{stt.decode_s * 1e3 / stt.decode_steps:.2f} ms/step, "
-            f"{stt.tokens_out} tokens at {stt.decode_tok_s:.1f} tok/s")
-    xpf = lambda: (prefill(x_params, xcfg, {"tokens": xt},
-                           cache_len=LM_MAX_LEN), torch.cuda.synchronize())
-    xpf_wall = median_wall_ms(xpf, reps=3, warmup=1)
-    xpf_busy, xpf_per, xpf_kernels = profile_device(
-        xpf, reps=1, names=("mlstm_kernel",))
-    _, x_cache = prefill(x_params, xcfg, {"tokens": xt}, cache_len=LM_MAX_LEN)
-
-    def x_decode_loop():
-        tok = xt[:, -1:]
-        for i in range(n_loop):
-            logits, _ = decode_step(x_params, xcfg, x_cache, tok, px + i)
-            tok = logits[:, -1:].argmax(dim=-1)
-            tok.tolist()                   # the engine's host fetch
-    x_dec_wall = median_wall_ms(x_decode_loop, reps=5, warmup=1) / n_loop
-    x_dec_busy, _, x_dec_kernels = profile_device(x_decode_loop, reps=2,
-                                                  names=("mlstm_kernel",))
-    x_dec_busy, x_dec_kernels = x_dec_busy / n_loop, x_dec_kernels / n_loop
-    say(f"xLSTM prefill of wave 0 (B={xb}, P={px}): {xpf_wall:.2f} ms wall, "
-        f"device busy {xpf_busy:.2f} ms (mlstm_chunk "
-        f"{xpf_per['mlstm_kernel']:.2f} ms), idle share "
-        f"{1 - xpf_busy / xpf_wall:.3f}, {xpf_kernels:.0f} kernels")
-    say(f"xLSTM decode step (B={xb}): {x_dec_wall:.3f} ms wall, device busy "
-        f"{x_dec_busy:.3f} ms, idle share {1 - x_dec_busy / x_dec_wall:.3f}, "
-        f"{x_dec_kernels:.0f} kernels per step")
-    del x_cache, x_params
+    say_waves("xLSTM", x_waves, x_served)
+    names = {"mlstm_kernel": "mlstm_chunk"}
+    t = serving_timings(x_params, xcfg, {"tokens": xt}, LM_MAX_LEN, names,
+                        (ml,), n_loop=16)
+    assert t["prefill"]["launches"] == [n_mlstm], t["prefill"]
+    assert t["decode_step"]["launches"] == [0], t["decode_step"]
+    say_timings("xLSTM", card, t, names)
+    del x_params
     say(json.dumps({"card": card, "serving_xlstm": {
         "arch": XLSTM_ARCH, "batch": LM_BATCH, "new_tokens": LM_NEW,
-        "max_len": LM_MAX_LEN,
-        "waves": [{"P": int(padded(x_waves[w]).shape[1]),
-                   "prefill_ms": stt.prefill_s * 1e3,
-                   "decode_ms_per_step": stt.decode_s * 1e3 / stt.decode_steps,
-                   "decode_tok_s": stt.decode_tok_s}
-                  for w, stt in enumerate(x_first)],
+        "max_len": LM_MAX_LEN, "waves": wave_rows(x_waves, x_served),
         "mixer_teacher_forced_rel_err": {
             "bf16": x_layers[torch.bfloat16],
             "float32": x_layers[torch.float32]},
@@ -2657,11 +2694,7 @@ def xlstm_path(device, card, ml, others):
                                    "float32": x_tf[torch.float32]},
         "forward_floor_rel": {"bf16": x_floor[torch.bfloat16],
                               "float32": x_floor[torch.float32]},
-        "prefill": {"wall_ms": xpf_wall, "busy_ms": xpf_busy,
-                    "mlstm_chunk_ms": xpf_per["mlstm_kernel"],
-                    "kernels": xpf_kernels},
-        "decode_step": {"wall_ms": x_dec_wall, "busy_ms": x_dec_busy,
-                        "kernels": x_dec_kernels}}}))
+        "timings": t}}))
     return {"launches": ml_launches, "ms": ml_graph_ms,
             "graph_ms": ml_graph_ms, "back_to_back_ms": ml_ms,
             "plain_ms": ml_plain_ms, "bound_ms": ml_bound, "bound_by": ml_by,
@@ -2778,26 +2811,9 @@ def run_jamba_serving(cfg, params, device, ms, fa, fd, others):
     once per attention layer and step, and no kernel of ``others``."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
-    counts = [(m, n) for m in (ms, fa, fd) + tuple(others)
-              for n in ("LAUNCHES", "LAUNCHES_BWD") if hasattr(m, n)]
-    for m, n in counts:
-        setattr(m, n, 0)
-    per_wave, last = [], [0, 0, 0]
-
-    def after_wave():
-        now = [ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES]
-        per_wave.append(tuple(a - b for a, b in zip(now, last)))
-        last[:] = now
-    results = serve_twice(cfg, params, device, capped_waves(cfg, JAMBA_TOP),
-                          after_wave)
     want = (n_mamba, n_attn, n_attn * LM_NEW)
-    assert per_wave == [want] * len(per_wave), (per_wave, want)
-    others_launched = sum(getattr(m, n) for m, n in counts
-                          if m not in (ms, fa, fd))
-    assert others_launched == 0, others_launched
-    steps = sum(st.decode_steps for runs in results for _, st in runs)
-    return (results, (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES), len(per_wave),
-            steps, want)
+    return serve_counted(cfg, params, device, (ms, fa, fd), others,
+                         capped_waves(cfg, JAMBA_TOP), want) + (want,)
 
 
 def jamba_mixer_errs(params, cfg, toks: torch.Tensor, p: int):
@@ -2877,7 +2893,7 @@ def jamba_path(device, card, ms, fa, fd, others, cfg=None):
     kernels' jamba launches."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.models import init_model
     cfg = cfg or dataclasses.replace(get_config(JAMBA_ARCH),
                                      n_layers=JAMBA_LAYERS)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2998,79 +3014,27 @@ def jamba_path(device, card, ms, fa, fd, others, cfg=None):
         f"pipe (computed at the rated highest SM clock, {clock / 1e9:.3f} "
         f"GHz); no library call; ptxas {ms_regs}")
     del dt_, a_, x_, b_, c_, y_, h_
-    first = [runs[0][1] for runs in served]
-    for w, stt in enumerate(first):
-        say(f"jamba wave {w}: P={padded(waves[w]).shape[1]}, prefill "
-            f"{stt.prefill_s * 1e3:.1f} ms, decode {stt.decode_steps} steps "
-            f"{stt.decode_s * 1e3 / stt.decode_steps:.2f} ms/step, "
-            f"{stt.tokens_out} tokens at {stt.decode_tok_s:.1f} tok/s")
-    names = ("mamba_scan", "fa_fwd", "fd_kernel")
-    pf = lambda: (prefill(params, cfg, {"tokens": xt}, cache_len=LM_MAX_LEN),
-                  torch.cuda.synchronize())
-    pf_wall = median_wall_ms(pf, reps=3, warmup=1)
-    pf_busy, pf_per, pf_kernels = profile_device(pf, reps=1, names=names)
-    before = (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES)
-    _, cache = prefill(params, cfg, {"tokens": xt}, cache_len=LM_MAX_LEN)
-    mid = (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES)
-    decode_step(params, cfg, cache, xt[:, -1:], p0)
-    after = (ms.LAUNCHES, fa.LAUNCHES, fd.LAUNCHES)
-    one_prefill = tuple(m - a for m, a in zip(mid, before))
-    one_step = tuple(z - m for z, m in zip(after, mid))
-    assert one_prefill == per_wave[:2] + (0,), one_prefill
-    assert one_step == (0, 0, per_wave[1]), one_step
-    n_loop = 16
-
-    def decode_loop():
-        tok = xt[:, -1:]
-        for i in range(n_loop):
-            logits, _ = decode_step(params, cfg, cache, tok, p0 + 1 + i)
-            tok = logits[:, -1:].argmax(dim=-1)
-            tok.tolist()                   # the engine's host fetch
-    dec_wall = median_wall_ms(decode_loop, reps=3, warmup=1) / n_loop
-    dec_busy, dec_per, dec_kernels = profile_device(decode_loop, reps=1,
-                                                    names=names)
-    dec_busy, dec_kernels = dec_busy / n_loop, dec_kernels / n_loop
-    pf_top = top_device_kernels(pf)
-    dec_top = top_device_kernels(lambda: decode_step(
-        params, cfg, cache, xt[:, -1:], p0 + 1))
-    for what, top in (("prefill", pf_top), ("decode step", dec_top)):
-        say(f"jamba {what}, most device time: " + "; ".join(
-            f"{nm} {t:.2f} ms x{c}" for nm, t, c in top))
-    say(f"jamba prefill of wave 0 (B={b}, P={p0}): {pf_wall:.2f} ms wall, "
-        f"device busy {pf_busy:.2f} ms (mamba_scan "
-        f"{pf_per['mamba_scan']:.2f} ms, flash_attention_fwd "
-        f"{pf_per['fa_fwd']:.2f} ms), idle share {1 - pf_busy / pf_wall:.3f},"
-        f" {pf_kernels:.0f} kernels; one prefill launches (mamba_scan, "
-        f"flash_attention_fwd, flash_decode) {one_prefill}")
-    say(f"jamba decode step (B={b}): {dec_wall:.3f} ms wall, device busy "
-        f"{dec_busy:.3f} ms (flash_decode {dec_per['fd_kernel'] / n_loop:.3f}"
-        f" ms), idle share {1 - dec_busy / dec_wall:.3f}, "
-        f"{dec_kernels:.0f} kernels per step; one step launches {one_step}")
-    del cache, params
+    say_waves("jamba", waves, served)
+    names = dict(mamba_scan="mamba_scan", **ATTN_NAMES)
+    t = serving_timings(params, cfg, {"tokens": xt}, LM_MAX_LEN, names,
+                        (ms, fa, fd), n_loop=16)
+    assert t["prefill"]["launches"] == list(per_wave[:2]) + [0], t["prefill"]
+    assert t["decode_step"]["launches"] == [0, 0, per_wave[1]], t
+    say_timings("jamba", card, t, names)
+    del params
     torch.cuda.empty_cache()
     say(json.dumps({"card": card, "serving_jamba": {
         "arch": JAMBA_ARCH, "n_layers": cfg.n_layers, "batch": LM_BATCH,
         "new_tokens": LM_NEW, "max_len": LM_MAX_LEN,
         "peak_gib": {"serving": peak, "float32_check": peak32},
-        "waves": [{"P": int(padded(waves[w]).shape[1]),
-                   "prefill_ms": stt.prefill_s * 1e3,
-                   "decode_ms_per_step": stt.decode_s * 1e3 / stt.decode_steps,
-                   "decode_tok_s": stt.decode_tok_s}
-                  for w, stt in enumerate(first)],
+        "waves": wave_rows(waves, served),
         "mixer_teacher_forced_rel_err": {
             "bf16": mixer[bf16], "float32": mixer[f32]},
         f"teacher_forced_rel_err_{k32}_layers_float32": float(tf32.max()),
         "teacher_forced_rel_err_bf16": tf16_err,
         "teacher_forced_routings_flipped_bf16": nflip16,
         "teacher_forced_rows_left_out_bf16": n_out,
-        "prefill": {"wall_ms": pf_wall, "busy_ms": pf_busy,
-                    "mamba_scan_ms": pf_per["mamba_scan"],
-                    "flash_attention_ms": pf_per["fa_fwd"],
-                    "kernels": pf_kernels},
-        "decode_step": {"wall_ms": dec_wall, "busy_ms": dec_busy,
-                        "flash_decode_ms": dec_per["fd_kernel"] / n_loop,
-                        "kernels": dec_kernels},
-        "top_kernels": {"prefill": pf_top, "decode_step": dec_top}}}))
+        "timings": t}}))
     return {"launches": launches, "ms": ms_graph_ms,
             "graph_ms": ms_graph_ms, "back_to_back_ms": ms_ms,
             "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by,
@@ -3381,9 +3345,10 @@ def run_lm_training(device, card, fa, ml, ms, ops):
         f"params and moments bit for bit equal to the uninterrupted run's")
     ms_step = float(np.median(step_s[1:])) * 1e3
     one_step = lambda: float(step(state, batches[0])[1]["loss"])
-    busy, per, kernels = profile_device(one_step, reps=1,
-                                        names=("fa_fwd", "gemm", "elementwise"))
-    top = top_device_kernels(one_step, k=8)
+    rows = device_rows(one_step)
+    busy, per, kernels = busy_summary(rows, 1,
+                                      ("fa_fwd", "gemm", "elementwise"))
+    top = top_rows(rows, 8)
     torch.use_deterministic_algorithms(False)
     torch.utils.deterministic.fill_uninitialized_memory = fill
     attn = attention_backward_ms(device, cfg, fa)
@@ -3499,6 +3464,404 @@ def run_lm_training(device, card, fa, ml, ms, ops):
         "seconds": phase_s}
 
 
+# ------------------------------------------------------------------ phase 22
+WHISPER_ARCH = "whisper-medium"
+WHISPER_PARAMS = 1_012_525_056      # param_count, as the reference counts
+WHISPER_MAX_LEN = 448       # openai/whisper-medium's max_target_positions
+WHISPER_PROMPT = (4, 224)   # prompt lengths: up to half the decoder context
+PIXTRAL_ARCH = "pixtral-12b"
+PIXTRAL_PARAMS = 12_247_782_400
+PIXTRAL_MAX_LEN = 2176      # >= 1024 patches + a 1024-token text + 64 new
+PIXTRAL_PROMPT = (128, 1024)
+PIXTRAL_TF_DEPTH_F32 = 8    # float32 check on a depth cut: the 12.2 B
+PIXTRAL_TF_BATCH_F32 = 2    # float32 weights (49 GB) and bf16 ones do not fit
+
+
+def family_waves(cfg, lo: int, hi: int):
+    """LM_WAVES waves of LM_BATCH (prompt, LM_NEW), prompt lengths in
+    [lo, hi] from ``np.random.RandomState(SEED)``."""
+    rng = np.random.RandomState(SEED)
+    return [[(rng.randint(2, cfg.raw_vocab_size, rng.randint(lo, hi + 1)),
+              LM_NEW) for _ in range(LM_BATCH)] for _ in range(LM_WAVES)]
+
+
+def frontend_inputs(cfg, device, seed: int) -> dict:
+    """One wave's stub frontend output, made on the device: whisper's
+    frames (B, enc_frames, d) or pixtral's patches (B, n_patches, d), N(0,
+    1) * 0.1 as ``data/pipeline.py`` draws them, in the model's dtype."""
+    from repro_torch.models import frontend_input
+    from repro_torch.models.layers import DTYPES
+    fe = frontend_input(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((LM_BATCH, fe.rows, cfg.d_model), generator=gen,
+                    device=device) * 0.1
+    return {fe.name: x.to(DTYPES[cfg.dtype])}
+
+
+def _randn_on(gen, shape, dtype=torch.bfloat16):
+    """N(0, 1) drawn on the device of ``gen`` (a timing's input: a host
+    draw of hundreds of millions of values takes seconds)."""
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def attention_work(b, sq, sk, h, kh, d, causal, elt=2):
+    """(FLOPs, bytes) of attention of Sq queries over Sk keys: 4 * D FLOPs
+    per visible (query, key) pair and head (all Sq x Sk pairs, or S(S + 1)
+    / 2 when causal with Sq = Sk); q, k, v read once, the output written
+    once."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    return (4 * b * h * d * pairs,
+            elt * (2 * b * sq * h * d + 2 * b * sk * kh * d))
+
+
+def mha_timing(fa, gen, b, sq, sk, h, kh, d, causal) -> dict:
+    """``flash_attention_fwd`` at one shape, bf16, in a CUDA graph and back
+    to back, beside one SDPA call (in a CUDA graph) and the bound; inputs
+    N(0, 1) from the device generator ``gen``."""
+    import torch.nn.functional as F
+    q = _randn_on(gen, (b, sq, h, d))
+    k, v = (_randn_on(gen, (b, sk, kh, d)) for _ in range(2))
+    out = torch.empty_like(q)
+    launch = lambda: fa._launch(q, k, v, out, causal, 0, 0.0, 0)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    fl, nb = attention_work(b, sq, sk, h, kh, d, causal)
+    t_b, by = bound(fl, nb, BF16_FLOPS)
+    res = {"ms": graph_ms(launch, calls=10), "back_to_back_ms":
+           median_ms(launch, burst=10, reps=10),
+           "library_ms": graph_ms(sdpa, calls=10), "bound_ms": t_b,
+           "bound_by": by, "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h,
+                                     "Kh": kh, "D": d, "causal": causal,
+                                     "dtype": "bfloat16"}}
+    del q, k, v, out, qt, kt, vt
+    return res
+
+
+def decode_timing(fd, gen, b, s, h, kh, d, pos) -> dict:
+    """``flash_decode`` over cache positions 0..pos, bf16, L2 cold (each
+    call takes the next of LM_COPIES caches, as the loop finds a layer's
+    cache), in a CUDA graph and back to back, beside SDPA on the visible
+    rows and the bound."""
+    import torch.nn.functional as F
+    caches = [tuple(_randn_on(gen, (b, s, kh, d)) for _ in range(2))
+              for _ in range(LM_COPIES)]
+    rows = [tuple(x[:, :pos + 1].transpose(1, 2).contiguous() for x in kv)
+            for kv in caches]
+    q = _randn_on(gen, (b, 1, h, d))
+    qt = q.transpose(1, 2).contiguous()
+    out = torch.empty_like(q)
+    turn = itertools.cycle(range(LM_COPIES))
+    launch = lambda: fd._launch(q, *caches[next(turn)], out, pos, 0, 0.0)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, *rows[next(turn)], enable_gqa=True)
+    fl, nb = decode_work(b, h, kh, d, pos)
+    t_b, by = bound(fl, nb, BF16_FLOPS)
+    res = {"ms": graph_ms(launch, calls=48), "back_to_back_ms":
+           median_ms(launch, burst=50), "library_ms": graph_ms(sdpa,
+                                                               calls=48),
+           "bound_ms": t_b, "bound_by": by,
+           "split_plan": fd.split_plan(b, kh, 0, pos),
+           "shape": {"B": b, "H": h, "Kh": kh, "D": d, "cache": s,
+                     "pos": pos, "dtype": "bfloat16"}}
+    del caches, rows, q, qt, out
+    return res
+
+
+def serving_timings(params, cfg, batch, max_len, names, counted=(), off=0,
+                    n_loop=8):
+    """Every serving phase's timings of one wave ``batch``: the warm prefill
+    (time to the first token) and a decode step (``n_loop`` steps from
+    position off + P + 1, each with the engine's host fetch).  For each:
+    wall ms, device-busy ms and idle share, ``per`` (ms of the kernels whose
+    names hold each key of ``names``), the kernels launched and the top
+    device kernels, from one CUPTI trace, and the ``LAUNCHES`` of each of
+    the ``counted`` wrappers over one prefill and one step; all per call or
+    per step."""
+    from repro_torch.models import decode_step, prefill
+    xt = batch["tokens"]
+    p0 = xt.shape[1]
+    count = lambda: [m.LAUNCHES for m in counted]
+    pf = lambda: (prefill(params, cfg, batch, cache_len=max_len),
+                  torch.cuda.synchronize())
+    pf_wall = median_wall_ms(pf, reps=3, warmup=1)
+    pf_rows = device_rows(pf)
+    before = count()
+    _, cache = prefill(params, cfg, batch, cache_len=max_len)
+    mid = count()
+    decode_step(params, cfg, cache, xt[:, -1:], off + p0)
+    after = count()
+
+    def decode_loop():
+        tok = xt[:, -1:]
+        for i in range(n_loop):
+            logits, _ = decode_step(params, cfg, cache, tok, off + p0 + 1 + i)
+            tok = logits[:, -1:].argmax(dim=-1)
+            tok.tolist()                   # the engine's host fetch
+    dec_wall = median_wall_ms(decode_loop, reps=3, warmup=1) / n_loop
+    dec_rows = device_rows(decode_loop)
+    del cache
+    out = {}
+    for what, wall, rows, reps, launches in (
+            ("prefill", pf_wall, pf_rows, 1,
+             [m - a for m, a in zip(mid, before)]),
+            ("decode_step", dec_wall, dec_rows, n_loop,
+             [z - m for z, m in zip(after, mid)])):
+        busy, per, kernels = busy_summary(rows, reps, tuple(names))
+        out[what] = {"wall_ms": wall, "busy_ms": busy,
+                     "idle_share": 1 - busy / wall, "per": per,
+                     "kernels": kernels, "launches": launches,
+                     "top": [(key, t / reps, c / reps)
+                             for key, t, c in top_rows(rows)]}
+    out["decode_step"]["tokens_per_s"] = xt.shape[0] / dec_wall * 1e3
+    return out
+
+
+def say_timings(tag, card, t, names):
+    """The lines of a ``serving_timings`` result; ``names`` maps each key
+    of its ``per`` to the kernel it stands for."""
+    for what in ("prefill", "decode_step"):
+        r = t[what]
+        per = ", ".join(f"{label} {r['per'][key]:.3f} ms"
+                        for key, label in names.items())
+        rate = (f", {r['tokens_per_s']:.1f} tokens/s"
+                if "tokens_per_s" in r else "")
+        say(f"{tag} {what.replace('_', ' ')} on {card}: {r['wall_ms']:.3f} "
+            f"ms wall{rate}, device busy {r['busy_ms']:.3f} ms ({per}), "
+            f"idle share {r['idle_share']:.3f}, {r['kernels']:.0f} kernels, "
+            f"launches {r['launches']}")
+        say(f"{tag} {what.replace('_', ' ')}, most device time: " + "; ".join(
+            f"{nm} {ms_:.2f} ms x{c:g}" for nm, ms_, c in r["top"]))
+
+
+def wave_rows(waves, served):
+    """Each wave's padded prompt length and its first run's ``ServeStats``
+    as the JSON lines report them."""
+    return [{"P": int(padded(waves[w]).shape[1]),
+             "prefill_ms": st.prefill_s * 1e3,
+             "decode_ms_per_step": st.decode_s * 1e3 / st.decode_steps,
+             "decode_tok_s": st.decode_tok_s}
+            for w, st in enumerate(runs[0][1] for runs in served)]
+
+
+def say_waves(tag, waves, served, off=0):
+    for w, r in enumerate(wave_rows(waves, served)):
+        rows = f" (+{off} patch rows)" if off else ""
+        say(f"{tag} wave {w}: P={r['P']}{rows}, prefill "
+            f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_step']:.2f}"
+            f" ms/step at {r['decode_tok_s']:.1f} tok/s")
+
+
+ATTN_NAMES = {"fa_fwd": "flash_attention_fwd", "fd_kernel": "flash_decode"}
+
+
+def say_timing(name, card, r):
+    say(f"{name} at {r['shape']} on {card}: kernel {r['ms']:.4f} ms in a "
+        f"CUDA graph (back to back {r['back_to_back_ms']:.4f}), SDPA in a "
+        f"CUDA graph {r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+        f"by {r['bound_by']}"
+        + (f", (chunk, chunks) {r['split_plan']}" if "split_plan" in r
+           else ""))
+
+
+def whisper_path(device, card, fa, fd, others, cfg=None):
+    """Phase 22 (a), (c), (d) for whisper-medium as published."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, param_count
+    if cfg is None:
+        cfg = get_config(WHISPER_ARCH)
+        assert param_count(cfg) == WHISPER_PARAMS, param_count(cfg)
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_all
+    say(f"{cfg.name}: {cfg.n_layers} decoder + {cfg.enc_layers} encoder "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.d_head}, vocab {cfg.vocab_size}, {cfg.param_dtype}, "
+        f"{param_count(cfg):,} parameters; {cfg.enc_frames} frames a request;"
+        f" init {init_s:.1f}s")
+    waves = family_waves(cfg, *WHISPER_PROMPT)
+    extras = [frontend_inputs(cfg, device, SEED + w) for w in range(LM_WAVES)]
+    per_wave = (cfg.enc_layers + 2 * cfg.n_layers,
+                2 * cfg.n_layers * LM_NEW)
+    t0 = time.perf_counter()
+    served, launches, prefills, steps = serve_counted(
+        cfg, params, device, (fa, fd), others, waves, per_wave,
+        WHISPER_MAX_LEN, extras)
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"whisper serving path ({serve_s:.1f}s): {prefills} prefills, "
+        f"{steps} decode steps; per wave flash_attention_fwd {per_wave[0]} "
+        f"({cfg.enc_layers} encoder + {cfg.n_layers} self + {cfg.n_layers} "
+        f"cross), flash_decode {per_wave[1]} ({cfg.n_layers} self + "
+        f"{cfg.n_layers} cross a step); totals {launches}; no other kernel; "
+        f"both runs of each wave gave the same tokens")
+    toks0 = torch.tensor(padded(waves[0]), device=device)
+    p0 = toks0.shape[1]
+    tf = {torch.bfloat16: teacher_forced_err(params, cfg, toks0,
+                                             p0 - TF_STEPS, extras[0])}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = as_float32(params)
+    tf[torch.float32] = teacher_forced_err(
+        params32, cfg32, toks0, p0 - TF_STEPS,
+        {"frames": extras[0]["frames"].float()})
+    del params32
+    torch.cuda.empty_cache()
+    say(f"whisper teacher-forced decode_step vs forward logits at "
+        f"{p0 - TF_STEPS}..{p0 - 1} (B = {LM_BATCH}, full depth): max rel "
+        f"err bf16 {tf[torch.bfloat16]:.3g} (tol {TF_TOL[torch.bfloat16]}), "
+        f"float32 weights {tf[torch.float32]:.3g} (tol "
+        f"{TF_TOL[torch.float32]})")
+    for dt, err in tf.items():
+        assert err < TF_TOL[dt], (dt, err)
+    t0 = time.perf_counter()
+    t = serving_timings(params, cfg, dict(extras[0], tokens=toks0),
+                        WHISPER_MAX_LEN, ATTN_NAMES, (fa, fd))
+    assert t["prefill"]["launches"] == [per_wave[0], 0], t["prefill"]
+    assert t["decode_step"]["launches"] == [0, 2 * cfg.n_layers], t
+    say_waves("whisper", waves, served)
+    say_timings("whisper", card, t, ATTN_NAMES)
+    say(f"whisper peak memory in serving {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    h, kh, d, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.enc_frames
+    kernels = {
+        "encoder": mha_timing(fa, gen, LM_BATCH, f, f, h, kh, d, False),
+        "cross": mha_timing(fa, gen, LM_BATCH, p0, f, h, kh, d, False),
+        "self": mha_timing(fa, gen, LM_BATCH, p0, p0, h, kh, d, True),
+        "decode_cross": decode_timing(fd, gen, LM_BATCH, f, h, kh, d, f - 1),
+        "decode_self": decode_timing(fd, gen, LM_BATCH, WHISPER_MAX_LEN, h,
+                                     kh, d, p0 + LM_NEW - 1)}
+    for name, r in kernels.items():
+        say_timing(f"whisper {name}", card, r)
+    timing_s = time.perf_counter() - t0
+    say(f"{cfg.name}: serving {serve_s:.1f}s, timings {timing_s:.1f}s, in "
+        f"all {time.perf_counter() - t_all:.1f}s")
+    return {"launches": launches,
+            "tf": {"bfloat16": tf[torch.bfloat16],
+                   "float32": tf[torch.float32]}, "peak_gib": peak,
+            "kernels": kernels, "timings": t, "init_s": init_s,
+            "serve_s": serve_s, "timing_s": timing_s,
+            "seconds": time.perf_counter() - t_all,
+            "waves": wave_rows(waves, served)}
+
+
+def pixtral_path(device, card, fa, fd, others, cfg=None):
+    """Phase 22 (b), (c), (d) for pixtral-12b as published: the float32
+    teacher-forced check on a depth cut first (no bf16 model resident),
+    then the bf16 model served, checked and timed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, param_count
+    if cfg is None:
+        cfg = get_config(PIXTRAL_ARCH)
+        assert param_count(cfg) == PIXTRAL_PARAMS, param_count(cfg)
+    t_all = time.perf_counter()
+    off = cfg.n_patches
+    waves = family_waves(cfg, *PIXTRAL_PROMPT)
+    extras = [frontend_inputs(cfg, device, SEED + 10 + w)
+              for w in range(LM_WAVES)]
+    toks0 = torch.tensor(padded(waves[0]), device=device)
+    p0 = toks0.shape[1]
+    # float32 on the first layers: init_model draws the layers in order,
+    # so these are the served model's first layers, widened
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k32, b32 = min(PIXTRAL_TF_DEPTH_F32, cfg.n_layers), PIXTRAL_TF_BATCH_F32
+    cut = dataclasses.replace(cfg, n_layers=k32)
+    params = init_model(cut, seed=SEED, device=device)
+    probe = float(params["layers"][k32 - 1]["attn"]["wq"].float().sum())
+    params = as_float32(params)
+    cfg32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32")
+    tf32 = teacher_forced_err(params, cfg32, toks0[:b32], p0 - TF_STEPS,
+                              {"patches": extras[0]["patches"][:b32].float()},
+                              off)
+    del params
+    torch.cuda.empty_cache()
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"pixtral float32, first {k32} layers, B={b32}: decode_step vs "
+        f"forward logits at text positions {p0 - TF_STEPS}..{p0 - 1} (after "
+        f"{off} patch rows; {time.perf_counter() - t_all:.1f}s, peak "
+        f"{peak32:.1f} GiB): max rel err {tf32:.3g} (tol "
+        f"{TF_TOL[torch.float32]})")
+    assert tf32 < TF_TOL[torch.float32], tf32
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    assert float(params["layers"][k32 - 1]["attn"]["wq"].float().sum()) \
+        == probe
+    say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_dtype}, {param_count(cfg):,} "
+        f"parameters; {off} patches a request; init {init_s:.1f}s")
+    per_wave = (cfg.n_layers, cfg.n_layers * LM_NEW)
+    t0 = time.perf_counter()
+    served, launches, prefills, steps = serve_counted(
+        cfg, params, device, (fa, fd), others, waves, per_wave,
+        PIXTRAL_MAX_LEN, extras)
+    serve_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"pixtral serving path ({serve_s:.1f}s): {prefills} prefills, "
+        f"{steps} decode steps, decoding from n_patches + P; per wave "
+        f"flash_attention_fwd {per_wave[0]}, flash_decode {per_wave[1]}; "
+        f"totals {launches}; no other kernel; both runs of each wave gave "
+        f"the same tokens")
+    tf16 = teacher_forced_err(params, cfg, toks0, p0 - TF_STEPS, extras[0],
+                              off)
+    say(f"pixtral bf16 teacher-forced decode_step vs forward logits at text "
+        f"positions {p0 - TF_STEPS}..{p0 - 1} (B = {LM_BATCH}, full depth): "
+        f"max rel err {tf16:.3g} (tol {TF_TOL[torch.bfloat16]})")
+    assert tf16 < TF_TOL[torch.bfloat16], tf16
+    t0 = time.perf_counter()
+    t = serving_timings(params, cfg, dict(extras[0], tokens=toks0),
+                        PIXTRAL_MAX_LEN, ATTN_NAMES, (fa, fd), off)
+    assert t["prefill"]["launches"] == [per_wave[0], 0], t["prefill"]
+    assert t["decode_step"]["launches"] == [0, cfg.n_layers], t
+    say_waves("pixtral", waves, served, off)
+    say_timings("pixtral", card, t, ATTN_NAMES)
+    say(f"pixtral peak memory in serving {peak:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kernels = {
+        "prefill": mha_timing(fa, gen, LM_BATCH, off + p0, off + p0, h, kh, d,
+                              True),
+        "decode": decode_timing(fd, gen, LM_BATCH, PIXTRAL_MAX_LEN, h, kh, d,
+                                off + p0 + LM_NEW - 1)}
+    for name, r in kernels.items():
+        say_timing(f"pixtral {name}", card, r)
+    timing_s = time.perf_counter() - t0
+    say(f"{cfg.name}: serving {serve_s:.1f}s, timings {timing_s:.1f}s, in "
+        f"all {time.perf_counter() - t_all:.1f}s")
+    return {"launches": launches, "tf": {"bfloat16": tf16,
+                                         f"float32_{k32}_layers": tf32},
+            "peak_gib": {"serving": peak, "float32_check": peak32},
+            "kernels": kernels, "timings": t, "init_s": init_s,
+            "serve_s": serve_s, "timing_s": timing_s,
+            "seconds": time.perf_counter() - t_all,
+            "waves": wave_rows(waves, served)}
+
+
+def run_audio_vlm(device, card, fa, fd, others, cfgs=(None, None)):
+    """Phase 22: whisper-medium and pixtral-12b served at their published
+    sizes through both attention kernels, cross-attention included."""
+    t0 = time.perf_counter()
+    wh = whisper_path(device, card, fa, fd, others, cfgs[0])
+    px = pixtral_path(device, card, fa, fd, others, cfgs[1])
+    phase_s = time.perf_counter() - t0
+    say(f"phase 22: {phase_s:.1f} s (whisper {wh['seconds']:.1f}, pixtral "
+        f"{px['seconds']:.1f})")
+    return {"whisper": wh, "pixtral": px, "seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -3513,6 +3876,7 @@ def main() -> int:
     card = card_line()
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    mark("1")
 
     # 2. build, one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
@@ -3541,6 +3905,7 @@ def main() -> int:
             f"compiled={info.compiled}")
         say("\n".join(line for line in info.log.splitlines()
                       if "registers" in line or "spill" in line))
+    mark("2")
 
     # 3. kernels vs plain
     params = init_enel(torch.Generator().manual_seed(SEED), device=device)
@@ -3642,6 +4007,7 @@ def main() -> int:
         f"{sim_checked['whole_run']} whole-run launches, each launched twice "
         f"bit-equal; SASS: {sim_ffma_all} FFMA, all inside IEEE divisions, "
         f"{sim_ffma} contracted; ptxas {sim_regs}")
+    mark("3")
 
     # 4. the decision path; only its launches count
     with PickRecorder() as picks:
@@ -3659,6 +4025,7 @@ def main() -> int:
     say(f"decision path picks, kernel vs plain route: {n_differ} of {n_rec} "
         f"differ (each within {PICK_RTOL} of the target)")
     pick_parity = {"decision": [n_rec, n_differ]}
+    mark("4")
 
     # 5. timings at the LR decision shape
     p, template, deltas = jobs["lr"]["sweep"]
@@ -3709,6 +4076,7 @@ def main() -> int:
     say(json.dumps({"card": card, "recommend_ms": {
         key: {"median": j["recommend_ms_median"], "p90": j["recommend_ms_p90"]}
         for key, j in jobs.items()}}))
+    mark("5")
 
     # 6. the training path; only its launches count
     from repro_torch.sim.chaos import ChaosSpec
@@ -3749,6 +4117,7 @@ def main() -> int:
     say(f"chaos (K-Means): {chaos['quarantined']} rows quarantined, "
         f"{chaos['skipped']} steps skipped, {chaos['fallbacks']} fallback "
         f"decisions, params finite after the scratch retrain")
+    mark("6")
 
     # 7. timings of the training path
     ex = train["lr"]["experiment"]
@@ -3848,6 +4217,7 @@ def main() -> int:
         "scratch_fit": {"wall_ms": fit_wall_ms, "busy_ms": f_busy,
                         "fwd_ms": f_fwd, "bwd_ms": f_bwd,
                         "kernels_per_step": f_kernels / n_steps}}}))
+    mark("7")
 
     # 8. the LM attention kernels vs plain
     t0 = time.perf_counter()
@@ -3858,6 +4228,7 @@ def main() -> int:
         f"{lm_errs['decode'][torch.float32]:.3g}, bf16 "
         f"{lm_errs['decode'][torch.bfloat16]:.3g}; every case bit-equal "
         f"twice")
+    mark("8")
 
     # 9. the serving path; only its launches count
     import dataclasses
@@ -3897,10 +4268,10 @@ def main() -> int:
         f"{tf_err[torch.bfloat16]:.3g} (tol {TF_TOL[torch.bfloat16]}), "
         f"float32 weights {tf_err[torch.float32]:.3g} (tol "
         f"{TF_TOL[torch.float32]})")
+    mark("9")
 
     # 10. timings of the serving path
     import torch.nn.functional as F
-    from repro_torch.models import decode_step, prefill
     bf16 = torch.bfloat16
     b, h, kh, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     trng = np.random.RandomState(SEED + 1)
@@ -3975,59 +4346,22 @@ def main() -> int:
     say(f"flash_decode ptxas at D = 128, bf16: group 2 (qwen3) "
         f"{fd_regs[2]}, group 4 (jamba) {fd_regs[4]}")
     del caches, qd, qdt, outd
-    first = [runs[0][1] for runs in served]
-    for w, st in enumerate(first):
-        say(f"wave {w}: P={padded(waves[w]).shape[1]}, prefill "
-            f"{st.prefill_s * 1e3:.1f} ms, decode {st.decode_steps} steps "
-            f"{st.decode_s * 1e3 / st.decode_steps:.2f} ms/step, "
-            f"{st.tokens_out} tokens at {st.decode_tok_s:.1f} tok/s")
-    t0_dev = torch.tensor(toks0, device=device)
-    pf = lambda: (prefill(lm_params, cfg, {"tokens": t0_dev},
-                          cache_len=LM_MAX_LEN), torch.cuda.synchronize())
-    pf_wall = median_wall_ms(pf, reps=5, warmup=1)
-    pf_busy, pf_per, pf_kernels = profile_device(pf, reps=2,
-                                                 names=("fa_fwd",))
-    _, cache = prefill(lm_params, cfg, {"tokens": t0_dev},
-                       cache_len=LM_MAX_LEN)
-    n_loop = 16
-
-    def decode_loop():
-        tok = t0_dev[:, -1:]
-        for i in range(n_loop):
-            logits, _ = decode_step(lm_params, cfg, cache, tok, p0 + i)
-            tok = logits[:, -1:].argmax(dim=-1)
-            tok.tolist()                   # the engine's host fetch
-    dec_wall = median_wall_ms(decode_loop, reps=5, warmup=1) / n_loop
-    dec_busy, dec_per, dec_kernels = profile_device(decode_loop, reps=2,
-                                                    names=("fd_kernel",))
-    dec_busy, dec_kernels = dec_busy / n_loop, dec_kernels / n_loop
-    dec_fd = dec_per["fd_kernel"] / n_loop
-    say(f"prefill of wave 0 (B={b}, P={p0}): {pf_wall:.2f} ms wall, device "
-        f"busy {pf_busy:.2f} ms (flash_attention_fwd {pf_per['fa_fwd']:.2f} "
-        f"ms), idle share {1 - pf_busy / pf_wall:.3f}, {pf_kernels:.0f} "
-        f"kernels")
-    say(f"decode step (B={b}, pos {p0}..{p0 + n_loop - 1}): {dec_wall:.3f} "
-        f"ms wall, device busy {dec_busy:.3f} ms (flash_decode "
-        f"{dec_fd:.3f} ms), idle share {1 - dec_busy / dec_wall:.3f}, "
-        f"{dec_kernels:.0f} kernels per step")
-    del cache
+    say_waves("qwen3", waves, served)
+    t = serving_timings(lm_params, cfg,
+                        {"tokens": torch.tensor(toks0, device=device)},
+                        LM_MAX_LEN, ATTN_NAMES, (fa, fd), n_loop=16)
+    assert t["prefill"]["launches"] == [cfg.n_layers, 0], t["prefill"]
+    assert t["decode_step"]["launches"] == [0, cfg.n_layers], t
+    say_timings("qwen3", card, t, ATTN_NAMES)
     say(json.dumps({"card": card, "serving": {
         "arch": LM_ARCH, "batch": LM_BATCH, "new_tokens": LM_NEW,
-        "max_len": LM_MAX_LEN,
-        "waves": [{"P": int(padded(waves[w]).shape[1]),
-                   "prefill_ms": st.prefill_s * 1e3,
-                   "decode_ms_per_step": st.decode_s * 1e3 / st.decode_steps,
-                   "decode_tok_s": st.decode_tok_s}
-                  for w, st in enumerate(first)],
+        "max_len": LM_MAX_LEN, "waves": wave_rows(waves, served),
         "teacher_forced_rel_err": {"bf16": tf_err[torch.bfloat16],
                                    "float32": tf_err[torch.float32]},
-        "prefill": {"wall_ms": pf_wall, "busy_ms": pf_busy,
-                    "flash_attention_ms": pf_per["fa_fwd"]},
-        "decode_step": {"wall_ms": dec_wall, "busy_ms": dec_busy,
-                        "flash_decode_ms": dec_fd,
-                        "kernels": dec_kernels}}}))
+        "timings": t}}))
     del lm_params
     torch.cuda.empty_cache()
+    mark("10")
 
     # 11. the mLSTM kernel vs plain
     t0 = time.perf_counter()
@@ -4037,9 +4371,11 @@ def main() -> int:
         f"{ml_errs[torch.bfloat16]:.3g} (atol {MLSTM_TOL}, rtol "
         f"{BF16_STEP:.3g}); state {ml_errs['state']:.3g} (tol {MLSTM_TOL}); "
         f"every case bit-equal twice")
+    mark("11")
 
     # 12-13. the xLSTM serving path (only its launches count), timings
     xl = xlstm_path(device, card, ml, (ops, fa, fd, ms))
+    mark("12-13")
 
     # 14. the Mamba scan kernel vs plain
     t0 = time.perf_counter()
@@ -4047,35 +4383,49 @@ def main() -> int:
     say(f"Mamba scan kernel vs plain ({time.perf_counter() - t0:.1f}s): max "
         f"abs err y {ms_errs['y']:.3g}, h {ms_errs['h']:.3g} (each within "
         f"{MAMBA_TOL} of its largest value); every case bit-equal twice")
+    mark("14")
 
     # 15-16. the jamba serving path (only its launches count), timings
     jb = jamba_path(device, card, ms, fa, fd, (ops, ml))
+    mark("15-16")
 
     # 17. the decision service on the card
     service = run_service(device, card, train, ops, {
         key: j["recommend_ms_median"] for key, j in jobs.items()})
     say(json.dumps({"card": card, "service": service}))
+    mark("17")
 
     # 18. fleet campaigns on the card; only the campaign's launches count
     fleet = run_fleet(device, card, ops)
     say(json.dumps({"card": card, "fleet": fleet}))
+    mark("18")
 
     # 19. the vectorized engine on the card; only (c) and (d) count
     sim = run_sim_engine(device, card, ss, ops)
     say(json.dumps({"card": card, "sim_engine": sim}))
+    mark("19")
 
     # 20. the fused campaign on the card; only run_fused's launches count
     fused = run_fused_campaign(device, card, ss, ops)
     say(json.dumps({"card": card, "fused_campaign": fused}))
     f_launch = fused["launches"]
+    mark("20")
 
     # 21. LM training and the elastic trainer; only (b)-(d) count
     lm_train = run_lm_training(device, card, fa, ml, ms, ops)
     say(json.dumps({"card": card, "lm_training": lm_train}))
     t_launch = lm_train["launches"]
     t_check = lm_train["check_launches"]
+    mark("21")
 
-    # 22. results
+    # 22. whisper-medium and pixtral-12b served; only their serving counts
+    av = run_audio_vlm(device, card, fa, fd, (ops, ml, ms, ss))
+    say(json.dumps({"card": card, "serving_audio_vlm": av}))
+    wh_l, px_l = av["whisper"]["launches"], av["pixtral"]["launches"]
+    mark("22")
+
+    # 23. results
+    say(json.dumps({"phase_clock": PHASE_CLOCK}))
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/graph_prop/csrc/graph_prop_fwd.cu",
@@ -4124,11 +4474,14 @@ def main() -> int:
                   "flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
         "launches": fa_launches + jb["launches"][1]
-        + t_launch["training_lm"] + t_launch["elastic_fa"],
+        + t_launch["training_lm"] + t_launch["elastic_fa"] + wh_l[0]
+        + px_l[0],
         "launches_by_path": {"serving": fa_launches,
                              "serving_jamba": jb["launches"][1],
                              "training_lm": t_launch["training_lm"],
-                             "elastic": t_launch["elastic_fa"]},
+                             "elastic": t_launch["elastic_fa"],
+                             "serving_whisper": wh_l[0],
+                             "serving_pixtral": px_l[0]},
         "check_launches": {"grad_and_plain_route_checks":
                            t_check["flash_attention_fwd"]},
         "grad_max_abs_err": lm_train["grads"]["mha"]["grad_max_abs_err"],
@@ -4139,13 +4492,18 @@ def main() -> int:
         "library_back_to_back_ms": fa_lib_ms, "ptxas": fa_regs,
         "shape": {"B": b, "S": p0, "H": h, "Kh": kh, "D": d,
                   "dtype": "bfloat16", "causal": True},
+        "at_whisper": {k: av["whisper"]["kernels"][k]
+                       for k in ("encoder", "cross", "self")},
+        "at_pixtral": av["pixtral"]["kernels"]["prefill"],
     }, {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:58",
-        "launches": fd_launches + jb["launches"][2],
+        "launches": fd_launches + jb["launches"][2] + wh_l[1] + px_l[1],
         "launches_by_path": {"serving": fd_launches,
-                             "serving_jamba": jb["launches"][2]},
+                             "serving_jamba": jb["launches"][2],
+                             "serving_whisper": wh_l[1],
+                             "serving_pixtral": px_l[1]},
         "max_abs_err": max(lm_errs["decode"].values()),
         "max_abs_err_f32": lm_errs["decode"][torch.float32],
         "ms": fd_times[pos_main]["ms"],
@@ -4159,6 +4517,9 @@ def main() -> int:
         "shape": {"B": b, "H": h, "Kh": kh, "D": d, "cache": LM_MAX_LEN,
                   "pos": pos_main, "dtype": "bfloat16"},
         "at_pos_end": fd_times[LM_MAX_LEN - 1],
+        "at_whisper": {k: av["whisper"]["kernels"][k]
+                       for k in ("decode_cross", "decode_self")},
+        "at_pixtral": av["pixtral"]["kernels"]["decode"],
     }, {
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",

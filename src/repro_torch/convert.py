@@ -7,7 +7,8 @@ weights and 1-D biases, so nothing is transposed.  Besides the parameters,
 the Adam state and a training ring convert, so that both packages can start
 a fit from one state.  For the LM, :func:`lm_params_from_numpy`,
 :func:`lm_cache_from_numpy` and :func:`train_state_from_numpy` unstack the
-reference's scanned layer groups into the port's flat list of layers.
+reference's scanned layer groups into the port's flat list of layers
+(whisper's encoder groups too).
 """
 from __future__ import annotations
 
@@ -106,12 +107,20 @@ def _unstack(groups: Mapping, tail: Sequence, cfg: ModelConfig,
 def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
                          device: DeviceLike = "cuda") -> Dict:
     """The reference's ``init_model`` pytree (numpy leaves) -> the port's
-    parameters: ``embed``, ``final_norm``, ``unembed`` when untied, and
-    ``layers``."""
+    parameters: ``embed``, ``final_norm``, ``unembed`` when untied,
+    ``layers`` (whisper's with their ``ln_cross`` / ``cross`` leaves), and
+    for whisper ``encoder``: ``{"layers": [...], "final_norm"}``, its
+    groups (one layer each, the leading axis ``enc_layers``) unstacked."""
     dev = resolve_device(device)
     out = {k: _lm_tensor(tree[k], dev)
            for k in ("embed", "final_norm", "unembed") if k in tree}
     out["layers"] = _unstack(tree["groups"], tree.get("tail", []), cfg, dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [_lm_tree(enc["groups"]["p0"], dev, i)
+                       for i in range(cfg.enc_layers)],
+            "final_norm": _lm_tensor(enc["final_norm"], dev)}
     return out
 
 
@@ -119,7 +128,8 @@ def lm_cache_from_numpy(cache: Mapping, cfg: ModelConfig,
                         device: DeviceLike = "cuda") -> Dict:
     """The reference's prefill / decode cache (numpy leaves) -> the port's
     ``{"layers": [entry, ...]}``, each entry as the reference keeps it
-    (``{k, v}``, a Mamba layer's ``{h, conv}``, ...)."""
+    (``{k, v}``, whisper's ``{k, v, ck, cv}``, a Mamba layer's ``{h,
+    conv}``, ...)."""
     dev = resolve_device(device)
     return {"layers": _unstack(cache["groups"], cache.get("tail", []), cfg,
                                dev)}
@@ -129,7 +139,8 @@ def train_state_from_numpy(state: Mapping, cfg: ModelConfig,
                            device: DeviceLike = "cuda") -> Dict:
     """The reference's train state ``{"params", "opt": {"mu", "nu",
     "step"}}`` (numpy leaves) -> the port's: params and both moments
-    unstacked into the flat list of layers, each leaf in its own dtype;
+    unstacked into the flat list of layers (and whisper's encoder), each
+    leaf in its own dtype;
     ``step`` as an int64 scalar."""
     dev = resolve_device(device)
     opt = state["opt"]

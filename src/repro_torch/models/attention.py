@@ -1,15 +1,17 @@
-"""GQA attention for the dense LM families: grouped-query attention, sliding
+"""GQA attention for the LM families: grouped-query attention, sliding
 window (local) layers, the attention-logit softcap, qk-norm, QKV bias, rope,
-inert padded heads, and decode against a (B, S, Kh, Dh) KV cache.
+inert padded heads, cross-attention (whisper's decoder over its encoder),
+and decode against a (B, S, Kh, Dh) KV cache.
 
 Counterpart of ``repro.models.attention``.  The attention itself is the
-hand-written kernels' work: full-sequence self-attention goes through
-:func:`repro_torch.kernels.flash_attention.ops.mha` and one-token decode
+hand-written kernels' work: full-sequence attention (self, the encoder's
+bidirectional and the decoder's cross-attention, whose keys have their own
+length) goes through :func:`repro_torch.kernels.flash_attention.ops.mha`
+and one-token decode (over the self cache, or over every encoder row)
 through :func:`repro_torch.kernels.flash_decode.ops.decode_attn`.  On CUDA
 tensors those launch the kernels; on CPU tensors they run their plain
 versions (which compute what the reference's ``_mask_bias`` + ``_sdpa``
-compute, so neither is repeated here).  Cross-attention (whisper) is not
-ported yet.
+compute, so neither is repeated here).
 """
 from __future__ import annotations
 
@@ -23,10 +25,6 @@ from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.kernels.flash_decode.ops import decode_attn
 from repro_torch.models.layers import (DTYPES, apply_rope, dense_init,
                                        head_rms_norm)
-
-CROSS_ATTENTION_TODO = ("cross-attention (whisper) is not ported yet: "
-                        "ROADMAP.md queue 1 item 12 (LM substrate, audio "
-                        "family)")
 
 
 def padded_heads(cfg: ModelConfig) -> int:
@@ -108,17 +106,23 @@ def multi_head_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                          positions: torch.Tensor, kind: str, *,
                          causal: bool = True,
                          kv_x: Optional[torch.Tensor] = None,
+                         kv_positions: Optional[torch.Tensor] = None,
                          return_kv: bool = False):
-    """Full-sequence self-attention (train / prefill), positions 0..S-1.
+    """Full-sequence attention (train / prefill / encoder / cross).
 
-    With ``return_kv`` also returns the roped (k, v), (B, S, Kh, Dh), that
-    the prefill cache is built from.  ``kv_x`` (cross-attention) raises
-    ``NotImplementedError``.
+    q comes from ``x`` at ``positions``; k and v from ``kv_x`` at
+    ``kv_positions`` (default: ``x`` and ``positions``; for ``kv_x`` alone,
+    0..Sk-1), so cross-attention has Sq != Sk.  With ``return_kv`` also
+    returns the roped (k, v), (B, Sk, Kh, Dh), that the prefill cache is
+    built from.
     """
-    if kv_x is not None:
-        raise NotImplementedError(CROSS_ATTENTION_TODO)
     q = _project_q(p, cfg, x, positions, kind)
-    k, v = _project_kv(p, cfg, x, positions, kind)
+    if kv_x is None:
+        kv_x, kv_positions = x, positions
+    elif kv_positions is None:
+        kv_positions = torch.arange(kv_x.shape[1], device=kv_x.device
+                                    ).expand(kv_x.shape[:2])
+    k, v = _project_kv(p, cfg, kv_x, kv_positions, kind)
     out = mha(q, k, v, causal=causal, window=_window(cfg, kind),
               softcap=cfg.attn_logit_softcap)
     out = _finish(p, cfg, out)
@@ -137,20 +141,25 @@ def decode_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                      cache: Dict, pos: int, kind: str, *,
                      cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]]
                      = None) -> Tuple[torch.Tensor, Dict]:
-    """One-token self-attention.  x: (B, 1, d); pos: host int shared by the
+    """One-token attention.  x: (B, 1, d); pos: host int shared by the
     batch.
 
-    Writes (k, v) of the new token into ``cache`` at ``pos`` IN PLACE (the
-    reference returns a new cache from ``dynamic_update_slice``), then
-    attends over positions <= pos, window-clipped on local layers.  Returns
-    (out, cache), the cache being the same dict, updated.  ``cross_kv``
-    (cross-attention) raises ``NotImplementedError``.
+    Self-attention writes (k, v) of the new token into ``cache`` at ``pos``
+    IN PLACE (the reference returns a new cache from
+    ``dynamic_update_slice``), then attends over positions <= pos,
+    window-clipped on local layers.  With ``cross_kv`` = (ck, cv), the
+    encoder's (B, T, Kh, Dh) keys and values, the cache is left alone and
+    every one of the T rows is attended (the kernel at pos = T - 1).
+    Returns (out, cache), the cache being the same dict.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(CROSS_ATTENTION_TODO)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long,
                            device=x.device)
     q = _project_q(p, cfg, x, positions, kind)
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        out = decode_attn(q, ck, cv, ck.shape[1] - 1,
+                          softcap=cfg.attn_logit_softcap)
+        return _finish(p, cfg, out), cache
     k_new, v_new = _project_kv(p, cfg, x, positions, kind)
     cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)

@@ -1,4 +1,5 @@
-"""Primitive layers: inits, norms, FFNs, embeddings, rotary embeddings.
+"""Primitive layers: inits, norms, FFNs, embeddings, rotary embeddings,
+sinusoidal positions.
 
 Counterpart of ``repro.models.layers``.  Layers are functions over plain
 dicts of tensors with the reference's ``(in, out)`` weight layout.  Inits
@@ -91,6 +92,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, dim: int,
+                         device: Optional[torch.device] = None, *,
+                         start: int = 0) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position table (n_pos, dim) in
+    float32, rows ``start .. start + n_pos - 1`` (a row does not depend on
+    the table's length, so decode takes its one row directly)."""
+    log_timescale = math.log(10_000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(dim // 2,
+                                                  dtype=torch.float32,
+                                                  device=device))
+    scaled = torch.arange(start, start + n_pos, dtype=torch.float32,
+                          device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 # --------------------------------------------------------------------- embed

@@ -15,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 
 init_model = tfm.init_model
+frontend_input = tfm.frontend_input
 decode_step = tfm.decode_step
 init_cache = tfm.init_cache
 pad_cache_to = tfm.pad_cache_to

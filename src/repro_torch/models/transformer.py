@@ -4,12 +4,17 @@ Counterpart of ``repro.models.transformer``.  The reference stacks its
 layers into groups of the config's layer period and scans over them; here
 ``params["layers"]`` is a plain list with one dict per layer walked by a
 Python loop: ``ln1`` and the mixer (``attn`` for attention layers,
-``mamba`` for Mamba layers, ``mixer`` for mLSTM and sLSTM layers), then
+``mamba`` for Mamba layers, ``mixer`` for mLSTM and sLSTM layers), for
+whisper's decoder ``ln_cross`` and the cross-attention ``cross``, then
 ``ln2`` and the FFN block: ``ffn`` (dense), ``moe``, or both for
-"moe+dense"; none for xLSTM.  A cache is ``{"layers": [entry, ...]}``: an
-attention layer's entry is its (B, S, Kh, Dh) ``k``/``v`` pair, a Mamba
-layer's its state ``{h, conv}``, an mLSTM's ``{C, n, m}``, an sLSTM's ``{h,
-c, n, m}``.  Two full-sequence modes share one code path:
+"moe+dense"; none for xLSTM.  Whisper's encoder is ``params["encoder"]``:
+``{"layers": [...], "final_norm"}``, each layer ``ln1``, ``attn``, ``ln2``,
+``ffn`` (bidirectional attention, no rope).  A cache is ``{"layers":
+[entry, ...]}``: an attention layer's entry is its (B, S, Kh, Dh)
+``k``/``v`` pair (whisper's adds the encoder's (B, enc_frames, Kh, Dh)
+``ck``/``cv``), a Mamba layer's its state ``{h, conv}``, an mLSTM's ``{C,
+n, m}``, an sLSTM's ``{h, c, n, m}``.  Two full-sequence modes share one
+code path:
 
   train    full-sequence forward, no cache
   prefill  full-sequence forward, emits the cache (KV padded to cache_len)
@@ -18,14 +23,15 @@ and :func:`decode_step` runs one token at a host int position ``pos``,
 writing its K/V into the cache in place (a recurrent layer's entry is
 replaced by its new state).
 
-Ported so far: attention mixers (``attn``, ``attn_local``), the Mamba
-mixer and the mLSTM and sLSTM mixers, with dense, MoE and MoE + dense FFNs:
-the ``dense``, ``moe``, ``hybrid`` (jamba) and ``ssm`` (xLSTM) families.
-The audio and vlm families raise ``NotImplementedError`` naming their
-ROADMAP item.
+Every family runs: ``dense``, ``moe``, ``hybrid`` (jamba), ``ssm``
+(xLSTM), ``audio`` (whisper: the batch's ``frames``, (B, enc_frames, d) in
+the model's compute dtype, run through the encoder; sinusoidal absolute
+positions) and ``vlm`` (pixtral: the batch's ``patches``, (B, n_patches,
+d), in front of the tokens, so the text starts at position n_patches).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -39,26 +45,27 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
                                        init_ffn, norm_init, rms_norm,
-                                       unembed_logits)
-
-_NOT_PORTED = {
-    "audio": "ROADMAP.md queue 1 item 12, the audio family (whisper "
-             "encoder and cross-attention)",
-    "vlm": "ROADMAP.md queue 1 item 12, the vlm family (patch embeddings)",
-}
+                                       sinusoidal_positions, unembed_logits)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"not ported yet: {_NOT_PORTED[cfg.family]}")
-    for i in range(cfg.n_layers):
-        for part in (cfg.layer_kind(i), cfg.ffn_kind(i)):
-            if part in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer {i} needs {part!r}, not ported yet: "
-                    f"{_NOT_PORTED[part]}")
+class FrontendInput(NamedTuple):
+    """What a family's stub frontend puts in the batch: its ``name``
+    (None for a text-only family), its ``rows`` per request, and the
+    text's first position ``text_offset`` (a vlm's patches come first)."""
+    name: Optional[str]
+    rows: int
+    text_offset: int
+
+
+def frontend_input(cfg: ModelConfig) -> FrontendInput:
+    """whisper's ``frames`` (enc_frames rows, read by the encoder; the
+    text starts at 0) or pixtral's ``patches`` (n_patches rows in front of
+    the text)."""
+    if cfg.family == "audio":
+        return FrontendInput("frames", cfg.enc_frames, 0)
+    if cfg.family == "vlm":
+        return FrontendInput("patches", cfg.n_patches, cfg.n_patches)
+    return FrontendInput(None, 0, 0)
 
 
 # ----------------------------------------------------------------------- init
@@ -66,7 +73,6 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: DeviceLike = "cuda") -> Dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the ``meta`` device allocates nothing)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
@@ -77,10 +83,26 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt,
                                        dev)
+    cross = cfg.family == "audio"
     params["layers"] = [_init_layer(gen, cfg, cfg.layer_kind(i),
-                                    cfg.ffn_kind(i), dev)
+                                    cfg.ffn_kind(i), dev, cross)
                         for i in range(cfg.n_layers)]
+    if cross:
+        ecfg = _enc_cfg(cfg)
+        params["encoder"] = {
+            "layers": [_init_layer(gen, ecfg, ecfg.layer_kind(0),
+                                   ecfg.ffn_kind(0), dev)
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": norm_init(cfg.d_model, dev)}
     return params
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Encoder stack config for enc-dec archs: plain bidirectional
+    attention."""
+    return dataclasses.replace(cfg, local_global_period=0, sliding_window=0,
+                               attn_period=0, slstm_period=0, n_experts=0,
+                               rope_theta=0.0)
 
 
 class _Recurrent(NamedTuple):
@@ -103,13 +125,16 @@ _RECURRENT = {
 
 
 def _init_layer(gen, cfg: ModelConfig, kind: str, fkind: str,
-                dev: torch.device) -> Dict:
+                dev: torch.device, cross: bool = False) -> Dict:
     p: Dict = {"ln1": norm_init(cfg.d_model, dev)}
     if kind in _RECURRENT:
         mixer = _RECURRENT[kind]
         p[mixer.key] = mixer.init(gen, cfg, dev)
     else:
         p["attn"] = attn_lib.init_attention(gen, cfg, dev)
+    if cross:
+        p["ln_cross"] = norm_init(cfg.d_model, dev)
+        p["cross"] = attn_lib.init_attention(gen, cfg, dev)
     if fkind != "none":
         p["ln2"] = norm_init(cfg.d_model, dev)
         if fkind in ("dense", "moe+dense"):
@@ -123,12 +148,13 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, fkind: str,
 def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
                  x: torch.Tensor, mode: str,
                  positions: Optional[torch.Tensor], cache: Optional[Dict],
-                 pos: Optional[int]
+                 pos: Optional[int], enc_out: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
-    """One block: the mixer, then the FFN block unless ``fkind`` is "none"
-    (the dense FFN, the MoE FFN, or their sum for "moe+dense"), each
-    pre-normed and added to the residual.  Returns (x, cache entry, the
-    MoE's aux loss or None)."""
+    """One block: the mixer, whisper's cross-attention over ``enc_out``
+    (decode reads the encoder's k/v from the cache entry instead), then the
+    FFN block unless ``fkind`` is "none" (the dense FFN, the MoE FFN, or
+    their sum for "moe+dense"), each pre-normed and added to the residual.
+    Returns (x, cache entry, the MoE's aux loss or None)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     entry: Dict = {}
     if kind in _RECURRENT:
@@ -149,6 +175,20 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
     else:
         y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind)
     x = x + y
+    if "cross" in lp:                                      # whisper decoder
+        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        if mode == "decode":
+            y, _ = attn_lib.decode_attention(lp["cross"], cfg, h, {}, pos,
+                                             "attn",
+                                             cross_kv=(cache["ck"],
+                                                       cache["cv"]))
+        else:
+            y, (ck, cv) = attn_lib.multi_head_attention(
+                lp["cross"], cfg, h, positions, "attn", causal=False,
+                kv_x=enc_out, return_kv=True)
+            if mode == "prefill":
+                entry["ck"], entry["cv"] = ck, cv
+        x = x + y
     if fkind == "none":
         return x, entry, None
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -168,21 +208,69 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return unembed_logits(x, table, cfg)
 
 
+def encode_audio(params: Dict, cfg: ModelConfig,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, F, d): the sinusoidal
+    table added, then per layer bidirectional attention and the FFN, each
+    pre-normed and added to the residual, then the final norm.
+
+    ``frames`` must come in the model's compute dtype (``cfg.dtype``): the
+    reference's scans fail on any other (a float32 encoder output promotes
+    a bf16 decoder's residual stream; ``repro/launch/specs.py:41`` gives
+    bf16 models bf16 frames), so another dtype raises ``TypeError``."""
+    want = DTYPES[cfg.dtype]
+    if frames.dtype != want:
+        raise TypeError(
+            f"{cfg.name}: frames must be in the model's compute dtype "
+            f"{want}, got {frames.dtype}; the reference's scan raises a "
+            f"TypeError for these (repro/launch/specs.py:41 gives frames in "
+            f"the model's dtype)")
+    ecfg = _enc_cfg(cfg)
+    b, f = frames.shape[:2]
+    x = frames + sinusoidal_positions(f, cfg.d_model, frames.device
+                                      ).to(frames.dtype)[None]
+    positions = torch.arange(f, device=x.device).expand(b, f)
+    for lp in params["encoder"]["layers"]:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn_lib.multi_head_attention(lp["attn"], ecfg, h, positions,
+                                              "attn", causal=False)
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + ffn(lp["ffn"], cfg, h)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+def _embed_input(params: Dict, cfg: ModelConfig,
+                 batch: Dict) -> torch.Tensor:
+    """Token embeddings, after the vlm's patches (cast to their dtype),
+    with the absolute positions added when ``cfg.abs_positions``."""
+    x = embed_lookup(params["embed"], batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    if cfg.abs_positions:
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device
+                                     ).to(x.dtype)[None]
+    return x
+
+
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Full-sequence forward over ``batch["tokens"]`` (B, S), positions
-    0..S-1.  Returns (logits (B, S, V), the MoE layers' summed aux loss
-    (float32; 0 without MoE), cache or None).
+    """Full-sequence forward over ``batch["tokens"]`` (B, S) (and the
+    audio family's ``frames``, the vlm's ``patches``, which take positions
+    0..n_patches-1 before the tokens), positions 0..S-1.  Returns (logits
+    (B, S, V), the MoE layers' summed aux loss (float32; 0 without MoE),
+    cache or None).
 
-    With ``cfg.remat == "full"`` in train mode under grad, each layer runs
-    under ``torch.utils.checkpoint`` (the reference wraps each scanned layer
-    group in ``jax.checkpoint``): its activations are recomputed in the
-    backward, so each attention layer launches its forward kernel twice per
-    step; the numbers do not change."""
+    With ``cfg.remat == "full"`` in train mode under grad, each decoder
+    layer runs under ``torch.utils.checkpoint`` (the reference wraps each
+    scanned layer group in ``jax.checkpoint``): its activations are
+    recomputed in the backward, so each attention layer launches its
+    forward kernel twice per step; the numbers do not change."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
-    check_supported(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"], cfg)
+    enc_out = None
+    if cfg.family == "audio":
+        enc_out = encode_audio(params, cfg, batch["frames"])
+    x = _embed_input(params, cfg, batch)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries: List[Dict] = []
@@ -193,7 +281,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
                                   use_reentrant=False)
     for i, lp in enumerate(params["layers"]):
         x, entry, a = layer(lp, cfg, cfg.layer_kind(i), cfg.ffn_kind(i), x,
-                            mode, positions, None, None)
+                            mode, positions, None, None, enc_out)
         entries.append(entry)
         if a is not None:
             aux = aux + a
@@ -205,7 +293,8 @@ def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
     """Grow prefill KV entries (B, P, Kh, Dh) to (B, cache_len, Kh, Dh) with
     zeros (new tensors, so decoding in place never writes the prefill's).
     Recurrent states (and a Mamba layer's conv window) have no sequence
-    axis and pass unchanged."""
+    axis and pass unchanged, and so do whisper's encoder k/v (``ck``,
+    ``cv``)."""
     def grow(t: torch.Tensor) -> torch.Tensor:
         if cache_len <= t.shape[1]:
             return t
@@ -222,10 +311,15 @@ def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
                 token: torch.Tensor, pos: int
                 ) -> Tuple[torch.Tensor, Dict]:
-    """token: (B, 1) int; pos: host int, shared by the batch.  Returns
-    (logits (B, 1, V), cache); the cache is updated in place."""
-    check_supported(cfg)
+    """token: (B, 1) int; pos: host int, shared by the batch (for a vlm the
+    text's positions follow the n_patches patch rows).  Returns (logits (B,
+    1, V), cache); the cache is updated in place.  With
+    ``cfg.abs_positions`` the token gets row ``pos`` of the sinusoidal
+    table of ``cache_seq_len`` rows, as in the reference."""
     x = embed_lookup(params["embed"], token, cfg)
+    if cfg.abs_positions:
+        x = x + sinusoidal_positions(1, cfg.d_model, x.device,
+                                     start=int(pos)).to(x.dtype)[None]
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         x, layers[i], _ = _layer_apply(lp, cfg, cfg.layer_kind(i),
@@ -247,8 +341,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                device: DeviceLike = "cuda") -> Dict:
     """Zero cache matching :func:`decode_step`'s expectations (recurrent
     states are float32 whatever ``dtype``, as in the reference, except a
-    Mamba layer's conv rows, which take ``dtype``)."""
-    check_supported(cfg)
+    Mamba layer's conv rows, which take ``dtype``; whisper's attention
+    entries add zero (B, enc_frames, Kh, Dh) ``ck``/``cv``)."""
     dev = resolve_device(device)
 
     def entry(kind: str) -> Dict:
@@ -256,7 +350,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
             return ssm_lib.mamba_init_state(cfg, batch, dev, dtype)
         if kind in _RECURRENT:
             return _RECURRENT[kind].init_state(cfg, batch, dev)
-        return attn_lib.init_kv_cache(cfg, batch, seq, dtype, dev)
+        e = attn_lib.init_kv_cache(cfg, batch, seq, dtype, dev)
+        if cfg.family == "audio":
+            cross = attn_lib.init_kv_cache(cfg, batch, cfg.enc_frames,
+                                           dtype, dev)
+            e["ck"], e["cv"] = cross["k"], cross["v"]
+        return e
 
     return {"layers": [entry(cfg.layer_kind(i))
                        for i in range(cfg.n_layers)]}

@@ -6,19 +6,26 @@ are attended, as in the reference, which has no pad mask), positions run
 0..P-1, one joint prefill fills the cache, then every step decodes one token
 for the whole wave at the shared position ``pos``; greedy sampling takes the
 first maximum.  The next tokens come to the host once per step.
+
+A wave of the audio or vlm family takes its frontend's inputs as
+``extras`` (``{"frames": ...}`` or ``{"patches": ...}``, the reference's
+argument).  A vlm wave decodes from position ``n_patches + P``, after the
+patch rows its prefill put in front of the text: the reference's model
+contract (``tests/test_cache_consistency.py``), where the reference's
+engine decodes at P and so writes over the prefill's rows.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import decode_step, frontend_input, prefill
 
 
 @dataclass
@@ -71,18 +78,24 @@ class ServeEngine:
         return toks
 
     @torch.no_grad()
-    def serve_wave(self, reqs: List[Request]) -> ServeStats:
-        """One wave: joint prefill, then lockstep decode."""
+    def serve_wave(self, reqs: List[Request],
+                   extras: Optional[Dict] = None) -> ServeStats:
+        """One wave: joint prefill, then lockstep decode.  ``extras`` maps
+        batch names (``frames``, ``patches``) to numpy arrays or tensors,
+        which go to the engine's device with their values and dtype
+        unchanged."""
         stats = ServeStats()
         toks = self._pad_prompts(reqs)
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v).to(self.device)
         t0 = time.perf_counter()
         logits, cache = prefill(self.params, self.cfg, batch,
                                 cache_len=self.max_len)
         _sync(self.device)
         stats.prefill_s = time.perf_counter() - t0
 
-        pos = toks.shape[1]
+        pos = toks.shape[1] + frontend_input(self.cfg).text_offset
         next_tok = logits[:, -1:].argmax(dim=-1)                  # (B, 1)
         max_new = max(r.max_new_tokens for r in reqs)
         t0 = time.perf_counter()

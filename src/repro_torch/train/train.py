@@ -21,7 +21,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import apply_model, init_model
+from repro_torch.models import apply_model, frontend_input, init_model
 from repro_torch.models.layers import DTYPES
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
@@ -54,8 +54,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict
     tokens, plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss."""
     logits, aux = apply_model(params, cfg, batch)
     targets = batch["targets"]
-    if cfg.family == "vlm":                     # loss only over text positions
-        logits = logits[:, cfg.n_patches:]
+    logits = logits[:, frontend_input(cfg).text_offset:]   # text positions
     mask = ((targets >= 0) & (targets < cfg.raw_vocab_size)).float()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)

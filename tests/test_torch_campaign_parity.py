@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import assume, given, settings
+from hypothesis import assume, example, given, settings
 from hypothesis import strategies as st
 
 import repro.core.campaign_kernel as jck
@@ -302,8 +302,17 @@ def _pick_inputs(draw):
             np.float32(draw(_SCALAR)), np.float32(draw(_SCALAR)))
 
 
+def _has_subnormal(*arrays):
+    tiny = np.finfo(np.float32).tiny
+    return any(((a != 0) & (np.abs(a) < tiny)).any()
+               for a in map(np.asarray, arrays))
+
+
 @settings(max_examples=150, deadline=None)
 @given(_pick_inputs())
+@example((np.array([4.0, 8.0, 12.0], np.float32), np.array([True] * 3),
+          np.array([1e-45, 0.0, 50.0], np.float32), np.float32(4.0),
+          np.float32(1e-44), np.float32(100.0)))
 def test_fallback_pick_matches_reference_and_host_policy(inputs):
     cand, valid, totals, current, elapsed, target = inputs
     t = lambda a: torch.from_numpy(np.asarray(a))
@@ -312,7 +321,12 @@ def test_fallback_pick_matches_reference_and_host_policy(inputs):
     want = int(jfallback_pick(jnp.asarray(cand), jnp.asarray(valid),
                               jnp.asarray(totals), jnp.asarray(current),
                               jnp.asarray(elapsed), jnp.asarray(target)))
-    assert got == want
+    # XLA on the CPU flushes subnormal float32 to zero, so there the
+    # reference ties a total of 1e-45 with 0.0 where its own float64 host
+    # policy and the port do not: such draws are held against the host
+    # policy below only.
+    if not _has_subnormal(totals, current, elapsed, target):
+        assert got == want
     assert valid[got] or not valid.any()
     # the float64 host policy sees the same urgency band
     pol = FallbackPolicy()

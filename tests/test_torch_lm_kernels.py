@@ -58,6 +58,19 @@ DECODE_SPLIT_CASES = [(8, 2048, 16, 8, 128, pos, 0, 0.0)
      (2, 1024, 8, 4, 256, 700, 512, 50.0)]
 
 
+# (B, Sq, Sk, H, Kh, D): cross-attention and whisper's encoder, non-causal,
+# k and v of their own length: whisper-medium's decoder over its 1500
+# encoder rows (P up to 224), its encoder (1500 against 1500), and ragged
+# tails of both tiles at another group and head dim
+CROSS_CASES = [(8, 224, 1500, 16, 16, 64), (8, 4, 1500, 16, 16, 64),
+               (8, 1500, 1500, 16, 16, 64), (2, 37, 300, 8, 2, 128),
+               (2, 129, 77, 4, 4, 64)]
+# (B, S, H, Kh, D, pos): whisper's cross decode over every encoder row and
+# its self cache of 448 (max_target_positions)
+CROSS_DECODE_CASES = [(8, 1500, 16, 16, 64, 1499), (8, 448, 16, 16, 64, 447),
+                      (8, 448, 16, 16, 64, 231), (2, 77, 4, 4, 64, 76)]
+
+
 def _mha_inputs(b, s, h, kh, d, seed, sk=None):
     rng = np.random.RandomState(seed)
     sk = s if sk is None else sk
@@ -113,6 +126,50 @@ def test_mha_plain_kv_len_matches_reference_kernel(causal, win, cap):
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(ref).transpose(0, 2, 1, 3),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,bq,bk",
+                         [(2, 11, 12, 4, 2, 16, 11, 12),
+                          (1, 64, 192, 4, 2, 32, 32, 64),
+                          (1, 37, 1500, 2, 2, 64, 37, 100)])
+def test_mha_plain_cross_matches_reference_kernel(b, sq, sk, h, kh, d, bq,
+                                                  bk):
+    """Cross-attention's call, Sq != Sk and no mask, against the
+    reference's Pallas kernel in interpret mode (Sk = 1500: whisper's
+    encoder rows)."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.kernel import flash_attention
+    q, k, v = _mha_inputs(b, sq, h, kh, d, seed=sq + sk, sk=sk)
+    got = fa.mha(*_t(q, k, v), causal=False)
+    ref = flash_attention(*(jnp.asarray(x).transpose(0, 2, 1, 3)
+                            for x in (q, k, v)), causal=False, block_q=bq,
+                          block_k=bk)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(ref).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b,t,h,kh,d,cap", [(2, 12, 4, 2, 16, 0.0),
+                                            (2, 1500, 16, 16, 64, 0.0),
+                                            (1, 40, 8, 2, 32, 20.0)])
+def test_decode_attn_plain_cross_matches_reference(b, t, h, kh, d, cap):
+    """Decode over every one of T encoder rows (pos = T - 1) against the
+    reference model's cross decode: ``_sdpa`` with a zero bias over the
+    expanded encoder k/v (``repro/models/attention.py:205-211``)."""
+    import dataclasses
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_get_config
+    from repro.models import attention as ref_attn
+    rcfg = dataclasses.replace(ref_get_config("whisper-medium"), d_head=d,
+                               attn_logit_softcap=cap)
+    q, ck, cv = _decode_inputs(b, t, h, kh, d, seed=t + d)
+    got = fd.decode_attn(*_t(q, ck, cv), t - 1, softcap=cap)
+    ref = ref_attn._sdpa(rcfg, jnp.asarray(q),
+                         ref_attn._expand_kv(jnp.asarray(ck), h),
+                         ref_attn._expand_kv(jnp.asarray(cv), h),
+                         jnp.zeros((1, t), jnp.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
 
 
 @pytest.mark.parametrize("b,s,h,kh,d,pos,win", DECODE_SWEEP)
@@ -341,5 +398,41 @@ def test_decode_split_k_matches_plain_on_card(card, b, s, h, kh, d, pos,
     assert fd.LAUNCHES == launches + 2
     assert torch.equal(got, again)
     ref = fd.decode_attn_plain(q, ck, cv, pos, window=win, softcap=cap)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kh,d", CROSS_CASES)
+def test_mha_cross_matches_plain_on_card(card, b, sq, sk, h, kh, d, dtype):
+    """Sq != Sk, non-causal (cross-attention, whisper's encoder): one
+    launch a call, repeats bit-equal, the plain version's values."""
+    q, k, v = _t(*_mha_inputs(b, sq, h, kh, d, seed=sq + sk, sk=sk),
+                 device=card, dtype=dtype)
+    launches = fa.LAUNCHES
+    got, again = fa.mha(q, k, v, causal=False), fa.mha(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == launches + 2
+    assert got.shape == q.shape and torch.equal(got, again)
+    ref = fa.mha_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d,pos", CROSS_DECODE_CASES)
+def test_decode_cross_matches_plain_on_card(card, b, s, h, kh, d, pos,
+                                            dtype):
+    q, ck, cv = _t(*_decode_inputs(b, s, h, kh, d, seed=s + pos),
+                   device=card, dtype=dtype)
+    launches = fd.LAUNCHES
+    got = fd.decode_attn(q, ck, cv, pos)
+    again = fd.decode_attn(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == launches + 2
+    assert torch.equal(got, again)
+    ref = fd.decode_attn_plain(q, ck, cv, pos)
     torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])

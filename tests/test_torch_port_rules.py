@@ -61,13 +61,25 @@ jcfg = smoke_config(get_config("jamba-v0.1-52b"))
 jreq = Request(prompt=np.arange(5) + 2, max_new_tokens=3)
 ServeEngine(jcfg, init_model(jcfg, device="cpu"), max_len=32,
             device="cpu").serve_wave([jreq])
+wcfg = smoke_config(get_config("whisper-medium"))
+wreq = Request(prompt=np.arange(5) + 2, max_new_tokens=3)
+frames = np.full((1, wcfg.enc_frames, wcfg.d_model), 0.1, np.float32)
+ServeEngine(wcfg, init_model(wcfg, device="cpu"), max_len=32,
+            device="cpu").serve_wave([wreq], {"frames": frames})
+pcfg = smoke_config(get_config("pixtral-12b"))
+preq = Request(prompt=np.arange(5) + 2, max_new_tokens=3)
+patches = np.full((1, pcfg.n_patches, pcfg.d_model), 0.1, np.float32)
+ServeEngine(pcfg, init_model(pcfg, device="cpu"), max_len=32,
+            device="cpu").serve_wave([preq], {"patches": patches})
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              or m.startswith("jax"))
 print(json.dumps({"pick": pick, "svc_pick": svc_pick, "spans": spans,
                   "tokens": req.out_tokens,
                   "xlstm_tokens": xreq.out_tokens,
-                  "jamba_tokens": jreq.out_tokens, "bad": bad}))
+                  "jamba_tokens": jreq.out_tokens,
+                  "whisper_tokens": wreq.out_tokens,
+                  "pixtral_tokens": preq.out_tokens, "bad": bad}))
 """
 
 
@@ -84,6 +96,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert len(got["tokens"]) == 3
     assert len(got["xlstm_tokens"]) == 3
     assert len(got["jamba_tokens"]) == 3
+    assert len(got["whisper_tokens"]) == 3
+    assert len(got["pixtral_tokens"]) == 3
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -97,6 +111,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.dataflow.workloads import JOBS
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
+    from repro_torch.launch.quickstart import main as quickstart_main
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import init_cache, init_model
     from repro_torch.serve.engine import ServeEngine
@@ -114,6 +129,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: serve_main(["--arch", "qwen3-0.6b", "--smoke"]),
              lambda: serve_main(["--arch", "xlstm-350m", "--smoke"]),
              lambda: serve_main(["--arch", "jamba-v0.1-52b", "--smoke"]),
+             lambda: serve_main(["--arch", "whisper-medium", "--smoke"]),
+             lambda: serve_main(["--arch", "pixtral-12b", "--smoke"]),
+             lambda: quickstart_main(["--arch", "whisper-medium"]),
              lambda: EnelTrainer(),
              lambda: ContextEncoder([JOBS["kmeans"]]),
              lambda: init_enel(torch.Generator()),
