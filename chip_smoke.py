@@ -306,7 +306,30 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens/s, device-busy and idle shares, kernels and top kernels of a
    prefill and of a step, peak memory; each attention kernel at these
    shapes in a CUDA graph beside one SDPA call and its bound;
-23. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
+23. distribution on the card: (a) a world of one process over NCCL (a
+    ``FileStore``), mesh (1, 1); from one seeded state of qwen3-0.6b as
+    published, 3 steps each of the plain train step, the uncompressed and
+    the compressed DP step (``train/dp_step.py``, int8 with error
+    feedback) and the sharded step (the state as DTensors placed by
+    ``state_shardings``) on phase 21's batch under deterministic
+    algorithms.  Gates: the uncompressed DP step equals the plain step bit
+    for bit, and so does the sharded step (else its clip norm within 1e-6
+    relative and its state at atol 1e-4 / rtol 1e-3, printed as such); the
+    compressed step's first loss within 1e-4 and its parameters within
+    5e-3 after 3 steps; 56 ``flash_attention_fwd`` launches a step in
+    each.  (b) a 2-rank world on the one card over gloo (NCCL refuses two
+    ranks on one device; a correctness rehearsal, not a performance
+    figure), the children loading the kernels the parent built: the
+    elastic trainer at full width, 2 layers, batch 8 x 512, DP choices
+    (1, 2), a worker-group loss at component 2.  Gates: a rescale 2 -> 1,
+    re-meshes restored (resharded) bit for bit, the same DP trace and
+    picks on both ranks, each rank's ``graph_prop_bwd`` launches = its
+    Adam steps and ``graph_prop_fwd`` = Adam steps + decisions, 4
+    ``flash_attention_fwd`` launches a step it computed.  Printed beside
+    the card: ms per step of each variant, the compressed step's extra
+    host time and kernels a step, the gradient all-reduce's ms, peak
+    memory, the elastic DP trace and stage times, the phase's seconds;
+24. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
     script started), a ``{"kernels": [...]}`` line, then the device line
     last.
 
@@ -3862,6 +3885,387 @@ def run_audio_vlm(device, card, fa, fd, others, cfgs=(None, None)):
     return {"whisper": wh, "pixtral": px, "seconds": phase_s}
 
 
+# ------------------------------------------------------------------ phase 23
+DIST_STEPS = 3
+DIST_ELASTIC = dict(n_components=4, steps_per_component=2, dp_choices=(1, 2),
+                    fail_at_component=2)
+DIST_WORLD_TIMEOUT = 300
+
+
+def tree_max_diff(a, b) -> float:
+    from repro_torch import tree
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def dist_variant(name, cfg, opt, batches, device, fa, mesh, rules):
+    """``DIST_STEPS`` steps of one variant of the train step from the seeded
+    state: (final state, losses, grad norms, seconds a step, flash
+    attention launches a step, the step function and its state)."""
+    from repro_torch.launch.shardings import shard_tree, state_shardings
+    from repro_torch.models.sharding import use_rules
+    from repro_torch.train.dp_step import make_dp_train_step
+    from repro_torch.train.train import init_train_state, make_train_step
+    state = init_train_state(SEED, cfg, opt, device=device)
+    err = None
+    if name == "plain":
+        plain = make_train_step(cfg, opt)
+        step = lambda s, b: plain(s, b)
+    elif name in ("dp", "dp_compressed"):
+        fn, init_extra = make_dp_train_step(cfg, opt, mesh,
+                                            compress=name != "dp")
+        if name == "dp_compressed":
+            err = init_extra(state["params"])
+        holder = {"err": err}
+
+        def step(s, b):
+            s, holder["err"], m = fn(s, holder["err"], b)
+            return s, m
+    else:
+        state = shard_tree(state, mesh, state_shardings(cfg, mesh, state))
+        sharded = make_train_step(cfg, opt)
+
+        def step(s, b):
+            with use_rules(mesh, rules):
+                return sharded(s, b)
+    losses, gnorms, secs, fas = [], [], [], []
+    for b in batches:
+        before = fa.LAUNCHES
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))              # waits for the card
+        secs.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        fas.append(fa.LAUNCHES - before)
+    return state, losses, gnorms, secs, fas, step
+
+
+def compression_check(cfg, opt, batch, device, mesh, norm: float,
+                      c_norm: float) -> dict:
+    """Step 0 of the compressed DP step against the uncompressed one from
+    the seeded state, where the compression shows: the gradients of
+    ``batch`` reduced by ``psum_compressed_tree`` (a zero error state) lie
+    within half a quantization step (the leaf's shared scale / 2) of their
+    mean, element by element; the error buffer holds what the int8
+    payload left out; and the compressed step's grad norm ``c_norm`` lies
+    within the norm of the two reductions' difference of the uncompressed
+    step's ``norm`` (the triangle inequality, with 1e-5 relative for the
+    norms' own rounding).  A missing division by the group's size, a wrong
+    group or a wrong error buffer fails it.  Its attention launches are
+    not the main path's: the caller read the counts before."""
+    import math
+    import torch.distributed as dist
+    from repro_torch.train.compression import (init_error_state,
+                                               psum_compressed_tree)
+    from repro_torch.train.train import _value_and_grad, init_train_state
+    group = mesh.get_group("data")
+    n = mesh.size(mesh.mesh_dim_names.index("data"))
+
+    def mean(t):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t / torch.tensor(n, dtype=t.dtype, device=t.device)
+
+    state = init_train_state(SEED, cfg, opt, device=device)
+    _, _, g = _value_and_grad(state["params"], cfg, batch)
+    del state
+    g_c, err = psum_compressed_tree(g, init_error_state(g), group)
+    half, ef, gap2 = 0.0, 0.0, 0.0
+    for x, c, e in zip(g, g_c, err):
+        s = x.float().abs().max().reshape(1)
+        dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)
+        s = float(s) / 127.0
+        if s == 0.0:
+            continue
+        half = max(half, float((c - mean(x.float())).abs().max()) / s)
+        ef = max(ef, float((mean(x.float() - e) - c).abs().max()) / s)
+        gap2 += float(torch.sum(torch.square(
+            c.double() - mean(x).double())))
+    del g, g_c, err
+    gap = math.sqrt(gap2)
+    out = dict(half_steps=half, ef_gap=ef, gap_norm=gap,
+               norm_gap=abs(c_norm - norm))
+    assert half <= 0.5 + 1e-4, out
+    assert ef <= 1e-3, out
+    assert gap > 0, out
+    assert out["norm_gap"] <= gap + 1e-5 * norm, (out, norm, c_norm)
+    return out
+
+
+def allreduce_ms(params, mesh) -> dict:
+    """CUDA-event ms of one step's gradient reduction on parameter-shaped
+    bf16 tensors: the uncompressed ``all_reduce`` of every leaf, and
+    ``psum_compressed_tree`` (int8, its error state in float32)."""
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.train.compression import (init_error_state,
+                                               psum_compressed_tree)
+    grads = [torch.randn(p.shape, device=p.device).to(p.dtype)
+             for p in tree.leaves(params)]
+    err = init_error_state(grads)
+    group = mesh.get_group("data")
+
+    def plain():
+        for g in grads:
+            dist.all_reduce(g, group=group)
+
+    def compressed():
+        psum_compressed_tree(grads, err, group)
+    out = {}
+    for name, fn in (("all_reduce", plain), ("psum_compressed", compressed)):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        out[name] = float(np.median(ts))
+    out["bytes_bf16"] = sum(g.numel() * g.element_size() for g in grads)
+    del grads, err
+    return out
+
+
+def _elastic_rank(rank, world, ckdir):
+    """Phase 23 (b), one rank of the 2-rank gloo world on the card: the
+    elastic trainer at full width, 2 layers; the kernels load from the
+    parent's build directory."""
+    import dataclasses
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.graph_prop import ops
+    from repro_torch.launch.shardings import gather_tree
+    from repro_torch.train import elastic
+    for fn in (ops._kernel_fn, ops._bwd_kernel_fn, fa._kernel_fn):
+        fn()
+    assert not any(build.BUILDS[k].compiled for k in (
+        "graph_prop_fwd", "graph_prop_bwd", "flash_attention_fwd")), \
+        "a child compiled a kernel"
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=ELASTIC_LAYERS)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=ELASTIC_SEQ,
+                                global_batch=TRAIN_BATCH)
+    ecfg = elastic.ElasticConfig(target_runtime=ELASTIC_TARGET_S,
+                                 ckpt_dir=ckdir, seed=SEED, **DIST_ELASTIC)
+    t0 = time.perf_counter()
+    ops.LAUNCHES = ops.LAUNCHES_BWD = 0
+    fa.LAUNCHES = 0
+    tr = elastic.ElasticTrainer(cfg, shape, ecfg, device="cuda")
+    restores = []
+    build_fn = tr._build
+
+    def checked_build(dp, restore_from=None):
+        before = gather_tree(tr._state) if (
+            restore_from is not None and tr.in_mesh) else None
+        build_fn(dp, restore_from)
+        if before is not None and tr.in_mesh:
+            after = gather_tree(tr._state)
+            from repro_torch import tree
+            restores.append((dp, all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(tree.leaves(before), tree.leaves(after)))))
+    tr._build = checked_build
+    res = tr.run()
+    torch.cuda.synchronize()
+    return dict(res=res, picks=tr.picks, restores=restores,
+                fwd=ops.LAUNCHES, bwd=ops.LAUNCHES_BWD, fa=fa.LAUNCHES,
+                adam_steps=tr.enel.adam_steps, losses=tr.losses,
+                steps_run=len(tr.losses), seconds=time.perf_counter() - t0,
+                logs=[(l.comp_idx, l.dp, l.rescaled_from, l.failed,
+                       l.stage_times) for l in tr.logs])
+
+
+def run_distribution(device, card, fa, ops):
+    """Phase 23: distribution on the card.  (a) A world of one process over
+    NCCL (a ``FileStore``), mesh (1, 1): from one seeded state of
+    qwen3-0.6b as published, ``DIST_STEPS`` steps of the plain step, the
+    uncompressed and the compressed DP step and the sharded step on phase
+    21's batch (8 x 1024) under deterministic algorithms; the uncompressed
+    DP step and the sharded step equal the plain one bit for bit (state,
+    losses, grad norms), the compressed step within the reference's gates
+    (loss 1e-4 at the first step, parameters 5e-3) and, from the seeded
+    state, at the int8 bound (:func:`compression_check`), 56
+    ``flash_attention_fwd`` launches a step in each.  (b) A 2-rank world
+    on the one card over gloo (NCCL refuses two ranks on one device): the
+    elastic trainer at full width, 2 layers, DP choices (1, 2), a
+    worker-group loss at component 2: a rescale 2 -> 1, re-meshes restored
+    bit for bit, the same picks on both ranks, each rank's graph kernels
+    launching as phase 21 (d)'s."""
+    import dataclasses
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import gather_tree, logical_rules
+    from repro_torch.launch.world import run_world
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import batch_to_device
+    t_phase = time.perf_counter()
+    work = ROOT / "build"
+    work.mkdir(parents=True, exist_ok=True)
+
+    # (a) world size 1 over NCCL
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    batches = [batch_to_device(global_batch(DataConfig(seed=SEED), cfg,
+                                            shape, i), device)
+               for i in range(DIST_STEPS)]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    store_dir = tempfile.mkdtemp(dir=work)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device_type="cuda")
+        rules = logical_rules(cfg, mesh, shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = 0
+        runs, keep = {}, {}
+        for name in ("plain", "dp", "dp_compressed", "sharded"):
+            state, losses, gnorms, secs, fas, step = dist_variant(
+                name, cfg, opt, batches, device, fa, mesh, rules)
+            runs[name] = dict(losses=losses, grad_norms=gnorms,
+                              ms_per_step=float(np.median(secs[1:])) * 1e3,
+                              step_ms=[s * 1e3 for s in secs],
+                              fa_per_step=fas)
+            final = gather_tree(state) if name == "sharded" else state
+            if name == "plain":
+                keep["plain"] = final
+            elif name == "dp":
+                trees_bit_equal(final, keep["plain"], "DP step vs plain")
+                assert losses == runs["plain"]["losses"], \
+                    (losses, runs["plain"]["losses"])
+                assert gnorms == runs["plain"]["grad_norms"]
+            elif name == "dp_compressed":
+                d_loss = [abs(a - b) for a, b in zip(
+                    losses, runs["plain"]["losses"])]
+                d_params = tree_max_diff(final["params"],
+                                         keep["plain"]["params"])
+                assert d_loss[0] < 1e-4, d_loss
+                assert d_params < 5e-3, d_params
+                runs[name].update(loss_diffs=d_loss, params_max_diff=d_params)
+            else:
+                trees_bit_equal(final, keep["plain"], "sharded step vs plain")
+                assert losses == runs["plain"]["losses"], \
+                    (losses, runs["plain"]["losses"])
+                assert gnorms == runs["plain"]["grad_norms"], \
+                    (gnorms, runs["plain"]["grad_norms"])
+            if name == "dp_compressed":
+                # kernels a step of both DP steps, from one trace each
+                runs[name]["trace"] = busy_summary(device_rows(
+                    lambda: step(state, batches[0])[1]["loss"].item()))
+            del state, final
+            torch.cuda.empty_cache()
+            assert fas == [2 * cfg.n_layers] * DIST_STEPS, (name, fas)
+        dist_fa = fa.LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        red = allreduce_ms(keep["plain"]["params"], mesh)
+        del keep
+        torch.cuda.empty_cache()
+        qc = compression_check(cfg, opt, batches[0], device, mesh,
+                               runs["dp"]["grad_norms"][0],
+                               runs["dp_compressed"]["grad_norms"][0])
+        runs["dp_compressed"]["int8_check"] = qc
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    extra = runs["dp_compressed"]["ms_per_step"] - runs["dp"]["ms_per_step"]
+    tr_c = runs["dp_compressed"]["trace"]
+    say(f"phase 23 (a) world size 1 over NCCL, mesh (1, 1), {TRAIN_ARCH} as "
+        f"published, B={TRAIN_BATCH} S={TRAIN_SEQ}, {DIST_STEPS} steps "
+        f"each from seed {SEED} on {card}: "
+        + "; ".join(f"{k} {v['ms_per_step']:.1f} ms a step (losses "
+                    + ", ".join(f"{x:.6f}" for x in v["losses"]) + ")"
+                    for k, v in runs.items())
+        + f"; DP step and sharded step == plain bit for bit"
+        + f"; compressed: loss diffs "
+        + ", ".join(f"{x:.2e}" for x in runs["dp_compressed"]["loss_diffs"])
+        + f", params {runs['dp_compressed']['params_max_diff']:.2e} off; "
+        f"step 0's reduced gradients within {qc['half_steps']:.6f} "
+        f"quantization steps of the mean, its grad norm "
+        f"{qc['norm_gap']:.3e} off the uncompressed step's (bound "
+        f"{qc['gap_norm']:.3e}); "
+        f"{extra:.1f} ms more a step than the uncompressed DP step, "
+        f"{tr_c[2]:.0f} kernels a step (busy {tr_c[0]:.1f} ms); "
+        f"flash_attention_fwd {runs['plain']['fa_per_step'][0]} launches a "
+        f"step in each; peak "
+        f"{peak_gib:.2f} GiB; gradient all_reduce of "
+        f"{red['bytes_bf16'] / 1e9:.2f} GB (bf16) {red['all_reduce']:.2f} ms, psum_compressed "
+        f"{red['psum_compressed']:.2f} ms")
+
+    # (b) a 2-rank world on the one card over gloo
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        res = run_world(_elastic_rank, 2, os.path.join(tmp, "store"),
+                        backend="gloo", timeout=DIST_WORLD_TIMEOUT,
+                        args=(os.path.join(tmp, "ck"),), threads=0)
+    world_s = time.perf_counter() - t0
+    r0 = res[0]
+    out = r0["res"]
+    decisions = DIST_ELASTIC["n_components"] - 1
+    assert out["final_step"] == 8, out
+    assert any(l[2] == 2 and l[1] == 1 for l in r0["logs"]), r0["logs"]
+    for r in res:
+        assert r["res"] == out and r["picks"] == r0["picks"], (r, r0)
+        assert r["bwd"] == r["adam_steps"] > 0, (r["bwd"], r["adam_steps"])
+        assert r["fwd"] == r["adam_steps"] + decisions, (r["fwd"], decisions)
+        assert r["fa"] == 2 * ELASTIC_LAYERS * r["steps_run"], r["fa"]
+        assert all(np.isfinite(r["losses"])), r["losses"]
+    restores = [x for r in res for x in r["restores"]]
+    assert restores and all(ok for _, ok in restores), restores
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 23 (b) 2 ranks on one card over gloo, {TRAIN_ARCH} at full "
+        f"width, {ELASTIC_LAYERS} layers, B={TRAIN_BATCH} S={ELASTIC_SEQ}, "
+        f"DP choices {DIST_ELASTIC['dp_choices']}, a loss at component "
+        f"{DIST_ELASTIC['fail_at_component']} on {card}: DP trace "
+        f"{out['dp_trace']} on both ranks, picks {r0['picks']}, "
+        f"{out['n_rescales']} rescales, re-meshes restored bit for bit to "
+        f"dp {[dp for dp, _ in restores]}; steps computed by rank "
+        f"{[r['steps_run'] for r in res]}; graph_prop_bwd "
+        f"{[r['bwd'] for r in res]} = Adam steps, graph_prop_fwd "
+        f"{[r['fwd'] for r in res]} = steps + {decisions} decisions, "
+        f"flash_attention_fwd {[r['fa'] for r in res]}; the world "
+        f"{world_s:.1f} s (trainers {[round(r['seconds'], 1) for r in res]})")
+    for l in r0["logs"]:
+        say(f"  component {l[0]}: dp {l[1]}"
+            + (f" (from {l[2]})" if l[2] else "") + (" FAILED" if l[3] else "")
+            + "; " + ", ".join(f"{k} {v:.3f} s" for k, v in l[4].items()))
+    say(f"phase 23: {phase_s:.1f} s")
+    return {"launches": {"distribution_fa": dist_fa,
+                         "elastic_world_fwd": sum(r["fwd"] for r in res),
+                         "elastic_world_bwd": sum(r["bwd"] for r in res),
+                         "elastic_world_fa": sum(r["fa"] for r in res)},
+            "world1": {k: {kk: vv for kk, vv in v.items() if kk != "trace"}
+                       for k, v in runs.items()},
+            "compressed_extra_ms": extra,
+            "compressed_trace": {"busy_ms": tr_c[0],
+                                 "kernels_per_step": tr_c[2]},
+            "peak_gib": peak_gib, "allreduce": red,
+            "elastic_world": {"result": out, "picks": r0["picks"],
+                              "restores": restores,
+                              "ranks": [{k: r[k] for k in (
+                                  "fwd", "bwd", "fa", "adam_steps",
+                                  "steps_run", "seconds")} for r in res],
+                              "seconds": world_s},
+            "seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -4424,7 +4828,13 @@ def main() -> int:
     wh_l, px_l = av["whisper"]["launches"], av["pixtral"]["launches"]
     mark("22")
 
-    # 23. results
+    # 23. distribution: NCCL at world size 1, a 2-rank gloo world
+    dist_r = run_distribution(device, card, fa, ops)
+    say(json.dumps({"card": card, "distribution": dist_r}))
+    d_launch = dist_r["launches"]
+    mark("23")
+
+    # 24. results
     say(json.dumps({"phase_clock": PHASE_CLOCK}))
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
@@ -4432,12 +4842,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/graph_prop/kernel.py:271",
         "launches": launches + t_launches + fleet["launches"]
         + sim["graph_launches_fleet"][0] + f_launch["graph_prop_fwd"]
-        + t_launch["elastic_fwd"],
+        + t_launch["elastic_fwd"] + d_launch["elastic_world_fwd"],
         "launches_by_path": {"decision": launches, "training": t_launches,
                              "fleet": fleet["launches"],
                              "sim_fleet": sim["graph_launches_fleet"][0],
                              "fused": f_launch["graph_prop_fwd"],
-                             "elastic": t_launch["elastic_fwd"]},
+                             "elastic": t_launch["elastic_fwd"],
+                             "elastic_world": d_launch["elastic_world_fwd"]},
         "check_launches": {"training_decision_replay": replay_launches},
         "max_abs_err": max_err,
         "ms": kernel_graph_ms, "graph_ms": kernel_graph_ms,
@@ -4456,12 +4867,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/graph_prop/kernel.py:208",
         "launches": t_launches_bwd + fleet["launches_bwd"]
         + sim["graph_launches_fleet"][1] + f_launch["graph_prop_bwd"]
-        + t_launch["elastic_bwd"],
+        + t_launch["elastic_bwd"] + d_launch["elastic_world_bwd"],
         "launches_by_path": {"training": t_launches_bwd,
                              "fleet": fleet["launches_bwd"],
                              "sim_fleet": sim["graph_launches_fleet"][1],
                              "fused": f_launch["graph_prop_bwd"],
-                             "elastic": t_launch["elastic_bwd"]},
+                             "elastic": t_launch["elastic_bwd"],
+                             "elastic_world": d_launch["elastic_world_bwd"]},
         "max_abs_err": max_err_bwd,
         "ms": bwd_graph_ms, "graph_ms": bwd_graph_ms,
         "back_to_back_ms": bwd_ms, "plain_ms": bwd_plain_ms,
@@ -4475,13 +4887,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
         "launches": fa_launches + jb["launches"][1]
         + t_launch["training_lm"] + t_launch["elastic_fa"] + wh_l[0]
-        + px_l[0],
+        + px_l[0] + d_launch["distribution_fa"]
+        + d_launch["elastic_world_fa"],
         "launches_by_path": {"serving": fa_launches,
                              "serving_jamba": jb["launches"][1],
                              "training_lm": t_launch["training_lm"],
                              "elastic": t_launch["elastic_fa"],
                              "serving_whisper": wh_l[0],
-                             "serving_pixtral": px_l[0]},
+                             "serving_pixtral": px_l[0],
+                             "distribution": d_launch["distribution_fa"],
+                             "elastic_world": d_launch["elastic_world_fa"]},
         "check_launches": {"grad_and_plain_route_checks":
                            t_check["flash_attention_fwd"]},
         "grad_max_abs_err": lm_train["grads"]["mha"]["grad_max_abs_err"],

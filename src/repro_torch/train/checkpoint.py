@@ -13,9 +13,19 @@ A checkpoint is written into ``.tmp_step_<N:08d>`` and published with
 leaves; the port's machines have neither ``msgpack`` nor ``ml_dtypes``
 (numpy's bfloat16), so the manifest is JSON and a leaf is its raw bytes
 with its torch dtype in the manifest: a bfloat16 leaf round-trips bit for
-bit.  Restore places every leaf on the target ``device``, the port's form of
-the reference's ``shardings=`` (a re-mesh at world size 1 restores onto the
-same card).
+bit.  Restore places every leaf on the target ``device``.
+
+On a process group a save streams the tree one leaf at a time: it gathers
+the leaf's full tensor (``launch.shardings.full_tensor``, a collective over
+its mesh: every rank of the mesh calls the save), rank 0 copies it to the
+host and writes it, and the gathered copy is freed before the next leaf,
+so no rank ever holds more than one whole leaf beside its shards.  Every
+rank of the world then waits at a barrier, so that a restore on any rank
+finds the files.  ``restore_checkpoint(..., shardings=, mesh=)`` reads
+each leaf on the host, cuts this rank's slice of it there and moves only
+that slice to the device (``launch.shardings.from_host``), the reference's
+resharding restore; the new mesh may differ from the one that saved.
+Without ``shardings`` a restore is as on one device.
 """
 from __future__ import annotations
 
@@ -43,26 +53,43 @@ def _dtype(name: str) -> torch.dtype:
 
 def save_checkpoint(directory: str, step: int, state,
                     metadata: Optional[Dict] = None) -> str:
-    """Write every leaf of ``state`` (tensors on any device, or numpy
-    arrays) under ``<directory>/step_<step:08d>``; returns that path."""
+    """Write every leaf of ``state`` (tensors on any device, ``DTensor``
+    objects or numpy arrays) under ``<directory>/step_<step:08d>``;
+    returns that path.  On a process group only rank 0 writes, and every rank of the
+    world must call it (see the module's docstring)."""
+    import torch.distributed as dist
+    from repro_torch.launch.shardings import full_tensor
+    group = dist.is_available() and dist.is_initialized()
+    writer = not group or dist.get_rank() == 0
     base = Path(directory)
-    base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
     tmp = base / f".tmp_step_{step:08d}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
+    if writer:
+        base.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
     manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
-    for i, (key, leaf) in enumerate(sorted(tree.leaves_with_paths(state))):
-        t = torch.as_tensor(leaf).detach().to("cpu").contiguous()
-        fname = f"leaf_{i:05d}.bin"
-        t.reshape(-1).view(torch.uint8).numpy().tofile(tmp / fname)
-        manifest["leaves"][key] = {"file": fname, "shape": list(t.shape),
-                                   "dtype": str(t.dtype).split(".")[-1]}
-    (tmp / MANIFEST).write_text(json.dumps(manifest))
-    if final.exists():
-        shutil.rmtree(final)
-    os.rename(tmp, final)                         # atomic publish
+    for i, (key, leaf) in enumerate(sorted(tree.leaves_with_paths(state),
+                                           key=lambda kv: kv[0])):
+        with torch.no_grad():
+            full = full_tensor(leaf)              # one leaf at a time
+        if writer:
+            t = torch.as_tensor(full).detach().to("cpu").contiguous()
+            fname = f"leaf_{i:05d}.bin"
+            t.reshape(-1).view(torch.uint8).numpy().tofile(tmp / fname)
+            manifest["leaves"][key] = {"file": fname,
+                                       "shape": list(t.shape),
+                                       "dtype": str(t.dtype).split(".")[-1]}
+            del t
+        del full
+    if writer:
+        (tmp / MANIFEST).write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)                     # atomic publish
+    if group:
+        dist.barrier()
     return str(final)
 
 
@@ -75,20 +102,25 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _load_leaf(src: Path, info: Dict, device: torch.device) -> torch.Tensor:
+def _read_leaf(src: Path, info: Dict) -> torch.Tensor:
+    """A leaf's tensor on the host."""
     raw = torch.from_numpy(np.fromfile(src / info["file"], np.uint8))
-    t = raw.view(_dtype(info["dtype"])).reshape(info["shape"])
-    return t.to(device)
+    return raw.view(_dtype(info["dtype"])).reshape(info["shape"])
 
 
 def restore_checkpoint(directory: str, tree_like,
                        step: Optional[int] = None,
-                       device: Optional[DeviceLike] = None
+                       device: Optional[DeviceLike] = None,
+                       shardings=None, mesh=None
                        ) -> Tuple[Any, int, Dict]:
     """Restore into the structure of ``tree_like`` (the latest step unless
     ``step`` is given): (state, step, metadata).  Each leaf keeps its saved
     dtype and lands on ``device``, or, without one, on the device of the
-    matching leaf of ``tree_like`` (the CPU for a numpy leaf).
+    matching leaf of ``tree_like`` (the CPU for a numpy leaf).  With
+    ``shardings`` (a tree of ``launch.shardings.PartitionSpec`` like
+    ``tree_like``) and ``mesh``, each leaf becomes a ``DTensor`` on
+    ``mesh`` placed by its spec, its local slice on ``device`` (without
+    one, the mesh's device type); only that slice leaves the host.
 
     Raises ``FileNotFoundError`` when there is no checkpoint, ``KeyError``
     when one lacks a leaf of ``tree_like`` and ``ValueError`` when a leaf's
@@ -100,6 +132,11 @@ def restore_checkpoint(directory: str, tree_like,
     src = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((src / MANIFEST).read_text())
     dev = None if device is None else resolve_device(device)
+    specs = None
+    if shardings is not None:
+        from repro_torch.launch.shardings import from_host
+        specs = dict(tree.leaves_with_paths(shardings))
+        dev = dev or resolve_device(mesh.device_type)
     out = {}
     for key, leaf in tree.leaves_with_paths(tree_like):
         info = manifest["leaves"].get(key)
@@ -110,7 +147,9 @@ def restore_checkpoint(directory: str, tree_like,
                              f"{tuple(info['shape'])} vs {np.shape(leaf)}")
         target = dev or (leaf.device if isinstance(leaf, torch.Tensor)
                          else torch.device("cpu"))
-        out[key] = _load_leaf(src, info, target)
+        host = _read_leaf(src, info)
+        out[key] = host.to(target) if specs is None else \
+            from_host(host, mesh, specs[key], target)
     restored = tree.map_with_paths(lambda key, _: out[key], tree_like)
     return restored, manifest["step"], manifest["metadata"]
 

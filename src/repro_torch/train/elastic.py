@@ -10,16 +10,27 @@ runtime target demands it.  A simulated worker-group loss shrinks the DP
 degree and restarts from the latest checkpoint: the paper's §V-B.4
 scenario on an ML job.
 
-World size 1.  Until the port has a device mesh (ROADMAP.md queue 1 item
-13) it runs on one device, and ``dp`` is the *logical* data-parallel degree
-that Enel picks: it is recorded in the component logs, the stage contexts
-and the checkpoint metadata.  Every step computes the whole global batch,
-which is what the reference's DP-sharded step computes.  A change of
-``dp`` does what the reference's ``_build`` does with a new mesh:
-``save_checkpoint``, a rebuild of the step, and ``restore_checkpoint`` of
-the saved state onto the device; the failure path restores the latest
-checkpoint the same way.  So the re-mesh cost Enel observes is the real
-checkpoint round trip.
+On a process group (``torch.distributed`` initialised by the caller: NCCL
+on cards, gloo on the CPU) a DP degree is a mesh: ``_build(dp)`` takes
+``launch.mesh.make_mesh(dp, ecfg.tp)`` over the world's first ``dp * tp``
+ranks (made at the degree's first use and kept for the run) and places the state by ``launch.shardings.state_shardings`` (a
+re-mesh restores the checkpoint resharded onto the new mesh), and every
+step is the sharded train step, each rank computing its rows of the
+global batch.  A DP degree above the world's size raises.  Ranks outside
+the current mesh idle through a component, as the reference's spare
+devices do, but join every collective of the world: mesh creation, the
+checkpoint barrier and the broadcasts below.  The stage times are rank
+0's clock, broadcast to every rank, so that every rank builds the same
+graphs and Enel (trained on every rank) picks the same degree on each;
+the run checks that the picks agree (``picks``).
+
+Without a process group it runs on one device, and ``dp`` is the
+*logical* DP degree that Enel picks: it is recorded in the component logs,
+the stage contexts and the checkpoint metadata; every step computes the
+whole global batch, which is what the sharded step computes.  A change of
+``dp`` saves a checkpoint, rebuilds the step and restores the saved state
+onto the device; the failure path restores the latest checkpoint the same
+way.  So the re-mesh cost Enel observes is the real checkpoint round trip.
 
 Stage times come from this module's own ``time`` (``time.time()``), read
 where the reference reads it, so that a test can script both clocks; the
@@ -47,6 +58,11 @@ from repro_torch.core.scaling import EnelScaler
 from repro_torch.core.training import EnelTrainer
 from repro_torch.data.pipeline import DataConfig, global_batch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shardings import (logical_rules, shard_tree,
+                                          state_shardings)
+from repro_torch.launch.specs import state_specs
+from repro_torch.models.sharding import use_rules
 from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train import (batch_to_device, init_train_state,
@@ -123,10 +139,20 @@ class ComponentLog:
     failed: bool = False
 
 
+def _world() -> Optional[int]:
+    """The world's size, or None without a process group."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return None
+
+
 class ElasticTrainer:
-    """The Enel-driven elastic loop over one device (``device``, the card
-    unless the caller asks for the CPU).  ``losses`` holds every step's
-    loss, read on the host."""
+    """The Enel-driven elastic loop on ``device`` (the card unless the
+    caller asks for the CPU; on a process group, this rank's device).
+    ``losses`` holds every step this rank computed, its loss read on the
+    host; ``picks`` every decision's DP degree (on a process group, checked
+    equal on every rank)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  ecfg: ElasticConfig, opt: Optional[AdamWConfig] = None, *,
@@ -145,17 +171,26 @@ class ElasticTrainer:
         self.logs: List[ComponentLog] = []
         self.graphs: List[ComponentGraph] = []
         self.losses: List[float] = []
+        self.picks: List[int] = []
         self.global_step = 0
         self._step_fn = None
         self._state = None
         self._dp = max(ecfg.dp_choices)
+        self.world = _world()
+        self._mesh = None
+        self._meshes: Dict[Tuple[int, int], object] = {}
+        self._rules = None
 
     # -------------------------------------------------------------- re-mesh
     def _build(self, dp: int, restore_from: Optional[str] = None) -> None:
         """(Re)build the step at DP degree ``dp``; optionally restore the
-        latest checkpoint under ``restore_from`` onto the device."""
+        latest checkpoint under ``restore_from`` (on a process group,
+        resharded onto the new mesh)."""
         ecfg = self.ecfg
         self._dp = dp
+        if self.world is not None:
+            self._build_mesh(dp, restore_from)
+            return
         if self._state is None:
             self._state = init_train_state(ecfg.seed, self.cfg, self.opt,
                                            device=self.device)
@@ -164,9 +199,52 @@ class ElasticTrainer:
                                                    device=self.device)
         self._step_fn = make_train_step(self.cfg, self.opt)
 
+    def _build_mesh(self, dp: int, restore_from: Optional[str]) -> None:
+        ecfg = self.ecfg
+        if dp * ecfg.tp > self.world:
+            raise ValueError(f"DP degree {dp} x TP {ecfg.tp} needs "
+                             f"{dp * ecfg.tp} ranks; the world has "
+                             f"{self.world}")
+        first = self._mesh is None
+        # one mesh per degree, made once: a mesh's process groups (an NCCL
+        # communicator each) live as long as the world, so a new mesh at
+        # every re-mesh would leak them; every rank takes the same degrees
+        # in the same order, so every rank hits or misses alike
+        key = (dp, ecfg.tp)
+        if key not in self._meshes:
+            self._meshes[key] = make_mesh(dp, ecfg.tp,
+                                          device_type=self.device.type)
+        self._mesh = self._meshes[key]
+        self._rules = logical_rules(self.cfg, self._mesh, self.shape)
+        self._state = self._step_fn = None
+        if not self.in_mesh:
+            return
+        template = state_specs(self.cfg, self.opt)
+        specs = state_shardings(self.cfg, self._mesh, template)
+        if restore_from is not None:
+            self._state, _, _ = restore_checkpoint(
+                restore_from, template, device=self.device, shardings=specs,
+                mesh=self._mesh)
+        else:
+            assert first, "a re-mesh restores the saved state"
+            self._state = shard_tree(
+                init_train_state(ecfg.seed, self.cfg, self.opt,
+                                 device=self.device), self._mesh, specs)
+        self._step_fn = make_train_step(self.cfg, self.opt)
+
+    @property
+    def in_mesh(self) -> bool:
+        """Whether this rank computes steps (always without a process
+        group)."""
+        return self._mesh is None or self._mesh.get_coordinate() is not None
+
     def _save(self) -> None:
-        save_checkpoint(self.ecfg.ckpt_dir, self.global_step, self._state,
-                        metadata={"dp": self._dp})
+        if self.in_mesh:
+            save_checkpoint(self.ecfg.ckpt_dir, self.global_step,
+                            self._state, metadata={"dp": self._dp})
+        else:                        # the writers' barrier
+            import torch.distributed as dist
+            dist.barrier()
 
     # ------------------------------------------------------------ components
     def _run_component(self, comp_idx: int,
@@ -174,6 +252,9 @@ class ElasticTrainer:
         ecfg = self.ecfg
         t_data = t_step = 0.0
         for _ in range(ecfg.steps_per_component):
+            if not self.in_mesh:                  # a spare rank idles
+                self.global_step += 1
+                continue
             t0 = time.time()
             batch = global_batch(self.dcfg, self.cfg, self.shape,
                                  self.global_step,
@@ -181,7 +262,8 @@ class ElasticTrainer:
             batch = batch_to_device(batch, self.device)
             t_data += time.time() - t0
             t0 = time.time()
-            self._state, metrics = self._step_fn(self._state, batch)
+            with use_rules(self._mesh, self._rules):
+                self._state, metrics = self._step_fn(self._state, batch)
             loss = float(metrics["loss"])         # waits for the device
             t_step += time.time() - t0
             self.losses.append(loss)
@@ -191,6 +273,11 @@ class ElasticTrainer:
             t0 = time.time()
             self._save()
             t_ckpt = time.time() - t0
+        if self.world is not None:               # rank 0's clock everywhere
+            import torch.distributed as dist
+            times = [(t_data, t_step, t_ckpt)]
+            dist.broadcast_object_list(times, src=0)
+            t_data, t_step, t_ckpt = times[0]
         log = ComponentLog(comp_idx, self._dp, t_data + t_step + t_ckpt,
                            {"data-load": t_data, "train-step": t_step,
                             "checkpoint": t_ckpt},
@@ -273,6 +360,7 @@ class ElasticTrainer:
                     current_summary=prev_summary)
                 dp_new = min(ecfg.dp_choices,
                              key=lambda d: abs(d - dp_new))   # snap to choices
+                self._agree(dp_new)
                 if dp_new != self._dp:
                     rescaled_from = self._dp
                     self._save()
@@ -285,6 +373,20 @@ class ElasticTrainer:
             "n_rescales": sum(1 for l in self.logs
                               if l.rescaled_from is not None),
         }
+
+
+    def _agree(self, dp: int) -> None:
+        """Record a pick; on a process group, raise unless every rank
+        picked it."""
+        self.picks.append(dp)
+        if self.world is None:
+            return
+        import torch.distributed as dist
+        every = [None] * self.world
+        dist.all_gather_object(every, dp)
+        if len(set(every)) != 1:
+            raise RuntimeError(f"ranks picked different DP degrees at "
+                               f"component {len(self.picks) - 1}: {every}")
 
 
 def _log_graph(nodes: List[NodeAttrs], preds: List[NodeAttrs],

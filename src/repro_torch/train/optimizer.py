@@ -7,6 +7,13 @@ pytrees; here parameters and moments are overwritten in place under
 ``torch.no_grad()`` (``copy_``), as ``core/training.py``'s Adam does, so a
 caller holding the same dicts sees the update.  Nothing is read back to the
 host: the schedule and the clip scale stay device scalars.
+
+On a sharded state (``DTensor`` leaves, ``train.train``'s sharded step)
+each rank updates its own shards; the gradients must carry the
+parameters' placements.  The global norm sums each leaf's local squares
+once (a replicated leaf on the ranks at coordinate 0 of the mesh dims it
+is replicated over) and all-reduces the sum over every mesh dim, so the
+shards add in another order than one device's leaf sums do.
 """
 from __future__ import annotations
 
@@ -53,10 +60,34 @@ def init_opt_state(params, opt_dtype: str) -> Dict:
             "step": torch.zeros((), dtype=torch.int64, device=dev)}
 
 
+def _local(t):
+    """A ``DTensor``'s own shard; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(grads) -> torch.Tensor:
-    """The float32 norm of every leaf of ``grads`` together."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.leaves(grads)))
+    """The float32 norm of every leaf of ``grads`` together (of the whole
+    tensors, for ``DTensor`` leaves: a collective over their mesh)."""
+    from torch.distributed.tensor import DTensor
+    leaves = tree.leaves(grads)
+    if not isinstance(leaves[0], DTensor):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    import torch.distributed as dist
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    owned = [g for g in leaves
+             if all(c == 0 for c, pl in zip(coord, g.placements)
+                    if not pl.is_shard())]
+    total = sum((torch.sum(torch.square(g.to_local().float()))
+                 for g in owned),
+                torch.zeros((), dtype=torch.float32,
+                            device=leaves[0].to_local().device))
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -69,7 +100,7 @@ def adamw_update(params, grads, opt_state: Dict, opt: AdamWConfig
     bias-corrected, and leaves of ``ndim < 2`` (norms, biases) take no
     weight decay.
     """
-    step = opt_state["step"]
+    step = _local(opt_state["step"])
     gnorm = global_norm(grads)
     scale = torch.clamp_max(opt.clip_norm / (gnorm + 1e-9), 1.0)
     lr = lr_at(opt, step)
@@ -79,6 +110,7 @@ def adamw_update(params, grads, opt_state: Dict, opt: AdamWConfig
     for p, g, mu, nu in zip(tree.leaves(params), tree.leaves(grads),
                             tree.leaves(opt_state["mu"]),
                             tree.leaves(opt_state["nu"])):
+        p, g, mu, nu = _local(p), _local(g), _local(mu), _local(nu)
         g = g.float() * scale
         mu_f = opt.b1 * mu.float() + (1 - opt.b1) * g
         nu_f = opt.b2 * nu.float() + (1 - opt.b2) * torch.square(g)

@@ -1,15 +1,32 @@
 """Train step and eval loss, closed over (cfg, opt).
 
 Counterpart of ``repro.train.train``.  A train state is ``{"params",
-"opt": {"mu", "nu", "step"}}`` of tensors on one device; a step computes
-the gradients with ``torch.autograd.grad`` and updates the state in place
-(``optimizer.adamw_update``).  The reference's sharding constraints
-(``constrain`` on the microbatch split) place data on a mesh; at world
-size 1 they mean nothing and are dropped (distribution is ROADMAP.md queue
-1 item 13).  The reference draws its initial weights from ``jax.random``,
-which the port cannot reproduce: :func:`init_train_state` takes the seed of
-the port's ``torch.Generator`` instead (``convert.train_state_from_numpy``
-carries a reference state over).
+"opt": {"mu", "nu", "step"}}``; a step computes the gradients with
+``torch.autograd.grad`` and updates the state in place
+(``optimizer.adamw_update``).  The reference draws its initial weights from
+``jax.random``, which the port cannot reproduce: :func:`init_train_state`
+takes the seed of the port's ``torch.Generator`` instead
+(``convert.train_state_from_numpy`` carries a reference state over).
+
+A state of tensors on one device runs as it is.  A state of ``DTensor``
+leaves on a mesh (placed by ``launch.shardings.state_shardings`` and
+``shard_tree``) runs the sharded step, the port's form of the
+reference's ``jax.jit(make_train_step(...), in_shardings=(state
+shardings, None))``: each rank gathers the whole parameter tree
+(``launch.shardings.full_tensor``, differentiable), takes its rows of the
+global batch when the active rules (``models.sharding.use_rules``) shard
+``dp``, and normalises its partial loss by the global count of valid
+tokens, so that the gradients summed over the batch-sharding mesh dims
+are the gradients of the global batch's loss; ranks that repeat the same
+rows (along ``"model"``) are not summed.  The gradients come back with the
+parameters' placements and AdamW updates each rank's shards.  Every term
+is row-local except an MoE layer's load-balancing aux loss, a product of
+two means over the tokens: each rank computes it over its rows and the
+step takes the mean over ranks, which equals the global batch's only when
+the ranks route alike (exactness needs the routing statistics reduced
+inside the model: ROADMAP.md queue 1 item 13c).  The
+reference's microbatch ``constrain`` maps onto ``models.sharding.
+constrain``, a no-op on the plain activations.
 """
 from __future__ import annotations
 
@@ -23,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import apply_model, frontend_input, init_model
 from repro_torch.models.layers import DTYPES
+from repro_torch.models.sharding import constrain, get_rules
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -47,11 +65,9 @@ def batch_to_device(batch: Mapping[str, np.ndarray],
             for k, v in batch.items()}
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Cross-entropy in float32 over the targets in ``[0,
-    raw_vocab_size)`` (others are masked out), averaged over the valid
-    tokens, plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss."""
+def _loss_terms(params, cfg: ModelConfig, batch: Dict):
+    """(sum of the masked token NLLs in float32, count of valid targets,
+    MoE aux loss)."""
     logits, aux = apply_model(params, cfg, batch)
     targets = batch["targets"]
     logits = logits[:, frontend_input(cfg).text_offset:]   # text positions
@@ -62,8 +78,17 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict
         logits, -1, targets.clamp(0, cfg.vocab_size - 1)[..., None].long()
     )[..., 0]
     nll = (lse - picked) * mask
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    ce = nll.sum() / denom
+    return nll.sum(), mask.sum(), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross-entropy in float32 over the targets in ``[0,
+    raw_vocab_size)`` (others are masked out), averaged over the valid
+    tokens, plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss."""
+    nll, count, aux = _loss_terms(params, cfg, batch)
+    denom = torch.clamp_min(count, 1.0)
+    ce = nll / denom
     loss = ce + AUX_LOSS_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux, "tokens": denom}
 
@@ -83,6 +108,90 @@ def _value_and_grad(params, cfg: ModelConfig, batch: Dict):
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
+def is_sharded(state) -> bool:
+    """Whether the leaves of ``state`` are ``DTensor`` objects."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(tree.leaves(state)[0], DTensor)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh dims that shard the batch under the active rules (their
+    ``"dp"``); none without rules."""
+    _, rules = get_rules()
+    dp = (rules or {}).get("dp")
+    names = (dp,) if isinstance(dp, str) else tuple(dp or ())
+    return tuple(a for a in names if a in mesh.mesh_dim_names)
+
+
+def local_rows(batch: Dict, mesh, axes: Tuple[str, ...]) -> Dict:
+    """This rank's rows of every batch leaf: the batch split evenly over
+    the mesh dims ``axes``, major to minor (all rows when ``axes`` is
+    empty).  Raises when the rows do not split evenly."""
+    n, idx = 1, 0
+    for a in axes:
+        k = mesh.mesh_dim_names.index(a)
+        idx = idx * mesh.size(k) + mesh.get_local_rank(a)
+        n *= mesh.size(k)
+    if n == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.dim() == 0:
+            out[k] = v
+            continue
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} has {v.shape[0]} rows, which do "
+                             f"not split over {n} ranks of {axes}")
+        rows = v.shape[0] // n
+        out[k] = v[idx * rows:(idx + 1) * rows]
+    return out
+
+
+def _sum_over(t: torch.Tensor, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
+    """``t`` summed over the ranks of the mesh dims ``axes`` (in place)."""
+    import torch.distributed as dist
+    for a in axes:
+        if mesh.size(mesh.mesh_dim_names.index(a)) > 1:
+            dist.all_reduce(t, group=mesh.get_group(a))
+    return t
+
+
+def _sharded_value_and_grad(params, cfg: ModelConfig, batch: Dict):
+    """:func:`_value_and_grad` of the global batch on parameters that are
+    ``DTensor`` objects: the gradients are ``DTensor`` objects with the
+    parameters' placements; the loss and its parts are the global
+    batch's, on every rank."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.shardings import full_tensor
+    leaves = tree.leaves(params)
+    mesh = leaves[0].device_mesh
+    axes = batch_axes(mesh)
+    n_dp = 1
+    for a in axes:
+        n_dp *= mesh.size(mesh.mesh_dim_names.index(a))
+    local = local_rows(batch, mesh, axes)
+    with torch.enable_grad():
+        live = [p.to_local().detach().requires_grad_(True) for p in leaves]
+        full = [full_tensor(DTensor.from_local(x, mesh, p.placements,
+                                               run_check=False), axes)
+                for x, p in zip(live, leaves)]
+        swap = dict(zip(map(id, leaves), full))
+        nll, count, aux = _loss_terms(
+            tree.tree_map(lambda p: swap[id(p)], params), cfg, local)
+        denom = torch.clamp_min(_sum_over(count.detach().clone(), mesh, axes),
+                                1.0)
+        ce = nll / denom
+        aux_part = aux / n_dp                 # the mean over the ranks'
+        loss = ce + AUX_LOSS_WEIGHT * aux_part
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [DTensor.from_local(torch.zeros_like(x) if g is None else g,
+                                mesh, p.placements, run_check=False)
+             for x, g, p in zip(live, grads, leaves)]
+    sums = _sum_over(torch.stack([loss.detach(), ce.detach(),
+                                  aux_part.detach()]), mesh, axes)
+    return sums[0], {"ce": sums[1], "aux": sums[2], "tokens": denom}, grads
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                     grad_accum: int = 1) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, the state updated in
@@ -94,19 +203,23 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
+        vg = _sharded_value_and_grad if is_sharded(params) else \
+            _value_and_grad
         if grad_accum == 1:
-            loss, parts, grads = _value_and_grad(params, cfg, batch)
+            loss, parts, grads = vg(params, cfg, batch)
         else:
-            micro = [{k: v.reshape(grad_accum, v.shape[0] // grad_accum,
-                                   *v.shape[1:])[j]
+            micro = [{k: constrain(v.reshape(grad_accum,
+                                             v.shape[0] // grad_accum,
+                                             *v.shape[1:])[j], "dp",
+                                   *([None] * (v.dim() - 1)))
                       for k, v in batch.items()} for j in range(grad_accum)]
-            gsum = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+            gsum = [torch.zeros_like(p, dtype=acc_dt)
                     for p in tree.leaves(params)]
             lsum = torch.zeros((), dtype=torch.float32,
                                device=gsum[0].device)
             parts_all = []
             for mb in micro:
-                l, parts_i, g = _value_and_grad(params, cfg, mb)
+                l, parts_i, g = vg(params, cfg, mb)
                 gsum = [a + b.to(a.dtype) for a, b in zip(gsum, g)]
                 lsum = lsum + l
                 parts_all.append(parts_i)

@@ -572,9 +572,11 @@ def test_launcher_smoke_on_cpu_and_resume(tmp_path, capsys):
 
 
 def test_launcher_refuses_a_mesh():
+    """Without ``torch.distributed.run`` the world is one process: a mesh
+    of more ranks raises, naming both numbers."""
     from repro_torch.launch.train import main
     for flag in ("--dp", "--tp", "--pods"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="mesh of 2 ranks.*world is one"):
             main(["--arch", "qwen3-0.6b", "--smoke", flag, "2",
                   "--device", "cpu"])
 
