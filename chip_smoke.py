@@ -61,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught):
    96, N = 8, levels = 8), back to back and in a CUDA graph, beside their
    bounds, their plain versions and their registers and spills; fit wall
    seconds (scratch, fine-tune) per job with the device-busy share of one
-   scratch fit, and each run's runtime against the target (Enel vs Ellis);
+   scratch fit (one traced fit), and each run's
+   runtime against the target (Enel vs Ellis);
 8. the LM attention kernels against their plain versions on the card:
    ``mha`` on ``tests/test_kernels.py``'s sweep in float32 (atol = rtol =
    2e-5) and bfloat16 (3e-2), plus qwen3-0.6b's shapes (B = 8, S up to
@@ -80,8 +81,8 @@ Phases (any failure exits non-zero; nothing is caught):
    of 448); every case launched twice, bit for bit equal;
 9. the serving path: ``ServeEngine`` over the full qwen3-0.6b config (28
    layers, bf16, seeded ``init_model`` weights, ``max_len`` = 2048) serves
-   two waves of 8 requests (prompt lengths in [128, 1024] from
-   ``np.random.RandomState(SEED)``, 64 new tokens each), each wave twice.
+   one wave of 8 requests (prompt lengths in [128, 1024] from
+   ``np.random.RandomState(SEED)``, 64 new tokens each), served twice.
    ``flash_attention_fwd`` must launch 28 times per prefill and
    ``flash_decode`` 28 times per decode step; every token is in range and
    both runs of a wave give the same tokens.  Then, teacher-forced, the
@@ -107,9 +108,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (C, n, m), every case launched twice, bit for bit equal;
 12. the xLSTM serving path: ``ServeEngine`` over the full xlstm-350m config
    (24 layers: 21 mLSTM, 3 sLSTM; d 1024, 4 heads of 256, bf16, seeded
-   ``init_model`` weights, ``max_len`` = 2048) serves two waves of 8
+   ``init_model`` weights, ``max_len`` = 2048) serves one wave of 8
    requests (prompt lengths from ``np.random.RandomState(SEED)`` in [128,
-   1024], the longest 1024 in wave 0 and 768 in wave 1, since the mLSTM's
+   1024], the longest 1024, since the mLSTM's
    chunk contract needs a padded length of at most 256 or a multiple of
    256; 64 new tokens each), each wave twice.  ``mlstm_chunk`` must launch
    21 times per wave (per prefill, none in the decode steps) and no other
@@ -149,8 +150,8 @@ Phases (any failure exits non-zero; nothing is caught):
    float32: teacher-forced ``decode_step`` logits at 768..771 after a
    prefill of 768 against ``forward``'s over 1024 tokens (B = 2, capacity
    factor 16 so that nothing is dropped) within the reference's 5e-3 of
-   the largest logit.  Then ``ServeEngine`` serves two waves of 8 requests
-   (the longest prompt 1024 and 896: the MoE's routing groups need a
+   the largest logit.  Then ``ServeEngine`` serves one wave of 8 requests
+   (the longest prompt 1024: the MoE's routing groups need a
    padded length of at most 1024 or a multiple of it; 64 new tokens
    each), each twice: ``mamba_scan`` must launch 7 times per wave (per
    prefill, none in decode), ``flash_attention_fwd`` once per prefill,
@@ -185,15 +186,16 @@ Phases (any failure exits non-zero; nothing is caught):
    one copy per group), kernels per dispatch and the device-busy share of
    one dispatch, beside ``recommend``'s median from phase 5;
 18. fleet campaigns on the card: eight experiments (the four jobs, each
-   with seeds SEED and SEED + 1, ``candidate_stride=2``, ``profile(10)``
-   with its 128-step scratch fit) share one ``DecisionService``.  A 3-run
+   with seeds SEED and SEED + 1, ``candidate_stride=2``, ``profile(5)``
+   with its 128-step scratch fit) share one ``DecisionService``.  A 2-run
    ``adaptive_campaign``: the decisions of a round go to one ``decide``
    (same-bucket rows on the job axis, up to the J = 8 rung), so some are
    batched away; ``decisions`` equals the runs' decide calls; picks in
    [4, 36]; no fallback, no skipped step; ``graph_prop_fwd`` and
    ``graph_prop_bwd`` launch exactly once per Adam step (counted from 0
    before the fleet is built; none on the service path).  A second fleet,
-   built the same way, runs the campaign with a checkpoint every round
+   built the same way and given the first's profiled state, runs the
+   campaign with a checkpoint every round
    and crashes in the middle of run 2; its last checkpoint is pickled,
    loaded back (and once more in a CPU-only process) and resumed: the
    trace (runtime and violation as float32, scale-outs, failures,
@@ -213,15 +215,15 @@ Phases (any failure exits non-zero; nothing is caught):
    schedules; four jobs under four scenarios; ``run_full`` of the 24 (job,
    scenario) pairs against stepped numpy); (b) slot states taken in the
    middle of a run and restored after the engine ran on resume to the same
-   records; (c) a four-job fleet (``profile(3)``, 2 adaptive runs with
+   records; (c) a four-job fleet (``profile(1)``, 2 adaptive runs with
    failures) under ``FleetCampaign(engine="batched")`` gives the numpy
    fleet's trace pick for pick, ``sim_step`` launching once per engine
    dispatch (one per profiling component, one per lockstep round that
    steps) and the graph kernels once per Adam step; (d) the harness:
    ``run_scenario_campaign`` on ``node_failure`` and ``multi_tenant`` and
    ``run_chaos_campaign("chaos_crashes")`` (2 restores) at the four jobs
-   (``profile_runs=3``, 1 adaptive run), ``chaos_trace_identity`` (2
-   runs) True, one transfer cell (``baseline`` 1.0 -> ``node_failure``
+   (``profile_runs=1``, 1 adaptive run), ``chaos_trace_identity`` (1 run)
+   True, one transfer cell (``baseline`` 1.0 -> ``node_failure``
    1.6, K-Means).
    Launches of (c) and (d) count from 0 and each equals one dispatch.
    Printed beside the card: ``sim_step`` in a CUDA graph and back to back
@@ -233,7 +235,7 @@ Phases (any failure exits non-zero; nothing is caught):
 20. the fused campaign (``repro_torch.core.campaign_kernel``) on the card:
    8 experiments (the four jobs, each with seeds SEED and SEED + 1,
    ``candidate_stride=2``; ``node_failure`` on the SEED + 1 half) on one
-   shared batched engine, ``profile(3)`` and two live adaptive runs,
+   shared batched engine, ``profile(1)`` and two live adaptive runs,
    then ``nan_fit`` chaos on K-Means SEED + 1; one plan of 3 runs (66
    steps at ``c_max`` 22: fine-tunes after runs 1 and 2, the cadence's
    scratch fit after run 3, the chaos job poisoned after run 2; sweeps of
@@ -287,13 +289,13 @@ Phases (any failure exits non-zero; nothing is caught):
    sizes (bf16, seeded ``init_model`` weights; stub frontends' inputs
    made on the card, N(0, 1) x 0.1): (a) whisper-medium (24 encoder + 24
    decoder layers, d 1024, 16 heads of 64, vocab 51,968; 1,012,525,056
-   parameters), 1500 frames a request, two waves of 8 prompts of 4-224
+   parameters), 1500 frames a request, one wave of 8 prompts of 4-224
    tokens, 64 new tokens each, ``max_len`` 448 (its published decoder
-   context), each wave twice; (b) pixtral-12b (40 layers, d 5120, 32 / 8
+   context), served twice; (b) pixtral-12b (40 layers, d 5120, 32 / 8
    heads of 128, vocab 131,072; 12,247,782,400 parameters), one
-   1024-patch image a request before a prompt of 128-1024 tokens, two
-   waves of 8, 64 new tokens each from position n_patches + P, ``max_len``
-   2176, each twice.  (c) Gates: both runs of a wave give the same
+   1024-patch image a request before a prompt of 128-1024 tokens, one
+   wave of 8, 64 new tokens each from position n_patches + P, ``max_len``
+   2176, served twice.  (c) Gates: both runs of a wave give the same
    tokens; per wave ``flash_attention_fwd`` launches 72 times for whisper
    (24 encoder, 24 self, 24 cross-attention with Sq = P, Sk = 1500) and 40
    for pixtral, ``flash_decode`` 48 times a step for whisper (24 self, 24
@@ -308,7 +310,7 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes in a CUDA graph beside one SDPA call and its bound;
 23. distribution on the card: (a) a world of one process over NCCL (a
     ``FileStore``), mesh (1, 1); from one seeded state of qwen3-0.6b as
-    published, 3 steps each of the plain train step, the uncompressed and
+    published, 2 steps each of the plain train step, the uncompressed and
     the compressed DP step (``train/dp_step.py``, int8 with error
     feedback) and the sharded step (the state as DTensors placed by
     ``state_shardings``) on phase 21's batch under deterministic
@@ -316,7 +318,7 @@ Phases (any failure exits non-zero; nothing is caught):
     for bit, and so does the sharded step (else its clip norm within 1e-6
     relative and its state at atol 1e-4 / rtol 1e-3, printed as such); the
     compressed step's first loss within 1e-4 and its parameters within
-    5e-3 after 3 steps; 56 ``flash_attention_fwd`` launches a step in
+    5e-3 after 2 steps; 56 ``flash_attention_fwd`` launches a step in
     each.  (b) a 2-rank world on the one card over gloo (NCCL refuses two
     ranks on one device; a correctness rehearsal, not a performance
     figure), the children loading the kernels the parent built: the
@@ -329,7 +331,26 @@ Phases (any failure exits non-zero; nothing is caught):
     the card: ms per step of each variant, the compressed step's extra
     host time and kernels a step, the gradient all-reduce's ms, peak
     memory, the elastic DP trace and stage times, the phase's seconds;
-24. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
+24. tensor-parallel activations on the card (``run_tensor_parallel``):
+    (a) a world of one process over NCCL, mesh (1, 1), qwen3-0.6b as
+    published: one sharded train step (parameters gathered layer by
+    layer) at 8 x 512 and a sharded wave (phase 9's first wave, prefill
+    and 16 greedy decode steps on ``DTensor`` parameters and
+    ``cache_shardings`` caches) bit for bit equal to the plain ones
+    (state, loss, grad norm; logits, tokens).  (b) a 2-rank world on the
+    one card over gloo, mesh (1, 2), the same model: one train step
+    against the world-size-1 step (loss 5e-3, grad norm 5e-2 relative),
+    the wave prefilled and decoded 16 steps fed the world-size-1 greedy
+    tokens, its logits against the world-size-1 ``forward`` at the
+    serving gate (5e-2); both attention kernels on 8 of 16 q heads and 4
+    of 8 kv heads a rank.  (c) the same world, olmoe-1b-7b at full width
+    cut to 2 layers (32 of 64 experts a rank): one train step's loss, aux
+    (the global batch's) and grad norm against world size 1 (5e-3, 5e-3,
+    5e-2), then a prefill and 4 decode steps (finite; the teacher-forced
+    error printed).  Printed beside the card: a step's ms, peak memory
+    and parameter bytes a rank, prefill and decode ms a rank, the kernels'
+    launches and head counts, the phase's seconds;
+25. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
     script started), a ``{"kernels": [...]}`` line, then the device line
     last.
 
@@ -1101,7 +1122,8 @@ def run_service(device, card, train, ops, recommend_ms):
 
 
 FLEET_SEEDS = (SEED, SEED + 1)
-FLEET_RUNS = 3
+FLEET_RUNS = 2              # phase 18's campaigns, cut for the time limit
+FLEET_PROFILE = 3           # and their profiling runs
 FLEET_POOL = dict(pool_size=96, arrival_rate=1.5, seed=SEED, max_rounds=64)
 
 
@@ -1202,7 +1224,7 @@ class RoundClock:
 
 def run_fleet(device, card, ops):
     """Phase 18: fleet campaigns on the card.  Eight experiments (four jobs
-    x two seeds) share one DecisionService: a 3-run adaptive campaign
+    x two seeds) share one DecisionService: a 2-run adaptive campaign
     (launches counted from 0: both graph kernels once per Adam step, none
     on the service path), a second fleet built the same way crashed in run
     2 with a checkpoint every round and resumed from its last checkpoint
@@ -1221,7 +1243,7 @@ def run_fleet(device, card, ops):
     ops.LAUNCHES = ops.LAUNCHES_BWD = 0
     a = fleet_campaign(device, DecisionService())
     t0 = time.perf_counter()
-    a.profile(10)
+    a.profile(FLEET_PROFILE)
     torch.cuda.synchronize()
     profile_s = time.perf_counter() - t0
     scratch_s = [ex.trainer.last_fit_seconds for ex in a.experiments]
@@ -1273,9 +1295,10 @@ def run_fleet(device, card, ops):
         f"{np.median(scratch_s):.3f}s median (profile {profile_s:.1f}s for "
         f"8), fine-tune {np.median(tune_s):.3f}s median")
 
-    # crash in run 2, resume from the last checkpoint
+    # crash in run 2, resume from the last checkpoint; the twin fleet
+    # takes the first's profiled state instead of profiling again
     b = fleet_campaign(device, DecisionService())
-    b.profile(10)
+    restore_fleet(b, base)
     for xa, xb in zip(a.experiments, b.experiments):
         for k, v in xa.encoder.ae_params.items():
             assert torch.equal(v, xb.encoder.ae_params[k]), k
@@ -1401,10 +1424,10 @@ SIM_MIXED = [("lr", "stragglers"), ("mpc", "interference_burst"),
              ("kmeans", "spot_preemption"), ("gbt", "data_skew_drift")]
 SIM_TIMING_J = (4, 8, 32)    # fleet sizes of the timings; S = 5 with GBT
 SIM_FLEET = 32               # benchmarks/scenario_suite.py's fleet
-SIM_PROFILE_RUNS = 3         # phase 19's fleets and harness campaigns
+SIM_PROFILE_RUNS = 1         # phase 19's fleets and harness campaigns
 SIM_ADAPTIVE_RUNS = 2        # the four-job fleet's runs
 SIM_HARNESS_RUNS = 1         # the harness campaigns' (the reference: 3, 6)
-SIM_IDENTITY_RUNS = 2        # chaos_trace_identity's (the reference: 4)
+SIM_IDENTITY_RUNS = 1        # chaos_trace_identity's (the reference: 4)
 
 
 def sim_combos(n: int):
@@ -1914,7 +1937,7 @@ def run_sim_engine(device, card, ss, ops):
             "harness_s": harness_s, "seconds": phase_s}
 
 
-FUSED_PROFILE_RUNS = 3      # phase 20: profile(3), 2 live adaptive runs,
+FUSED_PROFILE_RUNS = 1      # phase 20: profile(1), 2 live adaptive runs,
 FUSED_WARM_RUNS = 2         # then 3 fused runs: the cadence (a scratch fit
 FUSED_RUNS = 3              # every 5th run) retrains in the 3rd
 FUSED_CHAOS = ("kmeans", SEED + 1)   # nan_fit after every 2nd fit
@@ -1923,7 +1946,7 @@ FUSED_CHAOS = ("kmeans", SEED + 1)   # nan_fit after every 2nd fit
 def fused_fleet(device):
     """Phase 20's fleet: the four paper jobs, each with seeds SEED and
     SEED + 1 (``candidate_stride=2``; ``node_failure`` on the SEED + 1
-    half), on one shared batched engine, after ``profile(3)`` and two
+    half), on one shared batched engine, after ``profile(1)`` and two
     live adaptive runs."""
     from repro_torch.core.service import DecisionService
     from repro_torch.dataflow import FleetCampaign, JobExperiment
@@ -2169,7 +2192,7 @@ def run_fused_campaign(device, card, ss, ops):
 
 
 LM_ARCH = "qwen3-0.6b"
-LM_WAVES, LM_BATCH, LM_NEW, LM_MAX_LEN = 2, 8, 64, 2048
+LM_WAVES, LM_BATCH, LM_NEW, LM_MAX_LEN = 1, 8, 64, 2048
 LM_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}   # tests/test_kernels.py
 TF_TOL = {torch.bfloat16: 5e-2, torch.float32: 5e-3}   # decode vs forward
 TF_STEPS = 4
@@ -2489,7 +2512,7 @@ def as_float32(params):
 
 
 XLSTM_ARCH = "xlstm-350m"
-XLSTM_TOP = (1024, 768)     # each wave's longest prompt: 256-multiples
+XLSTM_TOP = (1024,)         # each wave's longest prompt: 256-multiples
 XLSTM_TF_PREFIX = 768       # teacher-forced: prefill 768 of wave 0's 1024
 XLSTM_TF_DEPTH = 4          # teacher-forced on the first 4 layers: both kinds
 # bf16 h: one bf16 step (2^-7 of the value) where the float32
@@ -2639,20 +2662,17 @@ def xlstm_path(device, card, ml, others):
     xt = torch.tensor(x_toks0, device=device)
     # Teacher-forced, each against a fixed limit: every mixer alone on its
     # real inputs, and decode vs forward on the first XLSTM_TF_DEPTH
-    # layers.  Over all 24 layers, decode vs forward and two forwards of
-    # the same tokens over 768 and 1024 positions are printed only: with
-    # random weights the model amplifies rounding differences over its
-    # depth and sequence (tools/xlstm_rounding.py).
+    # layers.  Over all 24 layers random weights amplify rounding over
+    # the depth and the sequence: tools/xlstm_rounding.py prints that
+    # (the smoke leaves it out for its time limit).
     x_params32 = as_float32(x_params)
     xcfg32 = dataclasses.replace(xcfg, dtype="float32", param_dtype="float32")
-    x_tf, x_floor, x_shallow, x_layers = {}, {}, {}, {}
+    x_shallow, x_layers = {}, {}
     for dt, prm, c in ((torch.bfloat16, x_params, xcfg),
                        (torch.float32, x_params32, xcfg32)):
         x_layers[dt] = layer_continuation_errs(prm, c, xt, XLSTM_TF_PREFIX)
         x_shallow[dt] = teacher_forced_err(
             *first_layers(prm, c, XLSTM_TF_DEPTH), xt, XLSTM_TF_PREFIX)
-        x_tf[dt] = teacher_forced_err(prm, c, xt, XLSTM_TF_PREFIX)
-        x_floor[dt] = forward_floor(prm, c, xt, XLSTM_TF_PREFIX)
     del x_params32
     torch.cuda.empty_cache()
     span = f"{XLSTM_TF_PREFIX}..{XLSTM_TF_PREFIX + TF_STEPS - 1}"
@@ -2664,10 +2684,7 @@ def xlstm_path(device, card, ml, others):
             f"{errs[worst]:.3g} (layer {worst}, {xcfg.layer_kind(worst)}; "
             f"tol {MIXER_TF_TOL[dt]:.3g}); decode_step vs forward logits on "
             f"the first {XLSTM_TF_DEPTH} layers {x_shallow[dt]:.3g} (tol "
-            f"{TF_TOL[dt]}); all {xcfg.n_layers} layers {x_tf[dt]:.3g}, and "
-            f"forward over {XLSTM_TF_PREFIX} vs over {xt.shape[1]} at "
-            f"{XLSTM_TF_PREFIX - TF_STEPS}..{XLSTM_TF_PREFIX - 1} "
-            f"{x_floor[dt]:.3g} (printed only)")
+            f"{TF_TOL[dt]})")
     for dt in x_layers:
         for i, err in enumerate(x_layers[dt]):
             assert err < MIXER_TF_TOL[dt], (dt, i, err)
@@ -2713,10 +2730,6 @@ def xlstm_path(device, card, ml, others):
         f"teacher_forced_rel_err_{XLSTM_TF_DEPTH}_layers": {
             "bf16": x_shallow[torch.bfloat16],
             "float32": x_shallow[torch.float32]},
-        "teacher_forced_rel_err": {"bf16": x_tf[torch.bfloat16],
-                                   "float32": x_tf[torch.float32]},
-        "forward_floor_rel": {"bf16": x_floor[torch.bfloat16],
-                              "float32": x_floor[torch.float32]},
         "timings": t}}))
     return {"launches": ml_launches, "ms": ml_graph_ms,
             "graph_ms": ml_graph_ms, "back_to_back_ms": ml_ms,
@@ -2731,7 +2744,7 @@ JAMBA_ARCH = "jamba-v0.1-52b"
 # at the odd layers), every other field as published: ~13.3 B parameters,
 # 26.6 GB in bf16.  The 52 B model (~103 GB) does not fit one 80 GB card.
 JAMBA_LAYERS = 8
-JAMBA_TOP = (1024, 896)     # each wave's longest prompt: the MoE's routing
+JAMBA_TOP = (1024,)         # each wave's longest prompt: the MoE's routing
 #                             groups need at most moe_group or a multiple
 JAMBA_TF_PREFIX = 768       # teacher-forced: prefill 768 of 1024 tokens
 JAMBA_TF_BATCH = 2          # keeps the capacity-16 expert products ~2 GB
@@ -2878,11 +2891,11 @@ def routed_teacher_forced(params, cfg, toks: torch.Tensor, p: int):
     routes = []
     inner = moe.moe_ffn
 
-    def recording(pm, c, x):
+    def recording(pm, c, x, **kw):
         b, s, d = x.shape
         idx = moe.route(pm, c, x.reshape(-1, min(s, c.moe_group), d))[2]
         routes.append(idx.reshape(b, s, -1).sort(dim=-1).values)
-        return inner(pm, c, x)
+        return inner(pm, c, x, **kw)
     moe.moe_ffn = recording
     try:
         full, _ = apply_model(params, cfg, {"tokens": toks})
@@ -3886,7 +3899,7 @@ def run_audio_vlm(device, card, fa, fd, others, cfgs=(None, None)):
 
 
 # ------------------------------------------------------------------ phase 23
-DIST_STEPS = 3
+DIST_STEPS = 2
 DIST_ELASTIC = dict(n_components=4, steps_per_component=2, dp_choices=(1, 2),
                     fail_at_component=2)
 DIST_WORLD_TIMEOUT = 300
@@ -4129,7 +4142,7 @@ def run_distribution(device, card, fa, ops):
     dist.init_process_group("nccl", store=dist.FileStore(
         os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
     try:
-        mesh = make_mesh(1, 1, device_type="cuda")
+        mesh = make_mesh(1, 1, device_type=device.type)
         rules = logical_rules(cfg, mesh, shape)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4264,6 +4277,438 @@ def run_distribution(device, card, fa, ops):
                                   "steps_run", "seconds")} for r in res],
                               "seconds": world_s},
             "seconds": phase_s}
+
+
+# ------------------------------------------------------------------ phase 24
+TP_NEW = 16                 # decode steps of the sharded wave
+TP_SEQ = 512                # the train step's sequence (batch TRAIN_BATCH)
+TP_MOE_ARCH, TP_MOE_LAYERS = "olmoe-1b-7b", 2
+TP_MOE_PROMPT, TP_MOE_NEW = 508, 4  # prompt + new <= moe_group (1024)
+TP_TRAIN_RTOL = {"loss": 5e-3, "aux": 5e-3, "grad_norm": 5e-2}
+TP_WORLD_TIMEOUT = 400
+
+
+def tp_config(arch: str):
+    """Phase 24's configurations: qwen3-0.6b as published; olmoe-1b-7b at
+    full width cut to ``TP_MOE_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == TP_MOE_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=TP_MOE_LAYERS)
+    return cfg
+
+
+def tp_batch(cfg, device):
+    """The train step's batch: ``TRAIN_BATCH`` x ``TP_SEQ`` from seed
+    ``SEED``."""
+    import dataclasses
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.train.train import batch_to_device
+    shape = dataclasses.replace(TRAIN_4K, seq_len=TP_SEQ,
+                                global_batch=TRAIN_BATCH)
+    return shape, batch_to_device(global_batch(DataConfig(seed=SEED), cfg,
+                                               shape, 0), device)
+
+
+def tp_prompts(cfg):
+    """The wave: phase 9's first wave for qwen3 (8 prompts of 128-1024
+    tokens, left-padded), for olmoe 8 prompts of ``TP_MOE_PROMPT``."""
+    if cfg.name.startswith("olmoe"):
+        rng = np.random.RandomState(SEED)
+        return rng.randint(2, cfg.raw_vocab_size, (LM_BATCH, TP_MOE_PROMPT))
+    return padded(lm_waves(cfg)[0])
+
+
+def tp_rules(cfg, mesh, kind, seq):
+    import dataclasses
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.launch.shardings import logical_rules
+    return logical_rules(cfg, mesh, dataclasses.replace(
+        TRAIN_4K, kind=kind, seq_len=seq, global_batch=LM_BATCH))
+
+
+def tp_serve(params, cfg, toks, new, device, forced=None):
+    """Prefill ``toks`` (a cache of P + ``new`` rows) and ``new`` decode
+    steps, each fed the greedy token or, with ``forced`` (B, new), its
+    column: (the last position's logits of the prefill and of each step,
+    (B, 1 + new, V) float32 on the host, the greedy tokens (B, 1 + new),
+    seconds of the prefill, of each step).  On ``DTensor`` parameters
+    (under the rules) the logits and tokens are gathered."""
+    from repro_torch.launch.shardings import full_tensor
+    from repro_torch.models import decode_step, next_token, prefill
+    t = torch.tensor(toks, device=device)
+    p = t.shape[1]
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": t}, cache_len=p + new)
+    tok = next_token(logits)
+    rows = [full_tensor(logits)[:, -1].float().cpu()]
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    del logits
+    toks_out = [full_tensor(tok).cpu()]
+    steps = []
+    for i in range(new):
+        feed = tok if forced is None else \
+            torch.tensor(forced[:, i:i + 1], device=device)
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cfg, cache, feed, p + i)
+        tok = next_token(logits)
+        rows.append(full_tensor(logits)[:, -1].float().cpu())
+        toks_out.append(full_tensor(tok).cpu())
+        steps.append(time.perf_counter() - t0)
+    del cache
+    return (torch.stack(rows, dim=1), torch.cat(toks_out, dim=1), pre_s,
+            steps)
+
+
+def tf_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over positions of max|want - got|, relative to the largest
+    |want| at the position (``teacher_forced_err``'s measure)."""
+    err = (want - got).abs().amax(dim=(0, 2)) / want.abs().amax(dim=(0, 2))
+    return float(err.max())
+
+
+class HeadCounts:
+    """Wraps ``models.attention``'s ``mha`` and ``decode_attn`` to record the
+    (q heads, kv heads) each is launched with."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.seen = {"mha": set(), "decode_attn": set()}
+        for name in self.seen:
+            fn = getattr(attention, name)
+
+            def rec(q, k, *a, _fn=fn, _name=name, **kw):
+                self.seen[_name].add((int(q.shape[2]), int(k.shape[2])))
+                return _fn(q, k, *a, **kw)
+            setattr(attention, name, rec)
+
+
+def tp_reference(device, cfgs):
+    """Phase 24's world-size-1 references, on the plain path: each
+    configuration's train step (loss, aux, grad norm) and its wave's
+    greedy tokens and teacher-forced rows (``forward`` over the prompt and
+    the greedy tokens, at the positions the decode steps compute)."""
+    from repro_torch.models import apply_model, init_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import init_train_state, make_train_step
+    out = {}
+    for arch, new in ((TRAIN_ARCH, TP_NEW), (TP_MOE_ARCH, TP_MOE_NEW)):
+        cfg = cfgs[arch]
+        opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+        _, batch = tp_batch(cfg, device)
+        state = init_train_state(SEED, cfg, opt, device=device)
+        with torch.enable_grad():
+            _, m = make_train_step(cfg, opt)(state, batch)
+        train = {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}
+        del state, batch
+        torch.cuda.empty_cache()
+        params = init_model(cfg, seed=SEED, device=device)
+        toks = tp_prompts(cfg)
+        rows, greedy, _, _ = tp_serve(params, cfg, toks, new, device)
+        gen = np.array(greedy[:, :new])      # its own memory (sent to ranks)
+        full, _ = apply_model(params, cfg, {"tokens": torch.tensor(
+            np.concatenate([toks, gen], axis=1), device=device)})
+        p = toks.shape[1]
+        forward = full[:, p - 1:p + new].to("cpu", copy=True)   # bf16
+        del full, params
+        torch.cuda.empty_cache()
+        out[arch] = dict(train=train, toks=toks, gen=gen, forward=forward,
+                         greedy=greedy)
+        if cfg.n_experts:   # decode routes groups of one token: no drops
+            out[arch]["decode_rows"] = rows.to(torch.bfloat16)   # exact
+        del rows
+    return out
+
+
+def _tp_rank(rank, world, ref, cfgs, device_type):
+    """Phase 24 (b) and (c), one rank of the 2-rank gloo world on the card,
+    mesh (1, 2): the sharded train step and the sharded wave (prefill and
+    decode steps fed the world-size-1 greedy tokens) of each configuration
+    of ``cfgs`` (qwen3-0.6b as published, then olmoe-1b-7b cut to 2
+    layers); the kernels load from the parent's build directory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type)
+    from repro_torch import tree
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import (shard_tree, state_shardings,
+                                              tree_shardings)
+    from repro_torch.models import init_model
+    from repro_torch.models.sharding import use_rules
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import init_train_state, make_train_step
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        for fn in (fa._kernel_fn, fd._kernel_fn):
+            fn()
+        assert not any(build.BUILDS[k].compiled for k in (
+            "flash_attention_fwd", "flash_decode")), \
+            "a child compiled a kernel"
+    else:                   # a CPU rehearsal: nothing to wait for or reset
+        torch.cuda.synchronize = torch.cuda.reset_peak_memory_stats = \
+            lambda *_, **__: None
+    mesh = make_mesh(1, 2, device_type=device.type)
+    heads = HeadCounts()
+    out = {}
+    for arch, new in ((TRAIN_ARCH, TP_NEW), (TP_MOE_ARCH, TP_MOE_NEW)):
+        cfg = cfgs[arch]
+        r = ref[arch]
+        res = {}
+        # one sharded train step; only the main path's launches count
+        opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+        shape, batch = tp_batch(cfg, device)
+        state = init_train_state(SEED, cfg, opt, device=device)
+        state = shard_tree(state, mesh, state_shardings(cfg, mesh, state))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        from repro_torch.launch.shardings import logical_rules
+        rules = logical_rules(cfg, mesh, shape)
+        step = make_train_step(cfg, opt)
+        fa.LAUNCHES = fd.LAUNCHES = 0
+        heads.seen["mha"].clear()
+        t0 = time.perf_counter()
+        with use_rules(mesh, rules), torch.enable_grad():
+            state, m = step(state, batch)
+        res["train"] = {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}
+        res["train_s"] = time.perf_counter() - t0
+        res["train_fa"] = fa.LAUNCHES
+        res["train_heads"] = sorted(heads.seen["mha"])
+        res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["param_bytes"] = sum(t.to_local().numel() * t.element_size()
+                                 for t in tree.leaves(state["params"]))
+        del state, batch, m
+        torch.cuda.empty_cache()
+        # the wave, fed the world-size-1 greedy tokens
+        params = init_model(cfg, seed=SEED, device=device)
+        sp = shard_tree(params, mesh, tree_shardings(mesh, params))
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        p = r["toks"].shape[1]
+        fa.LAUNCHES = fd.LAUNCHES = 0
+        for k in heads.seen:
+            heads.seen[k].clear()
+        with use_rules(mesh, tp_rules(cfg, mesh, "prefill", p + new)):
+            rows, greedy, pre_s, steps = tp_serve(sp, cfg, r["toks"], new,
+                                                  device, forced=r["gen"])
+        res["serve_fa"], res["serve_fd"] = fa.LAUNCHES, fd.LAUNCHES
+        res["serve_heads"] = {k: sorted(v) for k, v in heads.seen.items()}
+        res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["tf_err"] = tf_rel_err(rows, r["forward"].float())
+        if "decode_rows" in r:
+            res["decode_err"] = tf_rel_err(rows, r["decode_rows"].float())
+        res["finite"] = bool(torch.isfinite(rows).all())
+        res["prefill_ms"] = pre_s * 1e3
+        res["step_ms"] = float(np.median(steps)) * 1e3
+        res["greedy_agree"] = float(
+            (greedy[:, 1:] == r["greedy"][:, 1:]).float().mean()) \
+            if new else 1.0
+        del sp
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+def run_tensor_parallel(device, card, fa, fd):
+    """Phase 24: tensor-parallel activations on the card.  (a) A world of
+    one process over NCCL, mesh (1, 1), qwen3-0.6b as published: the
+    sharded train step (layer-by-layer gathers) and a sharded wave
+    (``DTensor`` parameters, ``cache_shardings`` caches; prefill and
+    ``TP_NEW`` greedy decode steps) bit for bit equal to the plain ones
+    (state, loss and grad norm; logits and tokens).  (b) A 2-rank world on
+    the one card over gloo, mesh (1, 2), the same model and wave: one
+    train step at ``TRAIN_BATCH`` x ``TP_SEQ`` against the world-size-1
+    step, and prefill plus ``TP_NEW`` decode steps fed the world-size-1
+    greedy tokens, their logits against the world-size-1 ``forward`` at
+    the serving gate (5e-2); both attention kernels launched on 8 of 16 q
+    heads and 4 of 8 kv heads a rank.  (c) The same world, olmoe-1b-7b at
+    full width cut to 2 layers (32 of 64 experts a rank): one train step's
+    loss, aux (the global batch's) and grad norm against world size 1,
+    then a prefill and ``TP_MOE_NEW`` decode steps."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import (gather_tree, shard_tree,
+                                              state_shardings,
+                                              tree_shardings)
+    from repro_torch.launch.world import run_world
+    from repro_torch.models import init_model
+    from repro_torch.models.sharding import use_rules
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import init_train_state, make_train_step
+    t_phase = time.perf_counter()
+    work = ROOT / "build"
+    work.mkdir(parents=True, exist_ok=True)
+    cfgs = {arch: tp_config(arch) for arch in (TRAIN_ARCH, TP_MOE_ARCH)}
+    cfg = cfgs[TRAIN_ARCH]
+
+    # (a) world size 1 over NCCL: sharded == plain, bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    store_dir = tempfile.mkdtemp(dir=work)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
+    launches = {"fa": 0, "fd": 0}
+    try:
+        mesh = make_mesh(1, 1, device_type=device.type)
+        opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+        shape, batch = tp_batch(cfg, device)
+        runs, peaks = {}, {}
+        for name in ("plain", "sharded"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state = init_train_state(SEED, cfg, opt, device=device)
+            if name == "sharded":
+                state = shard_tree(state, mesh,
+                                   state_shardings(cfg, mesh, state))
+                fa.LAUNCHES = 0
+            with use_rules(mesh, tp_rules(cfg, mesh, "train", TP_SEQ)), \
+                    torch.enable_grad():
+                state, m = make_train_step(cfg, opt)(state, batch)
+            if name == "sharded":
+                assert fa.LAUNCHES == 2 * cfg.n_layers, fa.LAUNCHES
+                launches["fa"] += fa.LAUNCHES
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs[name] = (gather_tree(state),
+                          [float(m[k]) for k in ("loss", "grad_norm")])
+            del state
+            torch.cuda.empty_cache()
+        trees_bit_equal(runs["sharded"][0], runs["plain"][0],
+                        "sharded train step vs plain at world size 1")
+        assert runs["sharded"][1] == runs["plain"][1], \
+            (runs["sharded"][1], runs["plain"][1])
+        a_train = runs["plain"][1]
+        del runs, batch
+        torch.cuda.empty_cache()
+        params = init_model(cfg, seed=SEED, device=device)
+        toks = tp_prompts(cfg)
+        p = toks.shape[1]
+        plain = tp_serve(params, cfg, toks, TP_NEW, device)
+        sp = shard_tree(params, mesh, tree_shardings(mesh, params))
+        fa.LAUNCHES = fd.LAUNCHES = 0
+        with use_rules(mesh, tp_rules(cfg, mesh, "prefill", p + TP_NEW)):
+            shard = tp_serve(sp, cfg, toks, TP_NEW, device)
+        torch.cuda.synchronize()
+        launches["fa"] += fa.LAUNCHES
+        launches["fd"] += fd.LAUNCHES
+        assert (fa.LAUNCHES, fd.LAUNCHES) == \
+            (cfg.n_layers, cfg.n_layers * TP_NEW), (fa.LAUNCHES, fd.LAUNCHES)
+        assert torch.equal(shard[0], plain[0]), "logits differ"
+        assert torch.equal(shard[1], plain[1]), "tokens differ"
+        del params, sp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    a_s = time.perf_counter() - t_phase
+    say(f"phase 24 (a) world size 1 over NCCL, mesh (1, 1), {TRAIN_ARCH} as "
+        f"published on {card}: the sharded train step (B={TRAIN_BATCH} "
+        f"S={TP_SEQ}; loss {a_train[0]:.6f}, grad norm {a_train[1]:.6f}) == "
+        f"plain bit for bit (state, loss, grad norm), peak "
+        f"{peaks['plain']:.2f} / {peaks['sharded']:.2f} GiB (plain / "
+        f"sharded); a wave of {LM_BATCH} "
+        f"prompts (P = {p}) prefilled and decoded {TP_NEW} greedy steps on "
+        f"DTensor parameters and cache_shardings caches == plain bit for bit "
+        f"(logits, tokens); prefill {plain[2] * 1e3:.1f} / "
+        f"{shard[2] * 1e3:.1f} ms, a step {np.median(plain[3]) * 1e3:.2f} / "
+        f"{np.median(shard[3]) * 1e3:.2f} ms (plain / sharded); {a_s:.1f} s")
+    del plain, shard
+
+    # (b), (c): 2 ranks on the card over gloo, mesh (1, 2)
+    t0 = time.perf_counter()
+    ref = tp_reference(device, cfgs)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        res = run_world(_tp_rank, 2, os.path.join(tmp, "store"),
+                        backend="gloo", timeout=TP_WORLD_TIMEOUT,
+                        args=(ref, cfgs, device.type), threads=0)
+    world_s = time.perf_counter() - t0
+    out = {"a": {"train": a_train, "peak_gib": peaks, "seconds": a_s},
+           "reference_s": ref_s,
+           "world_s": world_s}
+    for arch, new in ((TRAIN_ARCH, TP_NEW), (TP_MOE_ARCH, TP_MOE_NEW)):
+        tcfg = cfgs[arch]
+        want = ref[arch]["train"]
+        gaps = {}
+        for r in res:
+            got = r[arch]
+            for k, tol in TP_TRAIN_RTOL.items():
+                gap = abs(got["train"][k] - want[k]) / max(abs(want[k]),
+                                                           1e-12)
+                gaps[k] = max(gaps.get(k, 0.0), gap)
+                assert gap <= tol, (arch, k, got["train"], want)
+            assert got["train"] == res[0][arch]["train"], (arch, res)
+            assert got["finite"], arch
+            assert got["train_fa"] == 2 * tcfg.n_layers, got["train_fa"]
+            assert got["serve_fa"] == tcfg.n_layers, got["serve_fa"]
+            assert got["serve_fd"] == tcfg.n_layers * new, got["serve_fd"]
+            local = (tcfg.n_heads // 2, tcfg.n_kv_heads // 2)
+            assert got["train_heads"] == [local], got["train_heads"]
+            assert got["serve_heads"] == {"mha": [local],
+                                          "decode_attn": [local]}, got
+            if arch == TRAIN_ARCH:
+                assert got["tf_err"] < TF_TOL[torch.bfloat16], got["tf_err"]
+        r0 = res[0][arch]
+        launches["fa"] += sum(r[arch]["train_fa"] + r[arch]["serve_fa"]
+                              for r in res)
+        launches["fd"] += sum(r[arch]["serve_fd"] for r in res)
+        tag = "(b)" if arch == TRAIN_ARCH else "(c)"
+        fmt_gaps = ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        param_gib = [round(r[arch]["param_bytes"] / 2 ** 30, 3) for r in res]
+        say(f"phase 24 {tag} 2 ranks on one card over gloo, mesh (1, 2), "
+            f"{arch} ({tcfg.n_layers} layers, d_model {tcfg.d_model}"
+            + (f", {tcfg.n_experts // 2} of {tcfg.n_experts} experts a rank"
+               if tcfg.n_experts else "")
+            + f") on {card}: train step B={TRAIN_BATCH} S={TP_SEQ}: loss "
+            f"{r0['train']['loss']:.6f} (world size 1 {want['loss']:.6f}), "
+            f"aux {r0['train']['aux']:.6f} ({want['aux']:.6f}), grad norm "
+            f"{r0['train']['grad_norm']:.6f} ({want['grad_norm']:.6f}); "
+            f"relative gaps {fmt_gaps} (limits {TP_TRAIN_RTOL}); a step "
+            f"{[round(r[arch]['train_s'] * 1e3, 1) for r in res]} ms, peak "
+            f"{[round(r[arch]['train_peak_gib'], 2) for r in res]} GiB, "
+            f"parameters {param_gib} GiB a rank; flash_attention_fwd "
+            f"{r0['train_fa']} launches on "
+            f"(q, kv) heads {r0['train_heads']} a rank; the wave (P = "
+            f"{ref[arch]['toks'].shape[1]}, {new} steps fed the world-size-1 "
+            f"tokens): teacher-forced logits vs the world-size-1 forward "
+            f"max rel err {max(r[arch]['tf_err'] for r in res):.3g} (gate "
+            f"{TF_TOL[torch.bfloat16] if arch == TRAIN_ARCH else 'printed'})"
+            + (f", vs the world-size-1 decode steps "
+               f"{max(r[arch]['decode_err'] for r in res):.3g} (printed; "
+               f"forward drops tokens past an expert's capacity in its "
+               f"groups of {TP_MOE_PROMPT + TP_MOE_NEW}, a decode step "
+               f"none)"
+               if "decode_err" in r0 else "") + ","
+            f" greedy tokens equal to world size 1's at "
+            f"{r0['greedy_agree']:.3f} of the steps; prefill "
+            f"{[round(r[arch]['prefill_ms'], 1) for r in res]} ms, a step "
+            f"{[round(r[arch]['step_ms'], 2) for r in res]} ms, peak "
+            f"{[round(r[arch]['serve_peak_gib'], 2) for r in res]} GiB a "
+            f"rank; flash_attention_fwd {r0['serve_fa']} and flash_decode "
+            f"{r0['serve_fd']} launches a rank on (q, kv) heads "
+            f"{r0['serve_heads']['mha']} / {r0['serve_heads']['decode_attn']}")
+        out[arch] = {"ranks": [r[arch] for r in res], "world_size_1": want,
+                     "gaps": gaps}
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 24: {phase_s:.1f} s (world-size-1 references {ref_s:.1f} s, "
+        f"the 2-rank world {world_s:.1f} s)")
+    out["launches"] = launches
+    out["seconds"] = phase_s
+    return out
 
 
 def main() -> int:
@@ -4570,9 +5015,9 @@ def main() -> int:
         f"{fwd_train_bound:.5f} ms by {fwd_train_by} ({ff / 1e6:.1f} MFLOP, "
         f"{fb / 1e6:.3f} MB); ptxas {fwd_train_regs}")
     scratch_fit = lambda: tr.fit_resident(steps=160, from_scratch=True)
-    fit_wall_ms = median_wall_ms(scratch_fit, reps=3, warmup=1)
-    f_busy, per, f_kernels = profile_device(
-        scratch_fit, reps=2,
+    fit_wall_ms = median_wall_ms(scratch_fit, reps=1, warmup=1)
+    f_busy, per, f_kernels = profile_device(     # one traced fit
+        scratch_fit, reps=1,
         names=("graph_prop_fwd", "graph_prop_bwd", "sum_slots"))
     f_fwd = per["graph_prop_fwd"]
     f_bwd = per["graph_prop_bwd"] + per["sum_slots"]
@@ -4834,7 +5279,13 @@ def main() -> int:
     d_launch = dist_r["launches"]
     mark("23")
 
-    # 24. results
+    # 24. tensor-parallel activations: NCCL at world size 1, 2 gloo ranks
+    tp_r = run_tensor_parallel(device, card, fa, fd)
+    say(json.dumps({"card": card, "tensor_parallel": tp_r}))
+    tp_launch = tp_r["launches"]
+    mark("24")
+
+    # 25. results
     say(json.dumps({"phase_clock": PHASE_CLOCK}))
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",
@@ -4888,7 +5339,7 @@ def main() -> int:
         "launches": fa_launches + jb["launches"][1]
         + t_launch["training_lm"] + t_launch["elastic_fa"] + wh_l[0]
         + px_l[0] + d_launch["distribution_fa"]
-        + d_launch["elastic_world_fa"],
+        + d_launch["elastic_world_fa"] + tp_launch["fa"],
         "launches_by_path": {"serving": fa_launches,
                              "serving_jamba": jb["launches"][1],
                              "training_lm": t_launch["training_lm"],
@@ -4896,7 +5347,8 @@ def main() -> int:
                              "serving_whisper": wh_l[0],
                              "serving_pixtral": px_l[0],
                              "distribution": d_launch["distribution_fa"],
-                             "elastic_world": d_launch["elastic_world_fa"]},
+                             "elastic_world": d_launch["elastic_world_fa"],
+                             "tensor_parallel": tp_launch["fa"]},
         "check_launches": {"grad_and_plain_route_checks":
                            t_check["flash_attention_fwd"]},
         "grad_max_abs_err": lm_train["grads"]["mha"]["grad_max_abs_err"],
@@ -4914,11 +5366,13 @@ def main() -> int:
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:58",
-        "launches": fd_launches + jb["launches"][2] + wh_l[1] + px_l[1],
+        "launches": fd_launches + jb["launches"][2] + wh_l[1] + px_l[1]
+        + tp_launch["fd"],
         "launches_by_path": {"serving": fd_launches,
                              "serving_jamba": jb["launches"][2],
                              "serving_whisper": wh_l[1],
-                             "serving_pixtral": px_l[1]},
+                             "serving_pixtral": px_l[1],
+                             "tensor_parallel": tp_launch["fd"]},
         "max_abs_err": max(lm_errs["decode"].values()),
         "max_abs_err_f32": lm_errs["decode"][torch.float32],
         "ms": fd_times[pos_main]["ms"],

@@ -198,7 +198,12 @@ def batch_shardings(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig):
 def cache_shardings(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig):
     """Structure mirrors ``models.transformer.init_cache``: one entry per
     layer."""
-    rules = logical_rules(cfg, mesh, shape)
+    return cache_specs_of(cfg, logical_rules(cfg, mesh, shape))
+
+
+def cache_specs_of(cfg: ModelConfig, rules: Dict):
+    """:func:`cache_shardings` from the logical ``rules`` themselves (the
+    sharded prefill places its cache with the rules it runs under)."""
     dp, cseq, kv = rules["dp"], rules["cache_seq"], rules["tp_kv"]
     tpff = rules["tp_ff"]
 
@@ -309,32 +314,57 @@ def gather_tree(t):
 # ``all_reduce``) rather than ``DTensor.full_tensor``: those run on every
 # backend the port uses, and DTensor's functional all-gather does not run
 # over gloo on CUDA tensors (ROADMAP.md queue 3).
-def full_tensor(x, partial: Sequence[str] = ()):
+def full_tensor(x, partial: Sequence[str] = (),
+                over: Optional[Sequence[str]] = None):
     """The full tensor of ``x`` (a ``DTensor``; a plain tensor is returned
-    as it is), differentiable.  ``partial`` names the mesh dims over which
-    ranks computed different parts of the gradient of the result (the
-    dims that shard the batch): the gradient is summed over those and
-    taken as it is over the others, whose ranks computed the same one.
-    The gradient comes back with ``x``'s placements."""
+    as it is) along the mesh dims ``over`` (default: all of them), as a
+    plain tensor, differentiable; along the other mesh dims it stays this
+    rank's shard (``full_tensor(x, over=("data",))`` gathers an FSDP shard
+    and keeps the ``"model"`` shard local).  ``partial`` names the mesh
+    dims over which ranks computed different parts of the gradient of the
+    result (the dims that shard the batch): the gradient is summed over
+    those (a reduce-scatter where ``x`` is sharded, an all-reduce where it
+    is replicated) and taken as it is over the others, whose ranks
+    computed the same one.  The gradient comes back with ``x``'s
+    placements."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
     names = axis_names(mesh)
+    idx = range(len(names)) if over is None else \
+        [names.index(a) for a in over if a in names]
     return _Gather.apply(x.to_local(), mesh, tuple(x.placements),
-                         tuple(sorted(names.index(a) for a in partial)))
+                         tuple(sorted(names.index(a) for a in partial)),
+                         frozenset(idx))
+
+
+def as_dtensor(local: torch.Tensor, mesh, spec: Optional[PartitionSpec]
+               ) -> "torch.distributed.tensor.DTensor":
+    """``local``, this rank's shard of a tensor placed by ``spec`` on
+    ``mesh``, as a ``DTensor`` (its global shape the local one times the
+    mesh dims that shard each dim; nothing is sent)."""
+    from torch.distributed.tensor import DTensor
+    pl = placements(mesh, spec)
+    shape = list(local.shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(i)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def _dim_group(mesh, i: int):
     return mesh.get_group(i), mesh.size(i)
 
 
-def _gather(local: torch.Tensor, mesh, pl) -> torch.Tensor:
+def _gather(local: torch.Tensor, mesh, pl, over) -> torch.Tensor:
     import torch.distributed as dist
     x = local
     for i in reversed(range(mesh.ndim)):          # minor mesh dim first
         group, n = _dim_group(mesh, i)
-        if not pl[i].is_shard() or n == 1:
+        if i not in over or not pl[i].is_shard() or n == 1:
             continue
         d = pl[i].dim
         xt = x.movedim(d, 0).contiguous()
@@ -344,14 +374,14 @@ def _gather(local: torch.Tensor, mesh, pl) -> torch.Tensor:
     return x.contiguous()
 
 
-def _scatter(g: torch.Tensor, mesh, pl, partial) -> torch.Tensor:
+def _scatter(g: torch.Tensor, mesh, pl, partial, over) -> torch.Tensor:
     import torch.distributed as dist
     x = g
     for i in range(mesh.ndim):                    # major mesh dim first
         group, n = _dim_group(mesh, i)
         if n == 1:
             continue
-        if pl[i].is_shard():
+        if pl[i].is_shard() and i in over:
             d = pl[i].dim
             if i in partial:
                 xt = x.movedim(d, 0).contiguous()
@@ -361,6 +391,9 @@ def _scatter(g: torch.Tensor, mesh, pl, partial) -> torch.Tensor:
             else:
                 x = x.chunk(n, d)[mesh.get_local_rank(i)]
         elif i in partial:
+            # a shard kept local is this rank's alone: its gradient sums
+            # over the batch's ranks only where they hold the same shard
+            assert not pl[i].is_shard(), (i, pl)
             x = x.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(x, group=group)
     return x.contiguous()
@@ -368,10 +401,11 @@ def _scatter(g: torch.Tensor, mesh, pl, partial) -> torch.Tensor:
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, mesh, pl, partial):
-        ctx.mesh, ctx.pl, ctx.partial = mesh, pl, partial
-        return _gather(local, mesh, pl)
+    def forward(ctx, local, mesh, pl, partial, over):
+        ctx.mesh, ctx.pl, ctx.partial, ctx.over = mesh, pl, partial, over
+        return _gather(local, mesh, pl, over)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter(g, ctx.mesh, ctx.pl, ctx.partial), None, None, None
+        return (_scatter(g, ctx.mesh, ctx.pl, ctx.partial, ctx.over), None,
+                None, None, None)

@@ -5,6 +5,11 @@ Counterpart of ``repro.models.layers``.  Layers are functions over plain
 dicts of tensors with the reference's ``(in, out)`` weight layout.  Inits
 draw from a ``torch.Generator`` (the reference draws from ``jax.random``, so
 the values differ; the tests carry the reference's weights over instead).
+
+Given ``tp`` (a ``launch.collectives.TP`` over ``"model"``), a layer runs
+on this rank's shards, the weights being those shards: the FFN
+column-parallel into its hidden units and row-parallel out, the embedding
+and the logits over this rank's rows of the vocabulary.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.collectives import copy_to, reduce_from
+from repro_torch.models.sharding import constrain
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -64,13 +71,21 @@ def init_ffn(gen, cfg: ModelConfig, d_ff: int, device: torch.device) -> Dict:
     }
 
 
-def ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+        tp=None) -> torch.Tensor:
     """Gated FFN: SwiGLU, or GeGLU with the tanh gelu for gemma (the
-    default of ``jax.nn.gelu``)."""
+    default of ``jax.nn.gelu``).  With ``tp``: this rank's hidden units
+    (``w_gate`` / ``w_up`` columns, ``w_down`` rows), the output summed
+    over the ranks."""
+    if tp is not None:
+        x = copy_to(x, tp)
     gate = x @ params["w_gate"]
     gate = F.gelu(gate, approximate="tanh") if cfg.embed_scale \
         else F.silu(gate)
-    return (gate * (x @ params["w_up"])) @ params["w_down"]
+    h = constrain(gate * (x @ params["w_up"]), "dp", None, "tp_ff",
+                  full=(None, None, cfg.d_ff))
+    out = h @ params["w_down"]
+    return out if tp is None else reduce_from(out, tp)
 
 
 # -------------------------------------------------------------------- rotary
@@ -111,8 +126,20 @@ def sinusoidal_positions(n_pos: int, dim: int,
 
 # --------------------------------------------------------------------- embed
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    x = table[ids].to(DTYPES[cfg.dtype])
+                 cfg: ModelConfig, *, tp=None) -> torch.Tensor:
+    """Rows ``ids`` of ``table`` in the compute dtype (scaled for gemma).
+    With ``tp``, ``table`` is this rank's rows of the vocabulary: ids
+    outside them read zeros and the ranks' rows are summed."""
+    if tp is None:
+        x = table[ids]
+    else:
+        n = table.shape[0]
+        local = ids - tp.start(n)
+        mine = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)]
+        x = reduce_from(torch.where(mine[..., None], x, torch.zeros_like(x)),
+                        tp)
+    x = x.to(DTYPES[cfg.dtype])
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -124,10 +151,14 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def unembed_logits(x: torch.Tensor, table: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, *, tp=None) -> torch.Tensor:
     """(B, S, d) @ (V, d)^T -> (B, S, V) logits, with the optional final
-    softcap (applied in float32)."""
-    logits = x @ table.to(x.dtype).T
+    softcap (applied in float32).  With ``tp``, ``table`` is this rank's
+    rows of the vocabulary and so are the logits' columns."""
+    if tp is not None:
+        x = copy_to(x, tp)
+    logits = constrain(x @ table.to(x.dtype).T, "dp", None, "vocab",
+                       full=(None, None, cfg.vocab_size))
     if cfg.final_logit_softcap:
         logits = softcap(logits.float(), cfg.final_logit_softcap)
     return logits

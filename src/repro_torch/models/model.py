@@ -30,11 +30,49 @@ def apply_model(params: Dict, cfg: ModelConfig, batch: Dict
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
             cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-    """Prefill forward: (logits, cache), the cache padded to ``cache_len``."""
+    """Prefill forward: (logits, cache), the cache padded to ``cache_len``.
+
+    On ``DTensor`` parameters under the active logical rules, ``batch`` is
+    the global batch (every rank holding it, or ``DTensor`` leaves placed
+    on the batch's dims): each rank runs its rows on its shards, and the
+    logits come back as a ``DTensor`` over the batch's dims and
+    ``"model"`` (the vocabulary, where it splits), the cache as ``DTensor``
+    entries placed by ``launch.shardings.cache_shardings``: the reference's
+    jitted ``prefill_step`` (``repro/launch/dryrun.py:122-130``), whose
+    logits are the last position's of these.  The sequence-sharded layouts
+    raise ``NotImplementedError`` (ROADMAP.md item 13d)."""
+    sh = tfm.serving_sharded(params, cfg)
+    if sh is not None:
+        batch = {k: tfm.local_input(v, sh) for k, v in batch.items()}
     logits, _, cache = tfm.forward(params, cfg, batch, mode="prefill")
     if cache_len is not None:
         cache = tfm.pad_cache_to(cache, cfg, cache_len)
-    return logits, cache
+    if sh is None:
+        return logits, cache
+    return tfm.place_logits(logits, cfg, sh), tfm.place_cache(cache, cfg, sh)
+
+
+def next_token(logits) -> torch.Tensor:
+    """The greedy next token of each row, (B, 1): the argmax of the last
+    position's logits, the lowest index on ties (``jnp.argmax``, as the
+    reference's ``serve_step``).  Logits placed as sharded
+    :func:`prefill` / ``decode_step`` give them: this rank's columns' max
+    and index, then the ranks' compared (the largest value, the lowest
+    index among equals); the tokens come back as a ``DTensor`` placed over
+    the batch's dims."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(logits, DTensor):
+        return logits[:, -1].argmax(dim=-1)[:, None]
+    from repro_torch.launch.collectives import argmax_over, tp_of
+    from repro_torch.launch.shardings import PartitionSpec, as_dtensor
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    local = logits.to_local()[:, -1]
+    tp = tp_of(mesh) if tfm.model_dim(logits) == 2 else None
+    idx = local.argmax(dim=-1) if tp is None else argmax_over(local, tp)
+    rows = tuple(names[i] for i, p in enumerate(logits.placements)
+                 if p.is_shard() and p.dim == 0)
+    return as_dtensor(idx[:, None], mesh, PartitionSpec(rows or None, None))
 
 
 def param_count(cfg: ModelConfig) -> int:

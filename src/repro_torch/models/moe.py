@@ -7,6 +7,15 @@ routed past an expert's capacity is dropped there, pad tokens included),
 and the dispatch and combine tensors (G, T, E, C) are contracted with the
 expert weights by plain products: the JAX package computes them outside any
 Pallas kernel too.
+
+Expert-parallel with ``tp`` (a ``launch.collectives.TP`` over ``"model"``):
+the router is replicated, so every rank builds the same dispatch, and runs
+its own ``E / tp`` experts (the expert weights are its shards) on its slice
+of the dispatch and combine tensors; the output is summed over the ranks.
+The load-balancing loss is a product of two means over the batch's
+tokens: with ``dp_groups`` (the process groups of the mesh dims that split
+the batch) the per-expert sums and the token count are summed over those
+ranks first, so every rank holds the global batch's aux loss.
 """
 from __future__ import annotations
 
@@ -16,7 +25,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.collectives import copy_to, reduce_from, sum_over
 from repro_torch.models.layers import DTYPES, dense_init
+from repro_torch.models.sharding import constrain
 from repro_torch.models.ssm import silu
 
 
@@ -55,9 +66,32 @@ def route(p: Dict, cfg: ModelConfig, xg: torch.Tensor
     return probs, gate_vals / gate_vals.sum(-1, keepdim=True), gate_idx
 
 
-def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Dict:
+def _aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, e: int,
+              dp_groups) -> torch.Tensor:
+    """The Switch/GShard load-balancing loss: E x sum over the experts of
+    the mean router probability times the share of top-1 picks.  Over
+    ``dp_groups`` the means are the global batch's (differentiable sums:
+    each rank takes the gradient of its own tokens' part, so that the
+    batch's gradient, summed over those ranks, counts the loss once)."""
+    f32 = torch.float32
+    top1 = torch.nn.functional.one_hot(gate_idx[..., 0], e).to(f32)
+    if not dp_groups:
+        me = probs.mean(dim=(0, 1))
+        ce = top1.mean(dim=(0, 1))
+        return (me * ce).sum() * e
+    n = torch.full((1,), float(probs.shape[0] * probs.shape[1]), dtype=f32,
+                   device=probs.device)
+    sums = sum_over(torch.cat([probs.sum(dim=(0, 1)), top1.sum(dim=(0, 1)),
+                               n]), dp_groups)
+    me, ce = sums[:e] / sums[-1], sums[e:2 * e] / sums[-1]
+    return (me * ce).sum() * e
+
+
+def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, tp=None,
+            dp_groups=()) -> Dict:
     """x: (B, S, d) -> {"out": (B, S, d), "aux_loss": float32 scalar}.  S
-    must be at most ``moe_group`` or a multiple of it."""
+    must be at most ``moe_group`` or a multiple of it.  ``tp`` and
+    ``dp_groups`` as the module docstring says."""
     b, s, d = x.shape
     t = min(s, cfg.moe_group)
     if s % t:
@@ -71,12 +105,7 @@ def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Dict:
     f32 = torch.float32
     xg = x.reshape(g, t, d)
     probs, gate_vals, gate_idx = route(p, cfg, xg)
-
-    # load-balancing auxiliary loss (Switch/GShard form)
-    me = probs.mean(dim=(0, 1))
-    ce = torch.nn.functional.one_hot(gate_idx[..., 0], e).to(f32).mean(
-        dim=(0, 1))
-    aux = (me * ce).sum() * e
+    aux = _aux_loss(probs, gate_idx, e, dp_groups)
 
     cdt = f32 if cfg.moe_combine_f32 else x.dtype
     dispatch = torch.zeros((g, t, e, c), dtype=x.dtype, device=x.device)
@@ -95,9 +124,19 @@ def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> Dict:
         dispatch = dispatch + contrib.to(x.dtype)
         combine = combine + (contrib * gate_vals[..., j, None, None]).to(cdt)
 
+    if tp is not None:                   # this rank's experts
+        el = p["w_gate"].shape[0]
+        e0 = tp.start(el)
+        xg = copy_to(xg, tp)
+        dispatch = dispatch[:, :, e0:e0 + el]
+        combine = copy_to(combine, tp)[:, :, e0:e0 + el]
     xe = torch.einsum("gtec,gtd->egcd", dispatch, xg)
+    xe = constrain(xe, "ep", "dp", None, None, full=(e, None, None, None))
     h = silu(torch.einsum("egcd,edf->egcf", xe, p["w_gate"]))
     h = h * torch.einsum("egcd,edf->egcf", xe, p["w_up"])
     ye = torch.einsum("egcf,efd->egcd", h, p["w_down"])
+    ye = constrain(ye, "ep", "dp", None, None, full=(e, None, None, None))
     out = torch.einsum("egcd,gtec->gtd", ye, combine.to(ye.dtype))
+    if tp is not None:
+        out = reduce_from(out, tp)
     return {"out": out.reshape(b, s, d).to(x.dtype), "aux_loss": aux}

@@ -13,9 +13,13 @@ Logical axes used by the model code:
   vocab      vocabulary dim           seq       activation sequence dim (SP)
 
 :func:`constrain` on a ``DTensor`` inside a mesh redistributes it to the
-rule's placements.  On a plain tensor it returns the tensor: the model runs
-on whole activations, and lowering the activation constraints to
-redistributions of local head shards is ROADMAP.md queue 1 item 13c.
+rule's placements.  A plain tensor inside a mesh is this rank's shard of
+the activation (the sharded model runs on local shards, ROADMAP.md item
+13c): :func:`constrain` asserts that its shape is the local shape the
+rule gives, each dim whose global size the caller names (``full``)
+divided by the mesh dims the rule maps it to (where they divide it, as
+``launch.shardings._guard`` keeps a parameter's), so that a wrong layout
+fails where the reference places the activation.
 """
 from __future__ import annotations
 
@@ -59,17 +63,75 @@ def logical_spec(*names: Optional[str]):
     return PartitionSpec(*[rules.get(n) if n else None for n in names])
 
 
-def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+def local_size(size: int, axis: Axis, sizes: Dict[str, int]) -> int:
+    """A dim of global ``size`` under the mesh dims ``axis``: divided by
+    their product where it divides evenly, else whole."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis or ())
+    n = 1
+    for a in names:
+        n *= sizes.get(a, 1)
+    return size // n if size % n == 0 and size >= n else size
+
+
+def constrain(x: torch.Tensor, *names: Optional[str],
+              full: Optional[Tuple[Optional[int], ...]] = None
+              ) -> torch.Tensor:
     """``x`` under the active logical rules: a ``DTensor`` redistributed to
-    the rule's placements; a plain tensor, or any tensor outside a mesh,
-    as it is."""
+    the rule's placements; a plain tensor returned as it is, after an
+    assertion that each dim with a global size in ``full`` (None: not
+    known here, as the batch) has the local size the rule gives.  Outside
+    a mesh, ``x`` as it is."""
     mesh, rules = get_rules()
     if mesh is None or rules is None:
         return x
     assert x.dim() == len(names), (tuple(x.shape), names)
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
+        if full is not None:
+            from repro_torch.launch.mesh import mesh_shape
+            sizes = mesh_shape(mesh)
+            want = tuple(None if f is None else
+                         local_size(f, rules.get(n) if n else None, sizes)
+                         for n, f in zip(names, full))
+            got = tuple(x.shape)
+            assert all(w is None or w == g for w, g in zip(want, got)), (
+                f"activation {got} is not the local shard {want} of "
+                f"{tuple(full)} under the rules {names} on {sizes}")
         return x
     from repro_torch.launch.shardings import placements
     return x.redistribute(x.device_mesh,
                           placements(x.device_mesh, logical_spec(*names)))
+
+
+# --------------------------------------------------------- the batch's rows
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh dims that shard the batch under the active rules (their
+    ``"dp"``); none without rules."""
+    _, rules = get_rules()
+    dp = (rules or {}).get("dp")
+    names = (dp,) if isinstance(dp, str) else tuple(dp or ())
+    return tuple(a for a in names if a in mesh.mesh_dim_names)
+
+
+def local_rows(batch: Dict, mesh, axes: Tuple[str, ...]) -> Dict:
+    """This rank's rows of every batch leaf: the batch split evenly over
+    the mesh dims ``axes``, major to minor (all rows when ``axes`` is
+    empty).  Raises when the rows do not split evenly."""
+    n, idx = 1, 0
+    for a in axes:
+        k = mesh.mesh_dim_names.index(a)
+        idx = idx * mesh.size(k) + mesh.get_local_rank(a)
+        n *= mesh.size(k)
+    if n == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.dim() == 0:
+            out[k] = v
+            continue
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} has {v.shape[0]} rows, which do "
+                             f"not split over {n} ranks of {axes}")
+        rows = v.shape[0] // n
+        out[k] = v[idx * rows:(idx + 1) * rows]
+    return out

@@ -12,6 +12,22 @@ reference.  The mLSTM's full-sequence form likewise goes through
 ``mlstm_chunk_scan``, chunk 256, on CPU tensors).  The sLSTM has no kernel
 in either package: its full-sequence form is a Python loop over time, as
 the reference's ``lax.scan``.
+
+Given ``tp`` (a ``launch.collectives.TP`` over ``"model"``), the Mamba and
+mLSTM mixers run on this rank's shards.  Mamba: its ``dI / tp`` channels
+(``conv_*``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` are their shards;
+``in_proj`` comes whole, since its column shards do not line up with the
+``x1`` / ``z`` halves, and each rank takes both halves' columns of its
+channels), ``x_proj`` row-parallel with dt, B and C summed over the ranks,
+``out_proj`` row-parallel; its state holds its channels.  mLSTM, full
+sequence: its heads (``wq`` / ``wk`` / ``wv`` / ``w_gate`` columns, ``w_out``
+rows; the replicated gates cut to its heads) through the unchanged chunk
+kernel; the final state is then placed on the value dim, as the cache
+holds it.  mLSTM, one token: on a state whose ``C`` holds this rank's
+value columns (``(B, H, Dh, Dh / tp)``, weights whole): q, k, the gates
+and ``n`` computed alike on every rank, v's columns local; the value
+columns of ``C`` and ``h`` are independent given ``n`` and ``m``, so this is
+exact.  The sLSTM stays replicated.
 """
 from __future__ import annotations
 
@@ -25,7 +41,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.mlstm_chunk.ops import M_INIT, log_sigmoid, mlstm
+from repro_torch.launch.collectives import copy_to, gather_dim, reduce_from
 from repro_torch.models.layers import DTYPES, dense_init
+from repro_torch.models.sharding import constrain
 
 CHUNK = 256             # the reference's chunk (repro/models/ssm.py:167)
 
@@ -83,7 +101,7 @@ def _mamba_conv_full(p: Dict, x1: torch.Tensor) -> torch.Tensor:
     return out + p["conv_b"].to(x1.dtype)
 
 
-def _mamba_core(p: Dict, cfg: ModelConfig, x1: torch.Tensor):
+def _mamba_core(p: Dict, cfg: ModelConfig, x1: torch.Tensor, tp=None):
     """The scan's per-token inputs, x1: (B, S, dI) post-conv post-silu:
     dt (B, S, dI) through softplus, a = -exp(A_log) (dI, N), and B, C
     (B, S, N), all float32.  Unlike the reference, decay and drive are not
@@ -91,6 +109,8 @@ def _mamba_core(p: Dict, cfg: ModelConfig, x1: torch.Tensor):
     _, r = mamba_dims(cfg)
     n = cfg.mamba_d_state
     dbc = x1 @ p["x_proj"]
+    if tp is not None:
+        dbc = copy_to(reduce_from(dbc, tp), tp)
     dt_raw, bc, cc = torch.split(dbc, [r, n, n], dim=-1)
     dt = softplus((dt_raw @ p["dt_proj"]).float() + p["dt_bias"])
     a = -torch.exp(p["A_log"])
@@ -98,22 +118,41 @@ def _mamba_core(p: Dict, cfg: ModelConfig, x1: torch.Tensor):
 
 
 def _mamba_out(p: Dict, x: torch.Tensor, x1: torch.Tensor, y: torch.Tensor,
-               z: torch.Tensor) -> torch.Tensor:
+               z: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """The D x skip term, the silu(z) gate and the out projection."""
     y = (y + p["D"] * x1.float()).to(x.dtype)
-    return (y * silu(z)) @ p["out_proj"]
+    y = y * silu(z)
+    if y.dim() == 3:
+        y = constrain(y, "dp", None, "tp_ff",
+                      full=(None, None, mamba_dims(cfg)[0]))
+    out = y @ p["out_proj"]
+    return out if tp is None else reduce_from(out, tp)
+
+
+def _mamba_in(p: Dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
+    """x @ in_proj split into (x1, z) of this rank's channels."""
+    di, _ = mamba_dims(cfg)
+    if tp is None:
+        return torch.split(x @ p["in_proj"], di, dim=-1)
+    dl = p["conv_b"].shape[0]
+    c0 = tp.start(dl)
+    w = copy_to(p["in_proj"], tp)
+    w = torch.cat([w[:, c0:c0 + dl], w[:, di + c0:di + c0 + dl]], dim=1)
+    return torch.split(copy_to(x, tp) @ w, dl, dim=-1)
 
 
 def mamba_forward(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  return_state: bool = False):
+                  return_state: bool = False, tp=None):
     """x: (B, S, d) -> (B, S, d) [, final state {"h": (B, dI, N) float32,
-    "conv": the last dconv - 1 rows of the pre-conv x1}]."""
+    "conv": the last dconv - 1 rows of the pre-conv x1}] (this rank's
+    channels with ``tp``)."""
     di, _ = mamba_dims(cfg)
-    x1_pre, z = torch.split(x @ p["in_proj"], di, dim=-1)
+    x1_pre, z = _mamba_in(p, cfg, x, tp)
+    x1_pre = constrain(x1_pre, "dp", None, "tp_ff", full=(None, None, di))
     x1 = silu(_mamba_conv_full(p, x1_pre))
-    dt, a, bc, cc = _mamba_core(p, cfg, x1)
+    dt, a, bc, cc = _mamba_core(p, cfg, x1, tp)
     y, h = selective_scan(dt, a, x1, bc, cc, return_state=True)
-    out = _mamba_out(p, x, x1, y, z)
+    out = _mamba_out(p, x, x1, y, z, cfg, tp)
     if not return_state:
         return out
     dconv = p["conv_w"].shape[0]
@@ -132,21 +171,20 @@ def mamba_init_state(cfg: ModelConfig, batch: int, device: torch.device,
 
 
 def mamba_step(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-               state: Dict) -> Tuple[torch.Tensor, Dict]:
+               state: Dict, tp=None) -> Tuple[torch.Tensor, Dict]:
     """Single-token decode, x: (B, 1, d) -> (B, 1, d), new state.  Plain
     ops: one step of the recurrence launches no scan."""
-    di, _ = mamba_dims(cfg)
-    x1_pre, z = torch.split((x @ p["in_proj"])[:, 0], di, dim=-1)  # (B, dI)
+    x1_pre, z = (t[:, 0] for t in _mamba_in(p, cfg, x, tp))   # (B, dI)
     window = torch.cat([state["conv"].to(x1_pre.dtype), x1_pre[:, None]],
                        dim=1)                                 # (B, dconv, dI)
     x1 = torch.einsum("bcd,cd->bd", window, p["conv_w"].to(x1_pre.dtype))
     x1 = silu(x1 + p["conv_b"].to(x1.dtype))[:, None]         # (B, 1, dI)
-    dt, a, bc, cc = _mamba_core(p, cfg, x1)
+    dt, a, bc, cc = _mamba_core(p, cfg, x1, tp)
     decay = torch.exp(dt[:, 0, :, None] * a)                  # (B, dI, N)
     drive = (dt[:, 0] * x1[:, 0].float())[..., None] * bc[:, 0, None, :]
     h = decay * state["h"] + drive
     y = torch.einsum("bdn,bn->bd", h, cc[:, 0])
-    out = _mamba_out(p, x, x1[:, 0], y, z)[:, None]
+    out = _mamba_out(p, x, x1[:, 0], y, z, cfg, tp)[:, None]
     return out, {"h": h, "conv": window[:, 1:]}
 
 
@@ -169,36 +207,75 @@ def init_mlstm(gen, cfg: ModelConfig, device: torch.device) -> Dict:
     }
 
 
-def _mlstm_proj(p: Dict, cfg: ModelConfig, u: torch.Tensor):
+def _mlstm_proj(p: Dict, cfg: ModelConfig, u: torch.Tensor, tp=None):
     """q, unscaled k, v (B, S, H, Dh) in u's dtype; the log input gate i and
     the forget gate f before its log-sigmoid, (B, S, H) float32 (the gate
-    projections run in float32 when ``ssm_io_f32``)."""
+    projections run in float32 when ``ssm_io_f32``).  With ``tp``, this
+    rank's heads (the replicated gates cut to them)."""
     b, s, _ = u.shape
-    h, dh = cfg.n_heads, cfg.d_head
-    q = (u @ p["wq"]).reshape(b, s, h, dh)
-    k = (u @ p["wk"]).reshape(b, s, h, dh)
-    v = (u @ p["wv"]).reshape(b, s, h, dh)
+    dh = cfg.d_head
+    uh = u if tp is None else copy_to(u, tp)
+    q = (uh @ p["wq"]).reshape(b, s, -1, dh)
+    k = (uh @ p["wk"]).reshape(b, s, -1, dh)
+    v = (uh @ p["wv"]).reshape(b, s, -1, dh)
     gdt = torch.float32 if cfg.ssm_io_f32 else u.dtype
     ug = u.to(gdt)
     i = (ug @ p["w_i"].to(gdt)).float() + p["b_i"]
     f = (ug @ p["w_f"].to(gdt)).float() + p["b_f"]
+    if tp is not None:
+        hl = q.shape[2]
+        i = copy_to(i, tp).narrow(-1, tp.start(hl), hl).contiguous()
+        f = copy_to(f, tp).narrow(-1, tp.start(hl), hl).contiguous()
     return q, k, v, i, f
 
 
-def _gate_out(p: Dict, u: torch.Tensor, h_out: torch.Tensor) -> torch.Tensor:
-    """h (B, S, H, Dh) -> silu-gated, projected (B, S, d)."""
-    gate = silu(u @ p["w_gate"])
-    return (h_out.reshape(*u.shape[:2], -1) * gate) @ p["w_out"]
+def _gate_out(p: Dict, u: torch.Tensor, h_out: torch.Tensor,
+              tp=None, cols=None) -> torch.Tensor:
+    """h (B, S, H, Dh) -> silu-gated, projected (B, S, d).  With ``tp``:
+    h of this rank's heads, or (``cols``, weights whole) of its value
+    columns ``cols`` of the flattened heads; the ranks' parts summed."""
+    w_gate, w_out = p["w_gate"], p["w_out"]
+    if cols is not None:
+        w_gate, w_out = w_gate[:, cols], w_out[cols]
+    elif tp is not None:
+        u = copy_to(u, tp)
+    gate = silu(u @ w_gate)
+    out = (h_out.reshape(*u.shape[:2], -1) * gate) @ w_out
+    return out if tp is None else reduce_from(out, tp)
+
+
+def _value_state(state: Dict, cfg: ModelConfig, tp, heads: bool) -> Dict:
+    """A final state placed as the cache holds it: ``C`` on this rank's
+    value columns of every head, ``n`` and ``m`` whole; a state of this
+    rank's ``heads`` is gathered first (collectives without gradient: the
+    state leaves the step)."""
+    if heads:
+        state = {k: gather_dim(t, 1, tp) for k, t in state.items()}
+    dv = cfg.d_head // tp.size
+    return dict(state, C=state["C"][..., tp.start(dv):tp.start(dv) + dv
+                                    ].contiguous())
 
 
 def mlstm_forward(p: Dict, cfg: ModelConfig, u: torch.Tensor,
-                  return_state: bool = False):
+                  return_state: bool = False, tp=None):
     """Mixer body (u is already normed), u: (B, S, d).  S must be at most
-    256 or a multiple of 256 (the reference's chunk contract)."""
-    q, k, v, i, f = _mlstm_proj(p, cfg, u)
+    256 or a multiple of 256 (the reference's chunk contract).  With
+    ``tp``: this rank's heads where ``wq`` holds its columns, else every
+    head; the final state on this rank's value columns."""
+    heads = tp is not None and p["wq"].shape[-1] < cfg.n_heads * cfg.d_head
+    tp_h = tp if heads else None
+    q, k, v, i, f = _mlstm_proj(p, cfg, u, tp_h)
+    # the reference places v on its value dim (ssm.py:232); the port runs
+    # its heads through the chunk kernel and moves the final state onto
+    # the value dim once (_value_state)
+    v = constrain(v, "dp", None, "tp_ff", None,
+                  full=(None, None, cfg.n_heads, None))
     h_out, state = mlstm(q, k, v, i, f, chunk=CHUNK, return_state=True)
-    out = _gate_out(p, u, h_out)
-    return (out, state) if return_state else out
+    out = _gate_out(p, u, h_out, tp_h)
+    if not return_state:
+        return out
+    return out, (state if tp is None else
+                 _value_state(state, cfg, tp, heads))
 
 
 def mlstm_init_state(cfg: ModelConfig, batch: int,
@@ -211,10 +288,21 @@ def mlstm_init_state(cfg: ModelConfig, batch: int,
 
 
 def mlstm_step(p: Dict, cfg: ModelConfig, u: torch.Tensor,
-               state: Dict) -> Tuple[torch.Tensor, Dict]:
-    """Single-token recurrence, u: (B, 1, d) -> (B, 1, d), new state."""
+               state: Dict, tp=None) -> Tuple[torch.Tensor, Dict]:
+    """Single-token recurrence, u: (B, 1, d) -> (B, 1, d), new state.  With
+    ``tp``, ``state["C"]`` holds this rank's value columns and the weights
+    are whole (module docstring)."""
     q, k, v, i, f = _mlstm_proj(p, cfg, u)
     k = k / math.sqrt(cfg.d_head)
+    dv = state["C"].shape[-1]
+    cols = None
+    if tp is not None:
+        c0 = tp.start(dv)
+        v = v[..., c0:c0 + dv]
+        dh = cfg.d_head
+        cols = torch.arange(cfg.n_heads, device=u.device)[:, None] * dh + \
+            torch.arange(c0, c0 + dv, device=u.device)[None, :]
+        cols = cols.reshape(-1)
     q0, k0, v0 = (t[:, 0].float() for t in (q, k, v))        # (B, H, Dh)
     i0, lf0 = i[:, 0], log_sigmoid(f[:, 0])                  # (B, H)
     m_new = torch.maximum(lf0 + state["m"], i0)
@@ -226,7 +314,7 @@ def mlstm_step(p: Dict, cfg: ModelConfig, u: torch.Tensor,
     num = torch.einsum("bhd,bhde->bhe", q0, C)
     den = torch.einsum("bhd,bhd->bh", q0, n)
     h_out = (num / torch.clamp_min(den.abs(), 1.0)[..., None]).to(u.dtype)
-    return _gate_out(p, u, h_out), {"C": C, "n": n, "m": m_new}
+    return _gate_out(p, u, h_out, tp, cols), {"C": C, "n": n, "m": m_new}
 
 
 # ======================================================================= sLSTM

@@ -28,6 +28,20 @@ Every family runs: ``dense``, ``moe``, ``hybrid`` (jamba), ``ssm``
 the model's compute dtype, run through the encoder; sinusoidal absolute
 positions) and ``vlm`` (pixtral: the batch's ``patches``, (B, n_patches,
 d), in front of the tokens, so the text starts at position n_patches).
+
+Parameters that are ``DTensor`` objects (placed by ``launch.shardings``)
+run the sharded forward under the active logical rules
+(``models.sharding.use_rules``; ROADMAP.md item 13c): the batch given is
+this rank's rows, and each block gathers its parameters over the mesh dims
+other than ``"model"`` (FSDP over ``"data"``) when it runs, inside the
+block, so that a checkpointed block gathers again in its backward and no
+block keeps another's.  Along ``"model"`` a block runs on this rank's
+shards wherever the rules shard its dim there (heads, FFN hidden units,
+experts, Mamba channels, mLSTM heads; the vocabulary of the embedding and
+the logits, which come out as this rank's columns); a block whose dim
+does not split (the sLSTM; attention whose heads do not divide, the
+sequence-sharded layouts of ROADMAP.md item 13d) gathers its ``"model"``
+shards too and runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -40,12 +54,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.collectives import TP, tp_of
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
                                        init_ffn, norm_init, rms_norm,
                                        sinusoidal_positions, unembed_logits)
+from repro_torch.models.sharding import batch_axes, constrain, get_rules
 
 
 class FrontendInput(NamedTuple):
@@ -144,36 +160,139 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, fkind: str,
     return p
 
 
+# -------------------------------------------------------------- sharded run
+class Sharded(NamedTuple):
+    """How this rank runs a model whose parameters are ``DTensor``
+    objects: the mesh, the active logical rules, the ``"model"`` dim
+    (None at one rank or without rules: every block then runs whole), the
+    mesh dims that split the batch (their ranks computed different parts
+    of every gradient) and their process groups of more than one rank."""
+    mesh: object
+    rules: Optional[Dict]
+    tp: Optional[TP]
+    partial: Tuple[str, ...]
+    dp_groups: Tuple
+
+
+def sharded(params: Dict) -> Optional[Sharded]:
+    """The :class:`Sharded` of ``params``, or None for plain tensors."""
+    from torch.distributed.tensor import DTensor
+    leaf = params["final_norm"]
+    if not isinstance(leaf, DTensor):
+        return None
+    mesh = leaf.device_mesh
+    _, rules = get_rules()
+    axes = batch_axes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    groups = tuple(mesh.get_group(a) for a in axes
+                   if mesh.size(names.index(a)) > 1)
+    return Sharded(mesh, rules, tp_of(mesh) if rules else None, axes,
+                   groups)
+
+
+def model_dim(t) -> Optional[int]:
+    """The tensor dim that ``"model"`` shards in the DTensor ``t``."""
+    names = tuple(t.device_mesh.mesh_dim_names)
+    if "model" not in names:
+        return None
+    p = t.placements[names.index("model")]
+    return p.dim if p.is_shard() else None
+
+
+def gathered(t, sh: Sharded, keep_model: bool = False) -> torch.Tensor:
+    """``t`` gathered over every mesh dim (but ``"model"`` with
+    ``keep_model``), its gradient summed over the batch's dims."""
+    from repro_torch.launch.shardings import full_tensor
+    over = tuple(a for a in sh.mesh.mesh_dim_names
+                 if not (keep_model and a == "model"))
+    return full_tensor(t, sh.partial, over)
+
+
+def _block_plan(sh: Sharded, key: str, block: Dict, cfg: ModelConfig,
+                kind: str, mode: str):
+    """(the leaves of ``block`` kept on this rank's ``"model"`` shard, the
+    block's ``tp``): the block runs on local shards where the rules shard
+    its dim over ``"model"``, else whole."""
+    tp, rules = sh.tp, sh.rules
+    if tp is None:
+        return (), None
+    if key in ("attn", "cross") and rules["tp_heads"] == "model":
+        kv = ("wk", "wv") if rules["tp_kv"] == "model" else ()
+        return ("wq", "wo") + kv, tp
+    if key == "ffn" and model_dim(block["w_gate"]) == 1:
+        return ("w_gate", "w_up", "w_down"), tp
+    if key == "moe" and model_dim(block["w_gate"]) == 0:
+        return ("w_gate", "w_up", "w_down"), tp
+    if key == "mamba" and model_dim(block["conv_b"]) == 0:
+        return tuple(k for k in block if k != "in_proj"), tp
+    if key == "mixer" and kind == "mlstm":    # its state: value columns
+        heads = mode != "decode" and cfg.n_heads % tp.size == 0 and \
+            model_dim(block["wq"]) == 1
+        return ("wq", "wk", "wv", "w_gate", "w_out") if heads else (), tp
+    return (), None
+
+
+def _gather_layer(lp: Dict, cfg: ModelConfig, kind: str, mode: str,
+                  sh: Sharded) -> Tuple[Dict, Dict]:
+    """One layer's parameters as plain tensors for this rank, and each
+    block's ``tp`` (or None: it runs whole)."""
+    out, tps = {}, {}
+    for key, block in lp.items():
+        if not isinstance(block, dict):                  # a norm
+            out[key] = gathered(block, sh)
+            continue
+        keep, tps[key] = _block_plan(sh, key, block, cfg, kind, mode)
+        out[key] = {k: gathered(t, sh, k in keep) for k, t in block.items()}
+    return out, tps
+
+
+def _vocab_table(t, sh: Optional[Sharded]):
+    """The embedding / unembedding table for this rank and its ``tp``:
+    this rank's rows of the vocabulary where ``"model"`` shards them."""
+    if sh is None:
+        return t, None
+    tp = sh.tp if model_dim(t) == 0 else None
+    return gathered(t, sh, tp is not None), tp
+
+
 # --------------------------------------------------------------------- layers
 def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
                  x: torch.Tensor, mode: str,
                  positions: Optional[torch.Tensor], cache: Optional[Dict],
-                 pos: Optional[int], enc_out: Optional[torch.Tensor] = None
+                 pos: Optional[int], enc_out: Optional[torch.Tensor] = None,
+                 sh: Optional[Sharded] = None
                  ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
     """One block: the mixer, whisper's cross-attention over ``enc_out``
     (decode reads the encoder's k/v from the cache entry instead), then the
     FFN block unless ``fkind`` is "none" (the dense FFN, the MoE FFN, or
     their sum for "moe+dense"), each pre-normed and added to the residual.
-    Returns (x, cache entry, the MoE's aux loss or None)."""
+    Returns (x, cache entry, the MoE's aux loss or None).  With ``sh``,
+    ``lp`` holds ``DTensor`` objects, gathered here (module docstring)."""
+    tps: Dict = {}
+    if sh is not None:
+        lp, tps = _gather_layer(lp, cfg, kind, mode, sh)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     entry: Dict = {}
     if kind in _RECURRENT:
         mixer = _RECURRENT[kind]
         mp = lp[mixer.key]
+        kw = {} if tps.get(mixer.key) is None else {"tp": tps[mixer.key]}
         if mode == "decode":
-            y, entry = mixer.step(mp, cfg, h, cache)
+            y, entry = mixer.step(mp, cfg, h, cache, **kw)
         elif mode == "prefill":
-            y, entry = mixer.forward(mp, cfg, h, return_state=True)
+            y, entry = mixer.forward(mp, cfg, h, return_state=True, **kw)
         else:
-            y = mixer.forward(mp, cfg, h)
+            y = mixer.forward(mp, cfg, h, **kw)
     elif mode == "decode":
         y, entry = attn_lib.decode_attention(lp["attn"], cfg, h, cache, pos,
-                                             kind)
+                                             kind, tp=tps.get("attn"))
     elif mode == "prefill":
         y, (entry["k"], entry["v"]) = attn_lib.multi_head_attention(
-            lp["attn"], cfg, h, positions, kind, return_kv=True)
+            lp["attn"], cfg, h, positions, kind, return_kv=True,
+            tp=tps.get("attn"))
     else:
-        y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind)
+        y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind,
+                                          tp=tps.get("attn"))
     x = x + y
     if "cross" in lp:                                      # whisper decoder
         h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
@@ -181,11 +300,12 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
             y, _ = attn_lib.decode_attention(lp["cross"], cfg, h, {}, pos,
                                              "attn",
                                              cross_kv=(cache["ck"],
-                                                       cache["cv"]))
+                                                       cache["cv"]),
+                                             tp=tps.get("cross"))
         else:
             y, (ck, cv) = attn_lib.multi_head_attention(
                 lp["cross"], cfg, h, positions, "attn", causal=False,
-                kv_x=enc_out, return_kv=True)
+                kv_x=enc_out, return_kv=True, tp=tps.get("cross"))
             if mode == "prefill":
                 entry["ck"], entry["cv"] = ck, cv
         x = x + y
@@ -194,22 +314,34 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     y, aux = None, None
     if "ffn" in lp:
-        y = ffn(lp["ffn"], cfg, h)
+        y = ffn(lp["ffn"], cfg, h, tp=tps.get("ffn"))
     if "moe" in lp:
-        r = moe_lib.moe_ffn(lp["moe"], cfg, h)
+        dp = sh.dp_groups if sh is not None and mode == "train" else ()
+        r = moe_lib.moe_ffn(lp["moe"], cfg, h, tp=tps.get("moe"),
+                            dp_groups=dp)
         y = r["out"] if y is None else y + r["out"]
         aux = r["aux_loss"]
-    return x + y, entry, aux
+    x = x + y
+    if cfg.seq_parallel_residual and mode == "train":
+        # the reference keeps the residual split along the sequence over
+        # "model" (Megatron-SP); here it stays whole (ROADMAP.md item 13d)
+        x = constrain(x, "dp", "sp", None, full=(None, None, cfg.d_model))
+    return x, entry, aux
 
 
-def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed_logits(x, table, cfg)
+def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+            sh: Optional[Sharded] = None) -> torch.Tensor:
+    norm = params["final_norm"] if sh is None else \
+        gathered(params["final_norm"], sh)
+    x = rms_norm(x, norm, cfg.norm_eps)
+    table, tp = _vocab_table(
+        params["embed"] if cfg.tie_embeddings else params["unembed"], sh)
+    return unembed_logits(x, table, cfg, tp=tp)
 
 
 def encode_audio(params: Dict, cfg: ModelConfig,
-                 frames: torch.Tensor) -> torch.Tensor:
+                 frames: torch.Tensor,
+                 sh: Optional[Sharded] = None) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings (B, F, d): the sinusoidal
     table added, then per layer bidirectional attention and the FFN, each
     pre-normed and added to the residual, then the final norm.
@@ -231,19 +363,27 @@ def encode_audio(params: Dict, cfg: ModelConfig,
                                       ).to(frames.dtype)[None]
     positions = torch.arange(f, device=x.device).expand(b, f)
     for lp in params["encoder"]["layers"]:
+        tps: Dict = {}
+        if sh is not None:
+            lp, tps = _gather_layer(lp, ecfg, "attn", "train", sh)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn_lib.multi_head_attention(lp["attn"], ecfg, h, positions,
-                                              "attn", causal=False)
+                                              "attn", causal=False,
+                                              tp=tps.get("attn"))
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn(lp["ffn"], cfg, h)
-    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+        x = x + ffn(lp["ffn"], cfg, h, tp=tps.get("ffn"))
+    norm = params["encoder"]["final_norm"]
+    return rms_norm(x, norm if sh is None else gathered(norm, sh),
+                    cfg.norm_eps)
 
 
-def _embed_input(params: Dict, cfg: ModelConfig,
-                 batch: Dict) -> torch.Tensor:
+def _embed_input(params: Dict, cfg: ModelConfig, batch: Dict,
+                 sh: Optional[Sharded] = None) -> torch.Tensor:
     """Token embeddings, after the vlm's patches (cast to their dtype),
     with the absolute positions added when ``cfg.abs_positions``."""
-    x = embed_lookup(params["embed"], batch["tokens"], cfg)
+    table, tp = _vocab_table(params["embed"], sh)
+    x = embed_lookup(table, batch["tokens"], cfg, tp=tp)
+    del table
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     if cfg.abs_positions:
@@ -267,10 +407,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
     forward kernel twice per step; the numbers do not change."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
+    sh = sharded(params)
     enc_out = None
     if cfg.family == "audio":
-        enc_out = encode_audio(params, cfg, batch["frames"])
-    x = _embed_input(params, cfg, batch)
+        enc_out = encode_audio(params, cfg, batch["frames"], sh)
+    x = constrain(_embed_input(params, cfg, batch, sh), "dp", None, None,
+                  full=(None, None, cfg.d_model))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries: List[Dict] = []
@@ -281,12 +423,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
                                   use_reentrant=False)
     for i, lp in enumerate(params["layers"]):
         x, entry, a = layer(lp, cfg, cfg.layer_kind(i), cfg.ffn_kind(i), x,
-                            mode, positions, None, None, enc_out)
+                            mode, positions, None, None, enc_out, sh)
         entries.append(entry)
         if a is not None:
             aux = aux + a
     cache = {"layers": entries} if mode == "prefill" else None
-    return _logits(params, cfg, x), aux, cache
+    return _logits(params, cfg, x, sh), aux, cache
 
 
 def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
@@ -315,17 +457,106 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     text's positions follow the n_patches patch rows).  Returns (logits (B,
     1, V), cache); the cache is updated in place.  With
     ``cfg.abs_positions`` the token gets row ``pos`` of the sinusoidal
-    table of ``cache_seq_len`` rows, as in the reference."""
-    x = embed_lookup(params["embed"], token, cfg)
+    table of ``cache_seq_len`` rows, as in the reference.
+
+    On ``DTensor`` parameters, a cache of ``DTensor`` entries placed by
+    ``launch.shardings.cache_shardings`` and ``token`` the global batch's
+    (a plain tensor every rank holds, or a ``DTensor`` placed on the
+    batch's dims): the step runs on this rank's rows and shards, the cache's
+    entries are updated in place (a recurrent state replaced, keeping its
+    placements) and the logits come back as a ``DTensor`` placed over the
+    batch's dims and, where ``"model"`` shards the vocabulary, over it (the
+    reference's jitted ``serve_step``, ``repro/launch/dryrun.py:139-147``).
+    The sequence-sharded layouts raise ``NotImplementedError``
+    (ROADMAP.md item 13d)."""
+    sh = serving_sharded(params, cfg)
+    layers = cache["layers"]
+    if sh is not None:
+        placed = layers
+        layers = [{k: t.to_local() for k, t in e.items()} for e in layers]
+        token = local_input(token, sh)
+    table, tp = _vocab_table(params["embed"], sh)
+    x = embed_lookup(table, token, cfg, tp=tp)
+    del table
     if cfg.abs_positions:
         x = x + sinusoidal_positions(1, cfg.d_model, x.device,
                                      start=int(pos)).to(x.dtype)[None]
-    layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         x, layers[i], _ = _layer_apply(lp, cfg, cfg.layer_kind(i),
                                        cfg.ffn_kind(i), x, "decode", None,
-                                       layers[i], int(pos))
-    return _logits(params, cfg, x), cache
+                                       layers[i], int(pos), None, sh)
+    logits = _logits(params, cfg, x, sh)
+    if sh is None:
+        return logits, cache
+    for i, entry in enumerate(layers):
+        placed[i] = {k: _like(t, placed[i][k]) for k, t in entry.items()}
+    return place_logits(logits, cfg, sh), cache
+
+
+# ------------------------------------------------------ sharded prefill/decode
+def serving_sharded(params: Dict, cfg: ModelConfig) -> Optional[Sharded]:
+    """:func:`sharded` for prefill and decode, which place the cache as
+    ``cache_shardings`` does: its sequence-sharded layouts (a cache or
+    keys split along the sequence over ``"model"`` or the batch's dims)
+    raise ``NotImplementedError`` naming ROADMAP.md item 13d."""
+    sh = sharded(params)
+    if sh is None:
+        return None
+    if sh.rules is None:
+        raise ValueError("sharded prefill and decode place their cache by "
+                         "the logical rules: run them under "
+                         "models.sharding.use_rules")
+    attn = any(cfg.layer_kind(i).startswith("attn")
+               for i in range(cfg.n_layers))
+    rules = sh.rules
+    if attn and (rules["cache_seq"] is not None or
+                 rules["kv_seq"] is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: sharded prefill and decode with the cache's "
+            f"sequence split (cache_seq={rules['cache_seq']!r}, "
+            f"kv_seq={rules['kv_seq']!r}: the kv heads or the heads do not "
+            f"divide over 'model', or the batch is one row) need a "
+            f"log-sum-exp merge across ranks in both attention kernels: "
+            f"ROADMAP.md item 13d")
+    return sh
+
+
+def local_input(t: torch.Tensor, sh: Sharded) -> torch.Tensor:
+    """This rank's rows of ``t``: a ``DTensor``'s local tensor, or the
+    rows of a plain tensor of the global batch."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.sharding import local_rows
+    if isinstance(t, DTensor):
+        return t.to_local()
+    return local_rows({"t": t}, sh.mesh, sh.partial)["t"]
+
+
+def _like(local: torch.Tensor, ref) -> "torch.distributed.tensor.DTensor":
+    from torch.distributed.tensor import DTensor
+    if isinstance(ref, DTensor) and local is ref.to_local():
+        return ref
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
+
+
+def place_logits(logits: torch.Tensor, cfg: ModelConfig, sh: Sharded):
+    """This rank's logits as a ``DTensor``: rows over the batch's dims,
+    columns over ``"model"`` where it shards the vocabulary."""
+    from repro_torch.launch.shardings import PartitionSpec, as_dtensor
+    vocab = "model" if logits.shape[-1] != cfg.vocab_size else None
+    return as_dtensor(logits, sh.mesh,
+                      PartitionSpec(sh.partial or None, None, vocab))
+
+
+def place_cache(cache: Dict, cfg: ModelConfig, sh: Sharded) -> Dict:
+    """A prefill's cache of this rank's rows and shards as ``DTensor``
+    entries placed by ``cache_shardings``."""
+    from repro_torch.launch.shardings import as_dtensor, cache_specs_of
+    specs = cache_specs_of(cfg, sh.rules)["layers"]
+    return {"layers": [{k: as_dtensor(t, sh.mesh, spec[k])
+                        for k, t in entry.items()}
+                       for entry, spec in zip(cache["layers"], specs)]}
 
 
 def cache_seq_len(cfg: ModelConfig, cache: Dict) -> int:

@@ -12,21 +12,25 @@ A state of tensors on one device runs as it is.  A state of ``DTensor``
 leaves on a mesh (placed by ``launch.shardings.state_shardings`` and
 ``shard_tree``) runs the sharded step, the port's form of the
 reference's ``jax.jit(make_train_step(...), in_shardings=(state
-shardings, None))``: each rank gathers the whole parameter tree
-(``launch.shardings.full_tensor``, differentiable), takes its rows of the
-global batch when the active rules (``models.sharding.use_rules``) shard
-``dp``, and normalises its partial loss by the global count of valid
-tokens, so that the gradients summed over the batch-sharding mesh dims
-are the gradients of the global batch's loss; ranks that repeat the same
-rows (along ``"model"``) are not summed.  The gradients come back with the
-parameters' placements and AdamW updates each rank's shards.  Every term
-is row-local except an MoE layer's load-balancing aux loss, a product of
-two means over the tokens: each rank computes it over its rows and the
-step takes the mean over ranks, which equals the global batch's only when
-the ranks route alike (exactness needs the routing statistics reduced
-inside the model: ROADMAP.md queue 1 item 13c).  The
+shardings, None))``: each rank takes its rows of the global batch when the
+active rules (``models.sharding.use_rules``) shard ``dp`` and runs the
+sharded forward (``models.transformer``: each block gathers its
+parameters over ``"data"`` as it runs and computes on this rank's
+``"model"`` shards; the logits are this rank's columns of the
+vocabulary, so the cross-entropy takes its log-sum-exp from a max and a
+sum over the ranks and the target's logit from the rank that holds it).
+It normalises its partial loss by the global count of valid tokens, so
+that the gradients summed over the batch-sharding mesh dims are the
+gradients of the global batch's loss; ranks that repeat the same rows
+(along ``"model"``) are not summed.  An MoE layer's load-balancing aux
+loss is the global batch's on every rank (``models.moe``: its routing
+statistics are summed over the batch's ranks inside the model); it enters
+each rank's loss once, undivided, and the sum's backward passes each rank
+the gradient of its own tokens' statistics, so that the gradients summed
+over the ranks count it once.  The gradients come back with the
+parameters' placements and AdamW updates each rank's shards.  The
 reference's microbatch ``constrain`` maps onto ``models.sharding.
-constrain``, a no-op on the plain activations.
+constrain``.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import apply_model, frontend_input, init_model
 from repro_torch.models.layers import DTYPES
-from repro_torch.models.sharding import constrain, get_rules
+from repro_torch.models.sharding import (batch_axes, constrain, get_rules,
+                                         local_rows)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -73,12 +78,33 @@ def _loss_terms(params, cfg: ModelConfig, batch: Dict):
     logits = logits[:, frontend_input(cfg).text_offset:]   # text positions
     mask = ((targets >= 0) & (targets < cfg.raw_vocab_size)).float()
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(
-        logits, -1, targets.clamp(0, cfg.vocab_size - 1)[..., None].long()
-    )[..., 0]
+    tgt = targets.clamp(0, cfg.vocab_size - 1)
+    if logits.shape[-1] == cfg.vocab_size:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
+    else:                            # this rank's columns of the vocabulary
+        lse, picked = _vocab_parallel(logits, tgt)
     nll = (lse - picked) * mask
     return nll.sum(), mask.sum(), aux
+
+
+def _vocab_parallel(logits: torch.Tensor, targets: torch.Tensor):
+    """(log-sum-exp, the target's logit) of logits whose columns are this
+    rank's part of the vocabulary along ``"model"``: the row max and the
+    sum of exps over the ranks, the target's logit from its rank."""
+    from repro_torch.launch.collectives import max_over, reduce_from, tp_of
+    mesh, _ = get_rules()
+    tp = tp_of(mesh)
+    n = logits.shape[-1]
+    m = max_over(logits.amax(dim=-1), tp)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    lse = reduce_from((logits - m[..., None]).exp().sum(dim=-1), tp).log() + m
+    local = targets - tp.start(n)
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None].long()
+                          )[..., 0]
+    return lse, reduce_from(torch.where(mine, picked,
+                                        torch.zeros_like(picked)), tp)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict
@@ -114,39 +140,6 @@ def is_sharded(state) -> bool:
     return isinstance(tree.leaves(state)[0], DTensor)
 
 
-def batch_axes(mesh) -> Tuple[str, ...]:
-    """The mesh dims that shard the batch under the active rules (their
-    ``"dp"``); none without rules."""
-    _, rules = get_rules()
-    dp = (rules or {}).get("dp")
-    names = (dp,) if isinstance(dp, str) else tuple(dp or ())
-    return tuple(a for a in names if a in mesh.mesh_dim_names)
-
-
-def local_rows(batch: Dict, mesh, axes: Tuple[str, ...]) -> Dict:
-    """This rank's rows of every batch leaf: the batch split evenly over
-    the mesh dims ``axes``, major to minor (all rows when ``axes`` is
-    empty).  Raises when the rows do not split evenly."""
-    n, idx = 1, 0
-    for a in axes:
-        k = mesh.mesh_dim_names.index(a)
-        idx = idx * mesh.size(k) + mesh.get_local_rank(a)
-        n *= mesh.size(k)
-    if n == 1:
-        return batch
-    out = {}
-    for k, v in batch.items():
-        if v.dim() == 0:
-            out[k] = v
-            continue
-        if v.shape[0] % n:
-            raise ValueError(f"batch {k!r} has {v.shape[0]} rows, which do "
-                             f"not split over {n} ranks of {axes}")
-        rows = v.shape[0] // n
-        out[k] = v[idx * rows:(idx + 1) * rows]
-    return out
-
-
 def _sum_over(t: torch.Tensor, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
     """``t`` summed over the ranks of the mesh dims ``axes`` (in place)."""
     import torch.distributed as dist
@@ -160,36 +153,33 @@ def _sharded_value_and_grad(params, cfg: ModelConfig, batch: Dict):
     """:func:`_value_and_grad` of the global batch on parameters that are
     ``DTensor`` objects: the gradients are ``DTensor`` objects with the
     parameters' placements; the loss and its parts are the global
-    batch's, on every rank."""
+    batch's, on every rank.  The forward gathers each block's parameters
+    as it runs it (``models.transformer``), never the whole tree."""
     from torch.distributed.tensor import DTensor
-    from repro_torch.launch.shardings import full_tensor
     leaves = tree.leaves(params)
     mesh = leaves[0].device_mesh
     axes = batch_axes(mesh)
-    n_dp = 1
-    for a in axes:
-        n_dp *= mesh.size(mesh.mesh_dim_names.index(a))
     local = local_rows(batch, mesh, axes)
     with torch.enable_grad():
         live = [p.to_local().detach().requires_grad_(True) for p in leaves]
-        full = [full_tensor(DTensor.from_local(x, mesh, p.placements,
-                                               run_check=False), axes)
-                for x, p in zip(live, leaves)]
-        swap = dict(zip(map(id, leaves), full))
+        wrapped = [DTensor.from_local(x, mesh, p.placements, run_check=False,
+                                      shape=p.shape, stride=p.stride())
+                   for x, p in zip(live, leaves)]
+        swap = dict(zip(map(id, leaves), wrapped))
         nll, count, aux = _loss_terms(
             tree.tree_map(lambda p: swap[id(p)], params), cfg, local)
         denom = torch.clamp_min(_sum_over(count.detach().clone(), mesh, axes),
                                 1.0)
         ce = nll / denom
-        aux_part = aux / n_dp                 # the mean over the ranks'
-        loss = ce + AUX_LOSS_WEIGHT * aux_part
+        loss = ce + AUX_LOSS_WEIGHT * aux     # aux: the global batch's
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [DTensor.from_local(torch.zeros_like(x) if g is None else g,
                                 mesh, p.placements, run_check=False)
              for x, g, p in zip(live, grads, leaves)]
-    sums = _sum_over(torch.stack([loss.detach(), ce.detach(),
-                                  aux_part.detach()]), mesh, axes)
-    return sums[0], {"ce": sums[1], "aux": sums[2], "tokens": denom}, grads
+    ce = _sum_over(ce.detach().clone(), mesh, axes)
+    aux = aux.detach()
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux,
+                                        "tokens": denom}, grads
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,

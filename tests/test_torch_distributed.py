@@ -611,3 +611,62 @@ def test_world_size_one_nccl_steps_on_card(card, tmp_path):
                     timeout=WORLD_TIMEOUT, threads=0)[0]
     n = _cfg().n_layers * 2
     assert res["launches"] == {"plain": n, "dp": n, "sharded": n}, res
+
+
+def _world_card_serving(rank, world):
+    import dataclasses
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import (decode_step, init_model, next_token,
+                                    prefill)
+    from repro_torch.models.sharding import use_rules
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_cfg(), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    toks = torch.tensor(rng.randint(0, cfg.raw_vocab_size, (4, 24)),
+                        device="cuda")
+    mesh = make_mesh(1, 1)
+    shape = dataclasses.replace(TRAIN_4K, kind="prefill", seq_len=32,
+                                global_batch=4)
+    params = init_model(cfg, seed=0, device="cuda")
+    runs, counts = {}, {}
+    with torch.no_grad():
+        for name in ("plain", "sharded"):
+            p = params if name == "plain" else \
+                sh.shard_tree(params, mesh, sh.tree_shardings(mesh, params))
+            fa.LAUNCHES = fd.LAUNCHES = 0
+            with use_rules(mesh, sh.logical_rules(cfg, mesh, shape)
+                           if name == "sharded" else None):
+                logits, cache = prefill(p, cfg, {"tokens": toks},
+                                        cache_len=32)
+                out = [sh.full_tensor(logits)]
+                tok = next_token(logits)
+                for i in range(8):
+                    logits, cache = decode_step(p, cfg, cache, tok, 24 + i)
+                    tok = next_token(logits)
+                    out += [sh.full_tensor(logits), sh.full_tensor(tok)]
+            runs[name] = out
+            counts[name] = (fa.LAUNCHES, fd.LAUNCHES)
+    for a, b in zip(runs["plain"], runs["sharded"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return counts
+
+
+@pytest.mark.cuda
+def test_world_size_one_nccl_serving_on_card(card, tmp_path):
+    """A world of one process over NCCL, mesh (1, 1), qwen3 smoke in bf16
+    on the card: the sharded prefill and 8 greedy decode steps on
+    ``DTensor`` parameters and ``cache_shardings`` caches equal the plain
+    ones bit for bit (logits and tokens), each launching both attention
+    kernels once a layer."""
+    from repro_torch.kernels.flash_decode import ops as fd
+    fd._kernel_fn()
+    res = run_world(_world_card_serving, 1, str(tmp_path), backend="nccl",
+                    timeout=WORLD_TIMEOUT, threads=0)[0]
+    n = _cfg().n_layers
+    assert res == {"plain": (n, 8 * n), "sharded": (n, 8 * n)}, res
