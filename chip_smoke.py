@@ -78,7 +78,18 @@ Phases (any failure exits non-zero; nothing is caught):
    and split-K's own cases (1023, 1024 and 1025 visible keys around a
    chunk boundary of ``split_plan``; windows that end inside a chunk), and
    whisper's in both dtypes (1500 encoder rows at pos 1499, its self cache
-   of 448); every case launched twice, bit for bit equal;
+   of 448); every case launched twice, bit for bit equal.  Then both
+   kernels' partial forms (``check_partial_kernels``): ``mha`` with
+   ``k_offset`` and ``return_lse`` on 3 slices of the keys (qwen3-0.6b's
+   prefill, 812 keys as 271 / 271 / 270; a gemma2-like D = 256, group 2,
+   window 4096, softcap 50 slice across the window's edge; float32 on the
+   CUDA-core route), ``decode_attn`` with ``rows`` and ``return_lse`` on
+   276-row slices of an 828-row cache, an empty range among them (no
+   launch), against the plain versions (out at the tolerances above, the
+   finite log-sum-exps at 1e-3, -inf where a row sees none of the
+   slice), twice bit-equal, the old calls bit-equal to the new forms' out
+   at offset 0; their times at phase 24 (d)'s shapes beside the whole
+   calls' and the bounds;
 9. the serving path: ``ServeEngine`` over the full qwen3-0.6b config (28
    layers, bf16, seeded ``init_model`` weights, ``max_len`` = 2048) serves
    one wave of 8 requests (prompt lengths in [128, 1024] from
@@ -185,8 +196,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``decide`` per request at J = 1 and J = 4 (host clock, ending in its
    one copy per group), kernels per dispatch and the device-busy share of
    one dispatch, beside ``recommend``'s median from phase 5;
-18. fleet campaigns on the card: eight experiments (the four jobs, each
-   with seeds SEED and SEED + 1, ``candidate_stride=2``, ``profile(5)``
+18. fleet campaigns on the card: four experiments (the four jobs, each
+   with seed SEED, ``candidate_stride=2``, ``profile(3)``
    with its 128-step scratch fit) share one ``DecisionService``.  A 2-run
    ``adaptive_campaign``: the decisions of a round go to one ``decide``
    (same-bucket rows on the job axis, up to the J = 8 rung), so some are
@@ -207,7 +218,7 @@ Phases (any failure exits non-zero; nothing is caught):
    some decisions, and a crash at round 5 resumed from its last
    checkpoint gives the same stats and capacity rows.  Printed beside the
    card: a round's wall time and the device-busy share of a round where
-   all 8 decide, ``decide`` per request at the largest J, a checkpoint's
+   all 4 decide, ``decide`` per request at the largest J, a checkpoint's
    make / pickle / restore time and size, fit seconds and the phase's;
 19. the vectorized fleet engine on the card: (a) ``BatchedClusterSim`` on
    the card against ``NumpySimBackend`` on the host, records bit for bit
@@ -349,7 +360,17 @@ Phases (any failure exits non-zero; nothing is caught):
     5e-2), then a prefill and 4 decode steps (finite; the teacher-forced
     error printed).  Printed beside the card: a step's ms, peak memory
     and parameter bytes a rank, prefill and decode ms a rank, the kernels'
-    launches and head counts, the phase's seconds;
+    launches and head counts, the phase's seconds.  (b) and (c) run on
+    the first two ranks of a 3-rank world; its three ranks then run (d),
+    mesh (1, 3), qwen3-0.6b: 16 heads and 8 kv heads do not divide 3, so
+    the keys split (``kv_seq``) and the cache splits along its sequence
+    (``cache_seq``): one train step at 8 x 510 against world size 1 (loss
+    5e-3, grad norm 5e-2), the wave prefilled into a cache of 828 rows
+    (276 a rank) and decoded 8 steps fed the world-size-1 tokens, its
+    logits against the world-size-1 ``forward`` (5e-2);
+    ``flash_attention_fwd`` on each rank's third of the keys with all 16
+    q heads, ``flash_decode`` on each rank's 276 rows, the cache leaves'
+    local shapes ``cache_shardings``'; printed with the merges' share;
 25. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
     script started), a ``{"kernels": [...]}`` line, then the device line
     last.
@@ -1121,15 +1142,15 @@ def run_service(device, card, train, ops, recommend_ms):
             "neutral_decisions": len(dec_on), "seconds": phase_s}
 
 
-FLEET_SEEDS = (SEED, SEED + 1)
+FLEET_SEEDS = (SEED,)       # one seed a job: cut for the time limit
 FLEET_RUNS = 2              # phase 18's campaigns, cut for the time limit
 FLEET_PROFILE = 3           # and their profiling runs
 FLEET_POOL = dict(pool_size=96, arrival_rate=1.5, seed=SEED, max_rounds=64)
 
 
 def fleet_campaign(device, service):
-    """Phase 18's fleet: the four paper jobs, each with seeds SEED and
-    SEED + 1 (``candidate_stride=2``), behind one shared service."""
+    """Phase 18's fleet: the four paper jobs, each with the seeds of
+    ``FLEET_SEEDS`` (``candidate_stride=2``), behind one shared service."""
     from repro_torch.dataflow import FleetCampaign, JobExperiment
     return FleetCampaign([JobExperiment(key, seed=s, candidate_stride=2,
                                         device=device)
@@ -1223,8 +1244,8 @@ class RoundClock:
 
 
 def run_fleet(device, card, ops):
-    """Phase 18: fleet campaigns on the card.  Eight experiments (four jobs
-    x two seeds) share one DecisionService: a 2-run adaptive campaign
+    """Phase 18: fleet campaigns on the card.  The experiments (four jobs
+    x ``FLEET_SEEDS``) share one DecisionService: a 2-run adaptive campaign
     (launches counted from 0: both graph kernels once per Adam step, none
     on the service path), a second fleet built the same way crashed in run
     2 with a checkpoint every round and resumed from its last checkpoint
@@ -1272,14 +1293,16 @@ def run_fleet(device, card, ops):
             assert all(lo <= s <= hi for s in st.scaleouts), st.scaleouts
             assert st.fallback_decisions == 0, st
     rounds = [fleet_rounds(a, run) for run in stats]
-    assert clock.busy_ms is not None, "no round where all 8 decide"
+    n_exp = len(a.experiments)
+    assert clock.busy_ms is not None, f"no round where all {n_exp} decide"
     assert sum(rounds) == len(clock.round_s) + 1, (rounds, clock.round_s)
     tune_s = [st.fit_seconds for run in stats for st in run]
     j_max = max(n for n, _ in clock.decide)
     at_j = [s for n, s in clock.decide if n == j_max]
     decide_ms = float(np.median(at_j)) * 1e3 / j_max
     round_ms = float(np.median(clock.round_s)) * 1e3
-    say(f"fleet campaign on {card}: 8 experiments, {FLEET_RUNS} runs in "
+    say(f"fleet campaign on {card}: {n_exp} experiments, {FLEET_RUNS} "
+        f"runs in "
         f"{sum(rounds)} lockstep rounds ({rounds}), {campaign_s:.2f}s; "
         f"{decisions} decisions in {dispatches} dispatches "
         f"({batched_away} batched away); {steps} Adam steps, "
@@ -1288,12 +1311,13 @@ def run_fleet(device, card, ops):
         f"step; picks in [{lo}, {hi}]")
     say(f"fleet timing on {card}: a round {round_ms:.2f} ms median "
         f"(wall, {campaign_s / sum(rounds) * 1e3:.2f} ms mean with the "
-        f"fits); a round where all 8 decide {clock.profiled_ms:.2f} ms "
+        f"fits); a round where all {n_exp} decide {clock.profiled_ms:.2f} "
+        f"ms "
         f"traced, device busy {clock.busy_ms:.3f} ms (busy share "
         f"{clock.busy_ms / clock.profiled_ms:.3f}); decide at J = {j_max} "
         f"{decide_ms:.3f} ms per request; fits: scratch "
         f"{np.median(scratch_s):.3f}s median (profile {profile_s:.1f}s for "
-        f"8), fine-tune {np.median(tune_s):.3f}s median")
+        f"{n_exp}), fine-tune {np.median(tune_s):.3f}s median")
 
     # crash in run 2, resume from the last checkpoint; the twin fleet
     # takes the first's profiled state instead of profiling again
@@ -1338,7 +1362,8 @@ def run_fleet(device, card, ops):
              "print(ck.round_idx, len(ck.exps))", path],
             env=cpu_env, capture_output=True, text=True, timeout=300)
         assert probe.returncode == 0, probe.stderr
-        assert probe.stdout.split() == [str(crash_at), "8"], probe.stdout
+        assert probe.stdout.split() == [str(crash_at), str(n_exp)], \
+            probe.stdout
     entered = []
     inner_loop = b._campaign_loop
 
@@ -1390,7 +1415,7 @@ def run_fleet(device, card, ops):
     assert rows(b_trace) == rows(pool_trace)
     phase_s = time.perf_counter() - t_phase
     say(f"fleet arrival campaign (pool {FLEET_POOL['pool_size']}, rate "
-        f"{FLEET_POOL['arrival_rate']}): all 8 jobs done in "
+        f"{FLEET_POOL['arrival_rate']}): all {n_exp} jobs done in "
         f"{len(pool_trace)} rounds, {arrival_s:.2f}s, peak pool "
         f"{max(t.pool_used for t in pool_trace)}, {sum(capped)} capped "
         f"decisions in {sum(c > 0 for c in capped)} rounds; crash at round "
@@ -1955,7 +1980,7 @@ def fused_fleet(device):
         [JobExperiment(key, seed=s, candidate_stride=2, device=device,
                        scenario=make_scenario("baseline" if s == SEED
                                               else "node_failure"))
-         for key in JOB_KEYS for s in FLEET_SEEDS],
+         for key in JOB_KEYS for s in (SEED, SEED + 1)],
         DecisionService(), engine="batched")
     camp.profile(FUSED_PROFILE_RUNS)
     camp.adaptive_campaign(FUSED_WARM_RUNS, "enel")
@@ -2301,6 +2326,174 @@ def check_lm_kernels(device, fa, fd):
         errs["decode"][dt] = max(errs["decode"][dt], err)
         say(f"  {what}: max abs err {err:.3g}, repeat bit-equal")
     return errs
+
+
+# Phase 8's partial forms (ROADMAP.md item 13d: a rank's slice of the keys
+# or of the cache, merged across ranks by log-sum-exp), at phase 24 (d)'s
+# shapes: qwen3-0.6b's prefill (B 8, P 812, 16 / 8 heads of 128, bf16,
+# causal) with the keys cut over 3 ranks (271 / 271 / 270), a gemma2-like
+# slice (D 256, group 2, window 4096, softcap 50; 4608 queries over 3
+# slices of 1536, the window's edge inside the first), float32 on the
+# CUDA-core route, and a decode over 276-row slices of an 828-row cache
+# (3 ranks), where a slice past pos is an empty range
+PARTIAL_RANKS = 3
+PARTIAL_MHA = [((8, 812, 16, 8, 128), dict(causal=True), torch.bfloat16),
+               ((1, 4608, 8, 4, 256), dict(causal=True, window=4096,
+                                           softcap=50.0), torch.bfloat16),
+               ((2, 300, 8, 4, 128), dict(causal=True), torch.float32),
+               ((1, 520, 8, 4, 256), dict(causal=True, window=128,
+                                          softcap=50.0), torch.float32)]
+PARTIAL_DECODE = (8, 828, 16, 8, 128)          # B, cache, H, Kh, D
+PARTIAL_POS = (500, 819)
+
+
+def slice_work(b, sq, lo, hi, h, kh, d, causal, window=0, elt=2):
+    """(FLOPs, bytes) of the partial attention of Sq queries over the keys
+    [lo, hi): 4 * D FLOPs per visible (query, key) pair and head, the
+    pairs this slice's keys give under the causal and window masks; q
+    and the slice's k and v read once, the output and the float32
+    log-sum-exps written once."""
+    i = np.arange(sq)
+    first = np.maximum(lo, i - window + 1) if window else np.full(sq, lo)
+    last = np.minimum(hi, i + 1) if causal else np.full(sq, hi)
+    pairs = int(np.maximum(last - first, 0).sum())
+    return (4 * b * h * d * pairs,
+            elt * (2 * b * sq * h * d + 2 * b * (hi - lo) * kh * d)
+            + 4 * b * h * sq)
+
+
+def check_partial_kernels(device, fa, fd):
+    """Phase 8, the partial forms of both attention kernels: ``mha`` with
+    ``k_offset`` and ``return_lse`` on each rank's slice of the keys, and
+    ``decode_attn`` with ``rows`` and ``return_lse`` on each rank's slice
+    of the cache, against their plain versions (out at ``LM_TOL``, the
+    finite log-sum-exps at 1e-3 and -inf where a row sees none of the
+    slice's keys) and bit-equal twice; an empty range launches nothing;
+    the old calls (no offset, no rows, no log-sum-exp) bit-equal to the
+    new forms' out at offset 0 and over the whole visible range.  Then
+    the new forms' times at phase 24 (d)'s shapes beside the whole-keys
+    calls' (CUDA graphs) and the bounds.  Returns (errors, timings)."""
+    from repro_torch.models.sharding import chunk_bounds
+    rng = np.random.RandomState(SEED + 2)
+    errs = {"mha": 0.0, "mha_lse": 0.0, "decode": 0.0, "decode_lse": 0.0}
+
+    def held(got, again, want, what, dt):
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"{what}: not repeatable"
+        err = close(got[0].float(), want[0].float(), what, LM_TOL[dt],
+                    LM_TOL[dt])
+        fin = torch.isfinite(want[1])
+        assert torch.equal(torch.isfinite(got[1]), fin), f"{what}: -inf rows"
+        lerr = close(got[1][fin], want[1][fin], what + " lse", 1e-3, 1e-4)
+        return err, lerr
+
+    for (b, s, h, kh, d), kw, dt in PARTIAL_MHA:
+        q = _randn(rng, (b, s, h, d), dt, device)
+        k, v = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
+        for r in range(PARTIAL_RANKS):
+            lo, hi = chunk_bounds(s, PARTIAL_RANKS, r)
+            args = (q, k[:, lo:hi], v[:, lo:hi])
+            n0 = fa.LAUNCHES
+            got = fa.mha(*args, k_offset=lo, return_lse=True, **kw)
+            again = fa.mha(*args, k_offset=lo, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES == n0 + 2, fa.LAUNCHES - n0
+            what = (f"mha partial {dt} B={b} S={s} keys [{lo}, {hi}) H={h} "
+                    f"Kh={kh} D={d} {kw}")
+            err, lerr = held(got, again, fa.mha_plain(
+                *args, k_offset=lo, return_lse=True, **kw), what, dt)
+            errs["mha"] = max(errs["mha"], err)
+            errs["mha_lse"] = max(errs["mha_lse"], lerr)
+            say(f"  {what}: max abs err {err:.3g}, lse {lerr:.3g}, "
+                f"{int(torch.isinf(got[1]).sum())} rows see no key, "
+                f"repeat bit-equal")
+        assert torch.equal(fa.mha(q, k, v, **kw),
+                           fa.mha(q, k, v, return_lse=True, **kw)[0]), \
+            f"mha {dt} {kw}: the old call differs from the new form's out"
+    b, s, h, kh, d = PARTIAL_DECODE
+    for dt in (torch.bfloat16, torch.float32):
+        q = _randn(rng, (b, 1, h, d), dt, device)
+        ck, cv = (_randn(rng, (b, s, kh, d), dt, device) for _ in range(2))
+        for pos in PARTIAL_POS:
+            for r in range(PARTIAL_RANKS):
+                lo, hi = chunk_bounds(s, PARTIAL_RANKS, r)
+                rows = fd.visible_rows(pos, 0, lo, hi - lo)
+                args = (q, ck[:, lo:hi], cv[:, lo:hi], pos)
+                n0 = fd.LAUNCHES
+                got = fd.decode_attn(*args, rows=rows, return_lse=True)
+                again = fd.decode_attn(*args, rows=rows, return_lse=True)
+                torch.cuda.synchronize()
+                assert fd.LAUNCHES == n0 + 2 * (rows[1] > rows[0])
+                what = (f"decode_attn partial {dt} B={b} rows {rows} of "
+                        f"[{lo}, {hi}) H={h} Kh={kh} D={d} pos={pos}")
+                err, lerr = held(got, again, fd.decode_attn_plain(
+                    *args, rows=rows, return_lse=True), what, dt)
+                errs["decode"] = max(errs["decode"], err)
+                errs["decode_lse"] = max(errs["decode_lse"], lerr)
+                say(f"  {what}: max abs err {err:.3g}, lse {lerr:.3g}"
+                    + (", empty: no launch" if rows[0] == rows[1] else "")
+                    + ", repeat bit-equal")
+            assert torch.equal(
+                fd.decode_attn(q, ck, cv, pos),
+                fd.decode_attn(q, ck, cv, pos, rows=(0, pos + 1),
+                               return_lse=True)[0]), \
+                f"decode_attn {dt} pos={pos}: the old call differs"
+
+    # times at phase 24 (d)'s shapes, bf16, in CUDA graphs
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    (b, s, h, kh, d), _, _ = PARTIAL_MHA[0]
+    q = _randn_on(gen, (b, s, h, d))
+    k, v = (_randn_on(gen, (b, s, kh, d)) for _ in range(2))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=device)
+    times = {"mha_whole": {}, "mha_slices": [], "decode_whole": {},
+             "decode_slices": []}
+    fl, nb = attention_work(b, s, s, h, kh, d, True)
+    t_b, by = bound(fl, nb, BF16_FLOPS)
+    times["mha_whole"] = {
+        "ms": graph_ms(lambda: fa._launch(q, k, v, out, True, 0, 0.0, 0),
+                       calls=10), "bound_ms": t_b, "bound_by": by,
+        "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Kh": kh, "D": d}}
+    for r in range(PARTIAL_RANKS):
+        lo, hi = chunk_bounds(s, PARTIAL_RANKS, r)
+        ks, vs = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+        fl, nb = slice_work(b, s, lo, hi, h, kh, d, True)
+        t_b, by = bound(fl, nb, BF16_FLOPS)
+        times["mha_slices"].append({
+            "keys": [lo, hi], "bound_ms": t_b, "bound_by": by,
+            "ms": graph_ms(lambda: fa._launch(
+                q, ks, vs, out, True, 0, 0.0, 0, k_offset=lo, lse=lse),
+                calls=10)})
+    del q, k, v, out, lse
+    b, s, h, kh, d = PARTIAL_DECODE
+    pos = PARTIAL_POS[-1]
+    caches = [tuple(_randn_on(gen, (b, s, kh, d)) for _ in range(2))
+              for _ in range(LM_COPIES)]
+    q = _randn_on(gen, (b, 1, h, d))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=device)
+    turn = itertools.cycle(range(LM_COPIES))
+    fl, nb = decode_work(b, h, kh, d, pos)
+    t_b, by = bound(fl, nb, BF16_FLOPS)
+    times["decode_whole"] = {
+        "ms": graph_ms(lambda: fd._launch(q, *caches[next(turn)], out, 0,
+                                          pos + 1, 0.0), calls=48),
+        "bound_ms": t_b, "bound_by": by, "pos": pos,
+        "shape": {"B": b, "cache": s, "H": h, "Kh": kh, "D": d}}
+    for r in range(PARTIAL_RANKS):
+        lo, hi = chunk_bounds(s, PARTIAL_RANKS, r)
+        r0, r1 = fd.visible_rows(pos, 0, lo, hi - lo)
+        sl = [tuple(x[:, lo:hi].contiguous() for x in kv) for kv in caches]
+        fl, nb = decode_work(b, h, kh, d, r1 - r0 - 1)
+        t_b, by = bound(fl, nb + 4 * b * h, BF16_FLOPS)
+        times["decode_slices"].append({
+            "rows": [lo + r0, lo + r1], "bound_ms": t_b, "bound_by": by,
+            "ms": graph_ms(lambda: fd._launch(
+                q, *sl[next(turn)], out, r0, r1, 0.0, lse=lse), calls=48)})
+        del sl
+    del caches, q, out, lse
+    torch.cuda.empty_cache()
+    return errs, times
 
 
 def lm_waves(cfg):
@@ -3588,7 +3781,8 @@ def decode_timing(fd, gen, b, s, h, kh, d, pos) -> dict:
     qt = q.transpose(1, 2).contiguous()
     out = torch.empty_like(q)
     turn = itertools.cycle(range(LM_COPIES))
-    launch = lambda: fd._launch(q, *caches[next(turn)], out, pos, 0, 0.0)
+    launch = lambda: fd._launch(q, *caches[next(turn)], out, 0, pos + 1,
+                                0.0)
     sdpa = lambda: F.scaled_dot_product_attention(
         qt, *rows[next(turn)], enable_gqa=True)
     fl, nb = decode_work(b, h, kh, d, pos)
@@ -4285,7 +4479,20 @@ TP_SEQ = 512                # the train step's sequence (batch TRAIN_BATCH)
 TP_MOE_ARCH, TP_MOE_LAYERS = "olmoe-1b-7b", 2
 TP_MOE_PROMPT, TP_MOE_NEW = 508, 4  # prompt + new <= moe_group (1024)
 TP_TRAIN_RTOL = {"loss": 5e-3, "aux": 5e-3, "grad_norm": 5e-2}
-TP_WORLD_TIMEOUT = 400
+TP_WORLD_TIMEOUT = 500
+# (d), the sequence-sharded layouts on 3 ranks, mesh (1, 3): 16 heads and 8
+# kv heads do not divide 3 (kv_seq and cache_seq over "model"); the train
+# step's sequence cut from TRAIN_4K to one that divides 3; the wave of (b)
+# into (b)'s cache rounded up to rows that divide 3 (P = 812: 828, 276 a
+# rank), 8 of its decode steps
+TP_SEQ_RANKS = 3
+TP_SEQ_D, TP_NEW_D = 510, 8
+
+
+def tp_seq_cache(p: int) -> int:
+    """(d)'s cache rows for a prompt of ``p``: (b)'s P + ``TP_NEW``,
+    rounded up to a multiple of ``TP_SEQ_RANKS``."""
+    return -(-(p + TP_NEW) // TP_SEQ_RANKS) * TP_SEQ_RANKS
 
 
 def tp_config(arch: str):
@@ -4299,14 +4506,14 @@ def tp_config(arch: str):
     return cfg
 
 
-def tp_batch(cfg, device):
-    """The train step's batch: ``TRAIN_BATCH`` x ``TP_SEQ`` from seed
+def tp_batch(cfg, device, seq=TP_SEQ):
+    """The train step's batch: ``TRAIN_BATCH`` x ``seq`` from seed
     ``SEED``."""
     import dataclasses
     from repro_torch.configs import TRAIN_4K
     from repro_torch.data.pipeline import DataConfig, global_batch
     from repro_torch.train.train import batch_to_device
-    shape = dataclasses.replace(TRAIN_4K, seq_len=TP_SEQ,
+    shape = dataclasses.replace(TRAIN_4K, seq_len=seq,
                                 global_batch=TRAIN_BATCH)
     return shape, batch_to_device(global_batch(DataConfig(seed=SEED), cfg,
                                                shape, 0), device)
@@ -4329,19 +4536,23 @@ def tp_rules(cfg, mesh, kind, seq):
         TRAIN_4K, kind=kind, seq_len=seq, global_batch=LM_BATCH))
 
 
-def tp_serve(params, cfg, toks, new, device, forced=None):
-    """Prefill ``toks`` (a cache of P + ``new`` rows) and ``new`` decode
-    steps, each fed the greedy token or, with ``forced`` (B, new), its
-    column: (the last position's logits of the prefill and of each step,
-    (B, 1 + new, V) float32 on the host, the greedy tokens (B, 1 + new),
-    seconds of the prefill, of each step).  On ``DTensor`` parameters
-    (under the rules) the logits and tokens are gathered."""
+def tp_serve(params, cfg, toks, new, device, forced=None, cache_len=None,
+             shapes=None):
+    """Prefill ``toks`` (a cache of ``cache_len`` rows, default P + ``new``)
+    and ``new`` decode steps, each fed the greedy token or, with ``forced``
+    (B, >= new), its column: (the last position's logits of the prefill
+    and of each step, (B, 1 + new, V) float32 on the host, the greedy
+    tokens (B, 1 + new), seconds of the prefill, of each step).  On
+    ``DTensor`` parameters (under the rules) the logits and tokens are
+    gathered; ``shapes``, a dict, receives the (local, global) shapes of
+    the first layer's cache entries after the last step."""
     from repro_torch.launch.shardings import full_tensor
     from repro_torch.models import decode_step, next_token, prefill
     t = torch.tensor(toks, device=device)
     p = t.shape[1]
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, {"tokens": t}, cache_len=p + new)
+    logits, cache = prefill(params, cfg, {"tokens": t},
+                            cache_len=cache_len or p + new)
     tok = next_token(logits)
     rows = [full_tensor(logits)[:, -1].float().cpu()]
     torch.cuda.synchronize()
@@ -4358,6 +4569,10 @@ def tp_serve(params, cfg, toks, new, device, forced=None):
         rows.append(full_tensor(logits)[:, -1].float().cpu())
         toks_out.append(full_tensor(tok).cpu())
         steps.append(time.perf_counter() - t0)
+    if shapes is not None:     # (local, global) of each entry
+        shapes.update({k: (tuple(getattr(t, "to_local", lambda: t)().shape),
+                           tuple(t.shape))
+                       for k, t in cache["layers"][0].items()})
     del cache
     return (torch.stack(rows, dim=1), torch.cat(toks_out, dim=1), pre_s,
             steps)
@@ -4372,16 +4587,20 @@ def tf_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 class HeadCounts:
     """Wraps ``models.attention``'s ``mha`` and ``decode_attn`` to record the
-    (q heads, kv heads) each is launched with."""
+    (q heads, kv heads) each is launched with, and with ``rows`` set, the
+    key or cache rows too."""
 
     def __init__(self):
         from repro_torch.models import attention
         self.seen = {"mha": set(), "decode_attn": set()}
+        self.rows = False
         for name in self.seen:
             fn = getattr(attention, name)
 
             def rec(q, k, *a, _fn=fn, _name=name, **kw):
-                self.seen[_name].add((int(q.shape[2]), int(k.shape[2])))
+                key = (int(q.shape[2]), int(k.shape[2]))
+                self.seen[_name].add(key + (int(k.shape[1]),) if self.rows
+                                     else key)
                 return _fn(q, k, *a, **kw)
             setattr(attention, name, rec)
 
@@ -4404,6 +4623,13 @@ def tp_reference(device, cfgs):
             _, m = make_train_step(cfg, opt)(state, batch)
         train = {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}
         del state, batch
+        if arch == TRAIN_ARCH:            # (d)'s step, at TP_SEQ_D
+            _, batch = tp_batch(cfg, device, TP_SEQ_D)
+            state = init_train_state(SEED, cfg, opt, device=device)
+            with torch.enable_grad():
+                _, m = make_train_step(cfg, opt)(state, batch)
+            train_d = {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}
+            del state, batch
         torch.cuda.empty_cache()
         params = init_model(cfg, seed=SEED, device=device)
         toks = tp_prompts(cfg)
@@ -4417,6 +4643,8 @@ def tp_reference(device, cfgs):
         torch.cuda.empty_cache()
         out[arch] = dict(train=train, toks=toks, gen=gen, forward=forward,
                          greedy=greedy)
+        if arch == TRAIN_ARCH:
+            out[arch]["train_d"] = train_d
         if cfg.n_experts:   # decode routes groups of one token: no drops
             out[arch]["decode_rows"] = rows.to(torch.bfloat16)   # exact
         del rows
@@ -4424,11 +4652,13 @@ def tp_reference(device, cfgs):
 
 
 def _tp_rank(rank, world, ref, cfgs, device_type):
-    """Phase 24 (b) and (c), one rank of the 2-rank gloo world on the card,
-    mesh (1, 2): the sharded train step and the sharded wave (prefill and
-    decode steps fed the world-size-1 greedy tokens) of each configuration
-    of ``cfgs`` (qwen3-0.6b as published, then olmoe-1b-7b cut to 2
-    layers); the kernels load from the parent's build directory."""
+    """Phase 24 (b), (c) and (d), one rank of the 3-rank gloo world on the
+    card.  (b), (c) on the first two ranks, mesh (1, 2): the sharded train
+    step and the sharded wave (prefill and decode steps fed the
+    world-size-1 greedy tokens) of each configuration of ``cfgs``
+    (qwen3-0.6b as published, then olmoe-1b-7b cut to 2 layers); (d) on
+    all three, mesh (1, 3) (:func:`_tp_seq_rank`).  The kernels load from
+    the parent's build directory."""
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4457,7 +4687,8 @@ def _tp_rank(rank, world, ref, cfgs, device_type):
     mesh = make_mesh(1, 2, device_type=device.type)
     heads = HeadCounts()
     out = {}
-    for arch, new in ((TRAIN_ARCH, TP_NEW), (TP_MOE_ARCH, TP_MOE_NEW)):
+    pairs = ((TRAIN_ARCH, TP_NEW), (TP_MOE_ARCH, TP_MOE_NEW))
+    for arch, new in pairs if mesh.get_coordinate() is not None else ():
         cfg = cfgs[arch]
         r = ref[arch]
         res = {}
@@ -4515,7 +4746,129 @@ def _tp_rank(rank, world, ref, cfgs, device_type):
         del sp
         torch.cuda.empty_cache()
         out[arch] = res
+    out["seq"] = _tp_seq_rank(ref[TRAIN_ARCH], cfgs[TRAIN_ARCH], device,
+                              heads)
     return out
+
+
+def _tp_seq_rank(r, cfg, device, heads):
+    """Phase 24 (d) on this rank, mesh (1, 3), qwen3-0.6b as published: the
+    sequence-sharded layouts (``kv_seq`` and ``cache_seq`` over
+    ``"model"``: 16 heads and 8 kv heads do not divide 3).  One sharded
+    train step at ``TRAIN_BATCH`` x ``TP_SEQ_D`` (every head on this
+    rank's third of the keys, merged by log-sum-exp, gradients through the
+    merge), then (b)'s wave prefilled into a cache of
+    ``tp_seq_cache(P)`` rows (this rank keeps its third) and ``TP_NEW_D`` decode steps fed the
+    world-size-1 greedy tokens (the partials over each rank's rows
+    merged).  ``merge_partials`` is timed on the host, synchronized around
+    each call, for its share of the prefill and the steps."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch.mesh import make_mesh, mesh_shape
+    from repro_torch.launch.shardings import (cache_shardings, logical_rules,
+                                              shard_tree, state_shardings,
+                                              tree_shardings)
+    from repro_torch.models import attention, init_model
+    from repro_torch.models.sharding import use_rules
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import init_train_state, make_train_step
+    import torch.distributed as dist
+    mesh = make_mesh(1, TP_SEQ_RANKS, device_type=device.type)
+    dist.barrier()                 # the third rank waited out (b) and (c)
+    merge_s = []
+    inner = attention.merge_partials
+
+    def timed_merge(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(*a, **kw)
+        torch.cuda.synchronize()
+        merge_s.append(time.perf_counter() - t0)
+        return res
+    attention.merge_partials = timed_merge
+    heads.rows = True
+    res = {}
+    opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    shape, batch = tp_batch(cfg, device, TP_SEQ_D)
+    rules = logical_rules(cfg, mesh, shape)
+    res["rules"] = {k: rules[k] for k in ("tp_heads", "tp_kv", "kv_seq",
+                                          "cache_seq", "tp_ff", "vocab")}
+    state = init_train_state(SEED, cfg, opt, device=device)
+    state = shard_tree(state, mesh, state_shardings(cfg, mesh, state))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, opt)
+    fa.LAUNCHES = fd.LAUNCHES = 0
+    heads.seen["mha"].clear()
+    t0 = time.perf_counter()
+    with use_rules(mesh, rules), torch.enable_grad():
+        state, m = step(state, batch)
+    res["train"] = {k: float(m[k]) for k in ("loss", "aux", "grad_norm")}
+    res["train_s"] = time.perf_counter() - t0
+    res["train_fa"] = fa.LAUNCHES
+    res["train_heads"] = sorted(heads.seen["mha"])
+    res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["param_bytes"] = sum(t.to_local().numel() * t.element_size()
+                             for t in tree.leaves(state["params"]))
+    res["train_merge_s"] = sum(merge_s)
+    del state, batch, m
+    torch.cuda.empty_cache()
+    # the wave, fed the world-size-1 greedy tokens
+    params = init_model(cfg, seed=SEED, device=device)
+    sp = shard_tree(params, mesh, tree_shardings(mesh, params))
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fd.LAUNCHES = 0
+    for k in heads.seen:
+        heads.seen[k].clear()
+    merge_s.clear()
+    shapes = {}
+    cache_len = tp_seq_cache(r["toks"].shape[1])
+    srules = tp_rules(cfg, mesh, "prefill", cache_len)
+    with use_rules(mesh, srules):
+        rows, greedy, pre_s, steps = tp_serve(
+            sp, cfg, r["toks"], TP_NEW_D, device, forced=r["gen"],
+            cache_len=cache_len, shapes=shapes)
+    n_pre = cfg.n_layers
+    res["serve_fa"], res["serve_fd"] = fa.LAUNCHES, fd.LAUNCHES
+    res["serve_heads"] = {k: sorted(v) for k, v in heads.seen.items()}
+    res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["tf_err"] = tf_rel_err(rows, r["forward"][:, :TP_NEW_D + 1].float())
+    res["finite"] = bool(torch.isfinite(rows).all())
+    res["prefill_ms"] = pre_s * 1e3
+    res["step_ms"] = float(np.median(steps)) * 1e3
+    res["prefill_merge_ms"] = sum(merge_s[:n_pre]) * 1e3
+    res["step_merge_ms"] = sum(merge_s[n_pre:]) * 1e3 / TP_NEW_D
+    res["greedy_agree"] = float(
+        (greedy[:, 1:] == r["greedy"][:, 1:TP_NEW_D + 1]).float().mean())
+    pshape = dataclasses.replace(TRAIN_4K, kind="prefill",
+                                 seq_len=cache_len, global_batch=LM_BATCH)
+    spec = cache_shardings(cfg, mesh, pshape)["layers"][0]
+    res["cache_shapes"] = {k: v[0] for k, v in shapes.items()}
+    res["cache_want"] = {k: local_shape(v[1], spec[k], mesh_shape(mesh))
+                         for k, v in shapes.items()}
+    res["merges"] = len(merge_s)
+    attention.merge_partials = inner
+    heads.rows = False
+    del sp
+    torch.cuda.empty_cache()
+    return res
+
+
+def local_shape(shape, spec, sizes):
+    """The local shape of a tensor of global ``shape`` placed by ``spec``
+    on a mesh of ``sizes``: each dim divided by its mesh dims."""
+    out = list(shape)
+    for d, axis in enumerate(spec):
+        for a in (axis,) if isinstance(axis, str) else tuple(axis or ()):
+            out[d] //= sizes.get(a, 1)
+    return tuple(out)
 
 
 def run_tensor_parallel(device, card, fa, fd):
@@ -4533,7 +4886,16 @@ def run_tensor_parallel(device, card, fa, fd):
     heads and 4 of 8 kv heads a rank.  (c) The same world, olmoe-1b-7b at
     full width cut to 2 layers (32 of 64 experts a rank): one train step's
     loss, aux (the global batch's) and grad norm against world size 1,
-    then a prefill and ``TP_MOE_NEW`` decode steps."""
+    then a prefill and ``TP_MOE_NEW`` decode steps.  (b) and (c) run on
+    the first two ranks of a 3-rank world, whose three ranks then run (d)
+    on mesh (1, 3), qwen3-0.6b: the sequence-sharded layouts, one train
+    step at ``TRAIN_BATCH`` x ``TP_SEQ_D`` against world size 1 (loss
+    5e-3, grad norm 5e-2), (b)'s wave into ``tp_seq_cache(P)`` rows and
+    ``TP_NEW_D`` decode steps, their logits against the world-size-1
+    ``forward`` at the serving gate; ``flash_attention_fwd`` launched on
+    each rank's third of the keys with all 16 q heads, ``flash_decode`` on
+    each rank's third of the cache rows, the cache's local shapes
+    ``cache_shardings``'."""
     import os
     import tempfile
     import torch.distributed as dist
@@ -4633,13 +4995,15 @@ def run_tensor_parallel(device, card, fa, fd):
     ref_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=work) as tmp:
-        res = run_world(_tp_rank, 2, os.path.join(tmp, "store"),
+        res = run_world(_tp_rank, TP_SEQ_RANKS, os.path.join(tmp, "store"),
                         backend="gloo", timeout=TP_WORLD_TIMEOUT,
                         args=(ref, cfgs, device.type), threads=0)
     world_s = time.perf_counter() - t0
     out = {"a": {"train": a_train, "peak_gib": peaks, "seconds": a_s},
            "reference_s": ref_s,
            "world_s": world_s}
+    seq = [r.pop("seq") for r in res]
+    res = res[:2]
     for arch, new in ((TRAIN_ARCH, TP_NEW), (TP_MOE_ARCH, TP_MOE_NEW)):
         tcfg = cfgs[arch]
         want = ref[arch]["train"]
@@ -4703,12 +5067,80 @@ def run_tensor_parallel(device, card, fa, fd):
             f"{r0['serve_heads']['mha']} / {r0['serve_heads']['decode_attn']}")
         out[arch] = {"ranks": [r[arch] for r in res], "world_size_1": want,
                      "gaps": gaps}
+    out["seq"] = check_tp_seq(seq, ref[TRAIN_ARCH], cfg, card, launches)
     phase_s = time.perf_counter() - t_phase
     say(f"phase 24: {phase_s:.1f} s (world-size-1 references {ref_s:.1f} s, "
-        f"the 2-rank world {world_s:.1f} s)")
+        f"the {TP_SEQ_RANKS}-rank world {world_s:.1f} s)")
     out["launches"] = launches
     out["seconds"] = phase_s
     return out
+
+
+def check_tp_seq(seq, r, cfg, card, launches):
+    """Phase 24 (d)'s gates and line, from its ranks' results ``seq``;
+    adds its launches to ``launches`` (``fa_seq``, ``fd_seq``)."""
+    from repro_torch.models.sharding import chunk_bounds
+    want = r["train_d"]
+    gaps = {}
+    n = TP_SEQ_RANKS
+    cache_len = tp_seq_cache(r["toks"].shape[1])
+    for i, got in enumerate(seq):
+        assert got["rules"]["kv_seq"] == got["rules"]["cache_seq"] == \
+            "model" and got["rules"]["tp_heads"] is None, got["rules"]
+        for k, tol in TP_TRAIN_RTOL.items():
+            gap = abs(got["train"][k] - want[k]) / max(abs(want[k]), 1e-12)
+            gaps[k] = max(gaps.get(k, 0.0), gap)
+            assert gap <= tol, ("(d)", k, got["train"], want)
+        assert got["train"] == seq[0]["train"], seq
+        assert got["finite"]
+        assert got["tf_err"] < TF_TOL[torch.bfloat16], got["tf_err"]
+        h, kh = cfg.n_heads, cfg.n_kv_heads
+        train_keys = chunk_bounds(TP_SEQ_D, n, i)
+        wave_keys = chunk_bounds(r["toks"].shape[1], n, i)
+        assert got["train_fa"] == 2 * cfg.n_layers, got["train_fa"]
+        assert got["train_heads"] == [
+            (h, kh, train_keys[1] - train_keys[0])], got["train_heads"]
+        assert got["serve_fa"] == cfg.n_layers, got["serve_fa"]
+        assert got["serve_fd"] == cfg.n_layers * TP_NEW_D, got["serve_fd"]
+        assert got["serve_heads"] == {
+            "mha": [(h, kh, wave_keys[1] - wave_keys[0])],
+            "decode_attn": [(h, kh, cache_len // n)]}, got["serve_heads"]
+        assert got["cache_shapes"] == got["cache_want"], got
+        assert got["cache_shapes"]["k"][1] == cache_len // n, got
+    launches["fa_seq"] = sum(g["train_fa"] + g["serve_fa"] for g in seq)
+    launches["fd_seq"] = sum(g["serve_fd"] for g in seq)
+    g0 = seq[0]
+    say(f"phase 24 (d) {n} ranks on one card over gloo, mesh (1, {n}), "
+        f"{TRAIN_ARCH} as published on {card}: rules {g0['rules']} (16 "
+        f"heads and 8 kv heads do not divide {n}); train step "
+        f"B={TRAIN_BATCH} S={TP_SEQ_D} (keys {TP_SEQ_D // n} a rank, merged "
+        f"by log-sum-exp): loss {g0['train']['loss']:.6f} (world size 1 "
+        f"{want['loss']:.6f}), grad norm {g0['train']['grad_norm']:.6f} "
+        f"({want['grad_norm']:.6f}); relative gaps "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        + f" (limits {TP_TRAIN_RTOL}); a step "
+        f"{[round(g['train_s'] * 1e3, 1) for g in seq]} ms a rank (merges "
+        f"{[round(g['train_merge_s'] * 1e3, 1) for g in seq]} ms), peak "
+        f"{[round(g['train_peak_gib'], 2) for g in seq]} GiB, parameters "
+        f"{[round(g['param_bytes'] / 2 ** 30, 3) for g in seq]} GiB a rank; "
+        f"flash_attention_fwd {g0['train_fa']} launches a rank on (q heads, "
+        f"kv heads, keys) {[g['train_heads'] for g in seq]}; the wave (P = "
+        f"{r['toks'].shape[1]}, keys {[g['serve_heads']['mha'][0][2] for g in seq]}"
+        f" a rank, cache {cache_len} rows, {TP_NEW_D} steps fed the "
+        f"world-size-1 tokens): teacher-forced logits vs the world-size-1 "
+        f"forward max rel err {max(g['tf_err'] for g in seq):.3g} (gate "
+        f"{TF_TOL[torch.bfloat16]}), greedy tokens equal at "
+        f"{g0['greedy_agree']:.3f}; prefill "
+        f"{[round(g['prefill_ms'], 1) for g in seq]} ms (merges "
+        f"{[round(g['prefill_merge_ms'], 1) for g in seq]}), a step "
+        f"{[round(g['step_ms'], 2) for g in seq]} ms (merges "
+        f"{[round(g['step_merge_ms'], 2) for g in seq]}), peak "
+        f"{[round(g['serve_peak_gib'], 2) for g in seq]} GiB a rank; "
+        f"flash_attention_fwd {g0['serve_fa']} and flash_decode "
+        f"{g0['serve_fd']} launches a rank, decode on (q heads, kv heads, "
+        f"rows) {g0['serve_heads']['decode_attn']}; cache leaves "
+        f"{g0['cache_shapes']} a rank (cache_shardings')")
+    return {"ranks": seq, "world_size_1": want, "gaps": gaps}
 
 
 def main() -> int:
@@ -5077,6 +5509,12 @@ def main() -> int:
         f"{lm_errs['decode'][torch.float32]:.3g}, bf16 "
         f"{lm_errs['decode'][torch.bfloat16]:.3g}; every case bit-equal "
         f"twice")
+    t0 = time.perf_counter()
+    part_errs, part_times = check_partial_kernels(device, fa, fd)
+    say(f"partial forms vs plain ({time.perf_counter() - t0:.1f}s): "
+        f"{json.dumps(part_errs)}; every case bit-equal twice, the old "
+        f"calls bit-equal to the new forms' out")
+    say(json.dumps({"card": card, "partial_attention_times": part_times}))
     mark("8")
 
     # 9. the serving path; only its launches count
@@ -5162,8 +5600,8 @@ def main() -> int:
         rows = [tuple(x[:, :pos + 1].transpose(1, 2).contiguous()
                       for x in kv) for kv in caches]
         turn = itertools.cycle(range(LM_COPIES))
-        fd_launch = lambda: fd._launch(qd, *caches[next(turn)], outd, pos,
-                                       0, 0.0)
+        fd_launch = lambda: fd._launch(qd, *caches[next(turn)], outd, 0,
+                                       pos + 1, 0.0)
         t_k = median_ms(fd_launch, burst=50)
         t_p = median_ms(lambda: fd.decode_attn_plain(
             qd, *caches[next(turn)], pos), burst=10)
@@ -5339,7 +5777,8 @@ def main() -> int:
         "launches": fa_launches + jb["launches"][1]
         + t_launch["training_lm"] + t_launch["elastic_fa"] + wh_l[0]
         + px_l[0] + d_launch["distribution_fa"]
-        + d_launch["elastic_world_fa"] + tp_launch["fa"],
+        + d_launch["elastic_world_fa"] + tp_launch["fa"]
+        + tp_launch["fa_seq"],
         "launches_by_path": {"serving": fa_launches,
                              "serving_jamba": jb["launches"][1],
                              "training_lm": t_launch["training_lm"],
@@ -5348,7 +5787,8 @@ def main() -> int:
                              "serving_pixtral": px_l[0],
                              "distribution": d_launch["distribution_fa"],
                              "elastic_world": d_launch["elastic_world_fa"],
-                             "tensor_parallel": tp_launch["fa"]},
+                             "tensor_parallel": tp_launch["fa"],
+                             "tensor_parallel_seq": tp_launch["fa_seq"]},
         "check_launches": {"grad_and_plain_route_checks":
                            t_check["flash_attention_fwd"]},
         "grad_max_abs_err": lm_train["grads"]["mha"]["grad_max_abs_err"],
@@ -5362,17 +5802,22 @@ def main() -> int:
         "at_whisper": {k: av["whisper"]["kernels"][k]
                        for k in ("encoder", "cross", "self")},
         "at_pixtral": av["pixtral"]["kernels"]["prefill"],
+        "partial": {"max_abs_err": part_errs["mha"],
+                    "lse_max_abs_err": part_errs["mha_lse"],
+                    "whole": part_times["mha_whole"],
+                    "slices": part_times["mha_slices"]},
     }, {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:58",
         "launches": fd_launches + jb["launches"][2] + wh_l[1] + px_l[1]
-        + tp_launch["fd"],
+        + tp_launch["fd"] + tp_launch["fd_seq"],
         "launches_by_path": {"serving": fd_launches,
                              "serving_jamba": jb["launches"][2],
                              "serving_whisper": wh_l[1],
                              "serving_pixtral": px_l[1],
-                             "tensor_parallel": tp_launch["fd"]},
+                             "tensor_parallel": tp_launch["fd"],
+                             "tensor_parallel_seq": tp_launch["fd_seq"]},
         "max_abs_err": max(lm_errs["decode"].values()),
         "max_abs_err_f32": lm_errs["decode"][torch.float32],
         "ms": fd_times[pos_main]["ms"],
@@ -5389,6 +5834,10 @@ def main() -> int:
         "at_whisper": {k: av["whisper"]["kernels"][k]
                        for k in ("decode_cross", "decode_self")},
         "at_pixtral": av["pixtral"]["kernels"]["decode"],
+        "partial": {"max_abs_err": part_errs["decode"],
+                    "lse_max_abs_err": part_errs["decode_lse"],
+                    "whole": part_times["decode_whole"],
+                    "slices": part_times["decode_slices"]},
     }, {
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",

@@ -66,6 +66,16 @@
 //
 // Both routes take the q-tiles last-first, so the longest causal rows
 // start first, and visit every tile when some row of the block sees no key.
+//
+// Partial attention (a rank's slice of the keys, merged across ranks by
+// log-sum-exp): `koff` is the global position of key 0, so key j sits at
+// koff + j in the causal and window masks and in the tile-skip tests
+// (`kv_len` stays local).  With `lse` non-null the kernel also writes each
+// row's float32 log-sum-exp of its visible logits, (B, H, Sq) contiguous,
+// and then a row that sees no key of this slice comes out as o = 0 and
+// lse = -inf; such a block skips the tiles it does not need instead of
+// visiting every tile.  With koff = 0 and no lse a launch computes what it
+// computed before, bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,8 +93,9 @@ struct Args {
   long long kb, ks, kh, kd;
   long long vb, vs, vh, vd;
   long long ob, os, oh, od;
-  int b, sq, sk, h, n_kv, d, causal, window, kv_len;
+  int b, sq, sk, h, n_kv, d, causal, window, kv_len, koff;
   float scale, softcap;
+  float* lse;                 // (B, H, Sq) or null
 };
 
 template <typename T, int DMAX, int RQ, int RK>
@@ -116,19 +127,20 @@ __global__ void __launch_bounds__(kThreads)
     qs[r * RS + c] = x;
   }
 
-  // Row i sees keys [lo_i, hi_i]; a row with none makes the block visit all.
+  // Row i sees local keys [lo_i, hi_i]; without lse a row with none makes
+  // the block visit all.
   bool empty = false;
   if (tid < BQ && q0 + tid < a.sq) {
-    const int i = q0 + tid;
+    const int i = q0 + tid - a.koff;
     const int lo = a.window ? max(0, i - a.window + 1) : 0;
     const int hi = a.causal ? min(i, a.kv_len - 1) : a.kv_len - 1;
     empty = lo > hi;
   }
   int kbeg = 0, kend = a.sk;
-  if (!__syncthreads_or(empty)) {
+  if (a.lse != nullptr || !__syncthreads_or(empty)) {
     const int qlast = min(q0 + BQ, a.sq) - 1;
-    kbeg = a.window ? max(0, q0 - a.window + 1) : 0;
-    kend = a.causal ? min(a.kv_len, qlast + 1) : a.kv_len;
+    kbeg = a.window ? max(0, q0 - a.koff - a.window + 1) : 0;
+    kend = a.causal ? min(a.kv_len, qlast + 1 - a.koff) : a.kv_len;
   }
 
   float m[RQ], l[RQ], acc[RQ][DC];
@@ -184,8 +196,9 @@ __global__ void __launch_bounds__(kThreads)
         const int kj = k0 + tx + 16 * j;
         float x = s[i][j] * a.scale;
         if (a.softcap > 0.f) x = tanhf(x / a.softcap) * a.softcap;
-        const bool ok = kj < a.kv_len && (!a.causal || kj <= qi) &&
-                        (!a.window || qi - kj < a.window);
+        const int kg = kj + a.koff;
+        const bool ok = kj < a.kv_len && (!a.causal || kg <= qi) &&
+                        (!a.window || qi - kg < a.window);
         x = ok ? x : kNegInf;
         s[i][j] = x;
         if (kj < a.sk) mx = fmaxf(mx, x);
@@ -232,11 +245,17 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + ty * RQ + i;
     if (qi >= a.sq) continue;
     const float den = fmaxf(l[i], 1e-20f);
+    // with lse, a row that saw no key of the slice (m still the mask
+    // value) is o = 0, lse = -inf
+    const bool none = a.lse != nullptr && m[i] == kNegInf;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long long)bb * a.h + hq) * a.sq + qi] =
+          none ? -__builtin_huge_valf() : m[i] + logf(l[i]);
     T* orow = o + bb * a.ob + (long long)qi * a.os + hq * a.oh;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) store(orow + col * a.od, acc[i][c] / den);
+      if (col < d) store(orow + col * a.od, none ? 0.f : acc[i][c] / den);
     }
   }
 }
@@ -286,8 +305,9 @@ struct TcArgs {
   long long kb, ks, kh;
   long long vb, vs, vh;
   long long ob, os, oh;
-  int b, sq, sk, h, n_kv, d, causal, window, kv_len;
+  int b, sq, sk, h, n_kv, d, causal, window, kv_len, koff;
   float scale, softcap;
+  float* lse;                    // (B, H, Sq) or null
 };
 
 // Shared-memory geometry of one instantiation: DP = D padded to 32, 64,
@@ -569,21 +589,22 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int hq = blockIdx.y, bb = blockIdx.z;
   const int hk = hq / (a.h / a.n_kv);
 
-  // Row i sees keys [lo_i, hi_i]; a row with none makes the block visit all.
+  // Row i sees local keys [lo_i, hi_i]; without lse a row with none makes
+  // the block visit all.
   bool none = false;
   if (tid < kTcBQ && q0 + tid < a.sq) {
-    const int i = q0 + tid;
+    const int i = q0 + tid - a.koff;
     const int lo = a.window ? max(0, i - a.window + 1) : 0;
     const int hi = a.causal ? min(i, a.kv_len - 1) : a.kv_len - 1;
     none = lo > hi;
   }
   int kbeg = 0, kend = a.sk;
-  if (!__syncthreads_or(none)) {
+  if (a.lse != nullptr || !__syncthreads_or(none)) {
     const int qlast = min(q0 + kTcBQ, a.sq) - 1;
-    kbeg = a.window ? max(0, q0 - a.window + 1) : 0;
-    kend = a.causal ? min(a.kv_len, qlast + 1) : a.kv_len;
+    kbeg = a.window ? max(0, q0 - a.koff - a.window + 1) : 0;
+    kend = a.causal ? min(a.kv_len, qlast + 1 - a.koff) : a.kv_len;
   }
-  const int t0 = kbeg / BK, nt = (kend + BK - 1) / BK - t0;
+  const int t0 = kbeg / BK, nt = max(0, (kend + BK - 1) / BK - t0);
 
   if (tid == 0) {
     mbar_init(bar_q, 128);
@@ -676,16 +697,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       }
       // masks, only on tiles that cross the diagonal, the window's edge,
       // kv_len or the end of the keys
-      if (k0 + BK > a.kv_len || (a.causal && k0 + BK - 1 > qlo) ||
-          (a.window && qhi - k0 >= a.window)) {
+      const int g0 = k0 + a.koff;   // the tile's first key, global
+      if (k0 + BK > a.kv_len || (a.causal && g0 + BK - 1 > qlo) ||
+          (a.window && qhi - g0 >= a.window)) {
 #pragma unroll
         for (int c = 0; c < BK / 8; ++c)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int j = k0 + 8 * c + 2 * ct + (e & 1);
+            const int jg = j + a.koff;
             const int qi = e < 2 ? qa : qb;
-            const bool ok = j < a.kv_len && (!a.causal || j <= qi) &&
-                            (!a.window || qi - j < a.window);
+            const bool ok = j < a.kv_len && (!a.causal || jg <= qi) &&
+                            (!a.window || qi - jg < a.window);
             sc[4 * c + e] = j >= a.sk ? kMinusInf
                             : ok      ? sc[4 * c + e]
                                       : kNegInf;
@@ -759,8 +782,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
-    const float inv_a = 1.f / fmaxf(l_a, 1e-20f);
-    const float inv_b = 1.f / fmaxf(l_b, 1e-20f);
+    float inv_a = 1.f / fmaxf(l_a, 1e-20f);
+    float inv_b = 1.f / fmaxf(l_b, 1e-20f);
+    if (a.lse != nullptr) {
+      // a row that saw no key of the slice (m still the mask value): o = 0,
+      // lse = -inf; else lse = m (in logit units) + log l
+      const float unit = a.softcap > 0.f ? 1.f : a.scale;
+      const bool none_a = m_a == kNegInf, none_b = m_b == kNegInf;
+      if (none_a) inv_a = 0.f;
+      if (none_b) inv_b = 0.f;
+      float* lrow = a.lse + ((long long)bb * a.h + hq) * a.sq;
+      if (ct == 0 && qa < a.sq)
+        lrow[qa] = none_a ? kMinusInf : m_a * unit + logf(l_a);
+      if (ct == 0 && qb < a.sq)
+        lrow[qb] = none_b ? kMinusInf : m_b * unit + logf(l_b);
+    }
     const uint32_t bar_id = 1 + cw;
     asm volatile("bar.sync %0, 128;\n" :: "r"(bar_id) : "memory");
 #pragma unroll
@@ -816,18 +852,22 @@ cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
 // q (B, Sq, H, D), k and v (B, Sk, Kh, D), o (B, Sq, H, D), each with its
 // strides in elements; dtype 0 = float32 (CUDA-core kernel), 1 = bfloat16
 // (tensor-core kernel, which needs unit innermost strides, the other strides
-// and D multiples of 8 and 16-byte aligned bases).  Returns the CUDA error
-// of the launch (0 on success).
+// and D multiples of 8 and 16-byte aligned bases).  `koff` is the global
+// position of key 0 (>= 0); `lse`, when not null, receives (B, H, Sq)
+// float32 row log-sum-exps (see the header).  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, long long qb,
     long long qs, long long qh, long long qd, long long kb, long long ks,
     long long kh, long long kd, long long vb, long long vs, long long vh,
     long long vd, long long ob, long long os, long long oh, long long od,
     int b, int sq, int sk, int h, int n_kv, int d, int causal, int window,
-    int kv_len, int dtype, float scale, float softcap, void* stream) {
+    int kv_len, int koff, int dtype, float scale, float softcap, void* lse,
+    void* stream) {
   if (d < 1 || d > 256 || n_kv < 1 || h % n_kv != 0 || kv_len < 0 ||
-      kv_len > sk)
+      kv_len > sk || koff < 0)
     return (int)cudaErrorInvalidValue;
+  float* lf = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const long long strides = qb | qs | qh | kb | ks | kh | vb | vs | vh |
@@ -841,13 +881,13 @@ extern "C" int flash_attention_fwd(
         (strides & 7) || (ptrs & 15))
       return (int)cudaErrorInvalidValue;
     const TcArgs a{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh,
-                   b, sq, sk, h, n_kv, d, causal, window, kv_len, scale,
-                   softcap};
+                   b, sq, sk, h, n_kv, d, causal, window, kv_len, koff,
+                   scale, softcap, lf};
     return (int)dispatch_tc(q, k, v, o, a, st);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Args a{qb, qs, qh, qd, kb, ks, kh, kd, vb, vs, vh, vd,
                ob, os, oh, od, b, sq, sk, h, n_kv, d, causal, window,
-               kv_len, scale, softcap};
+               kv_len, koff, scale, softcap, lf};
   return (int)dispatch<float>(q, k, v, o, a, st);
 }

@@ -17,7 +17,7 @@
 // waiting on one serial walk of the cache.
 //
 // Design (split-K, one launch):
-//   - The visible range [kbeg, pos] is cut into `n_chunks` chunks of `chunk`
+//   - The visible range [kbeg, kend) is cut into `n_chunks` chunks of `chunk`
 //     keys by the wrapper's host function `split_plan` (ops.py), none empty.
 //     One block of 128 threads owns one (chunk, kv head, batch) and serves
 //     all `group` = H / Kh <= 8 query heads of that kv head, so each K and V
@@ -40,9 +40,19 @@
 //     last ticket of its (batch, kv head) merges the chunks in chunk order,
 //     writes the output and resets the ticket for the next call.  No float
 //     atomics: results repeat bit for bit.
-//   - `pos` is a host int shared by the batch, passed by value: no device
-//     scalar and no sync.  Every key in [kbeg, pos] is visible, so visiting
-//     only those gives what the reference's -1e30 masking gives.
+//   - The visible rows [kbeg, kend) are host ints shared by the batch,
+//     passed by value: no device scalar and no sync.  The wrapper derives
+//     them from `pos` and the window ([pos - window + 1, pos], clipped at
+//     0), or takes them from its caller: a rank holding one slice of a
+//     cache split along its sequence passes the rows of its slice that
+//     the token sees, local to the slice.  Every key in the range is
+//     visible, so visiting only those gives what the reference's -1e30
+//     masking gives.  The range is never empty (the wrapper answers an
+//     empty one without a launch: o = 0, lse = -inf).
+//   - With `lse` non-null the kernel also writes each query head's
+//     float32 log-sum-exp over the range, (B, H) contiguous: the merged
+//     (M, L) of the chunks as M + log L, which a merge across ranks needs.
+//     Without it a launch computes what it computed before, bit for bit.
 // Layout contract (ops.py copies a cache that breaks it): D a multiple of 8,
 // unit innermost stride, the other strides multiples of 16 bytes, 16-byte
 // aligned bases.  q and o are read and written through any strides.
@@ -62,8 +72,9 @@ struct Args {
   long long kb, ks, kh;         // the cache's innermost stride is 1
   long long vb, vs, vh;
   long long ob, oh, od;
-  int b, h, n_kv, d, pos, window, chunk, n_chunks;
+  int b, h, n_kv, d, kbeg, kend, chunk, n_chunks;
   float scale, softcap;
+  float* lse;                   // (B, H) or null
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -122,9 +133,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, rl = tid / TPR, cc = tid % TPR;
   const int ci = blockIdx.x, hk = blockIdx.y, bb = blockIdx.z;
   const int group = a.h / a.n_kv;
-  const int kbeg = a.window ? max(0, a.pos - a.window + 1) : 0;
-  const int c0 = kbeg + ci * a.chunk;
-  const int c1 = min(c0 + a.chunk, a.pos + 1);   // this chunk: [c0, c1)
+  const int c0 = a.kbeg + ci * a.chunk;
+  const int c1 = min(c0 + a.chunk, a.kend);      // this chunk: [c0, c1)
   const bool col_ok = cc * 8 < a.d;
 
   float qv[G][8];
@@ -267,7 +277,12 @@ __global__ void __launch_bounds__(kThreads)
       mine[2 * group + g * a.d + col] = s;
     }
   }
-  if (a.n_chunks == 1) return;
+  if (a.n_chunks == 1) {
+    if (a.lse != nullptr && tid < group)
+      a.lse[(long long)bb * a.h + hk * group + tid] =
+          sm_big_m[tid] + logf(sm_big_l[tid]);
+    return;
+  }
   if (tid < group) {
     mine[tid] = sm_big_m[tid];
     mine[group + tid] = sm_big_l[tid];
@@ -294,6 +309,8 @@ __global__ void __launch_bounds__(kThreads)
       sum = fmaf(__ldcg(pc + group + tid), f, sum);
     }
     sm_big_l[tid] = sum;
+    if (a.lse != nullptr)
+      a.lse[(long long)bb * a.h + hk * group + tid] = big + logf(sum);
   }
   __syncthreads();
   for (int i = tid; i < group * a.d; i += kThreads) {
@@ -344,25 +361,24 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // q (B, 1, H, D) and o (B, 1, H, D) with strides for (b, h, d); cache_k and
 // cache_v (B, S, Kh, D) with strides for (b, s, kh, d), in elements; dtype
-// 0 = float32, 1 = bfloat16.  The visible keys [kbeg, pos] are cut into
-// n_chunks chunks of `chunk` keys, none empty.  `part` holds B * Kh *
-// n_chunks * (H / Kh) * (D + 2) floats of scratch (unused when n_chunks is
-// 1) and `tickets` B * Kh zeroed ints, which the kernel leaves zeroed.
+// 0 = float32, 1 = bfloat16.  The visible keys [kbeg, kend) (not empty)
+// are cut into n_chunks chunks of `chunk` keys, none empty.  `part` holds
+// B * Kh * n_chunks * (H / Kh) * (D + 2) floats of scratch (unused when
+// n_chunks is 1) and `tickets` B * Kh zeroed ints, which the kernel leaves
+// zeroed; `lse`, when not null, receives (B, H) float32 log-sum-exps.
 // Returns the CUDA error of the launch.
 extern "C" int flash_decode(
     const void* q, const void* k, const void* v, void* o, long long qb,
     long long qh, long long qd, long long kb, long long ks, long long kh,
     long long kd, long long vb, long long vs, long long vh, long long vd,
     long long ob, long long oh, long long od, int b, int h, int n_kv, int d,
-    int pos, int window, int chunk, int n_chunks, int dtype, float scale,
-    float softcap, void* part, void* tickets, void* stream) {
+    int kbeg, int kend, int chunk, int n_chunks, int dtype, float scale,
+    float softcap, void* part, void* tickets, void* lse, void* stream) {
   if (d < 1 || d > 256 || (d & 7) || n_kv < 1 || h % n_kv != 0 ||
-      h / n_kv > kMaxGroup || pos < 0 || window < 0 || softcap < 0.f ||
+      h / n_kv > kMaxGroup || kbeg < 0 || kend <= kbeg || softcap < 0.f ||
       kd != 1 || vd != 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const int n_keys = pos + 1 - (window ? (pos - window + 1 > 0
-                                              ? pos - window + 1 : 0)
-                                       : 0);
+  const int n_keys = kend - kbeg;
   if (chunk < 1 || n_chunks < 1 || n_chunks > kMaxChunks ||
       (long long)chunk * n_chunks < n_keys ||
       (long long)chunk * (n_chunks - 1) >= n_keys ||
@@ -374,7 +390,8 @@ extern "C" int flash_decode(
   if (((kb | ks | kh | vb | vs | vh) % vec) || (ptrs & 15))
     return (int)cudaErrorInvalidValue;
   const Args a{qb, qh, qd, kb, ks, kh, vb, vs, vh, ob, oh, od,
-               b, h, n_kv, d, pos, window, chunk, n_chunks, scale, softcap};
+               b, h, n_kv, d, kbeg, kend, chunk, n_chunks, scale, softcap,
+               static_cast<float*>(lse)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
   int* tk = static_cast<int*>(tickets);

@@ -15,6 +15,17 @@ strides multiples of 16 bytes and 16-byte aligned data; a cache that breaks
 this is copied first (contiguous, D zero-padded to a multiple of 8).  The
 models' caches (D 64, 128, 256, allocated contiguous) never are.
 
+Partial decode, for a cache split along its sequence over ranks: with
+``rows`` = (r0, r1) the token sees rows [r0, r1) of the cache given (a
+rank's slice, local to it; :func:`visible_rows` derives them from the
+global ``pos`` and window), in place of the rows ``pos`` and the window
+give; with ``return_lse`` the call also returns each query head's float32
+log-sum-exp over those rows, (B, H).  An empty range launches nothing and
+comes out as 0 with log-sum-exp -inf (the plain version alike), so that
+``launch.collectives.merge_partials`` of the ranks' partials is the
+attention over the whole cache.  A call without ``rows`` and
+``return_lse`` computes what it did before, bit for bit.
+
 Counterpart of ``repro.kernels.flash_decode.ops.decode_attn`` (whose kernel
 is ``flash_decode``); unlike it, the cache is read in place in its own
 layout, never transposed, and ``pos`` is a host int.
@@ -24,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +81,17 @@ def split_plan(b: int, n_kv: int, kbeg: int, pos: int) -> Tuple[int, int]:
     return chunk, -(-n_keys // chunk)
 
 
+def visible_rows(pos: int, window: int, start: int,
+                 length: int) -> Tuple[int, int]:
+    """The rows (r0, r1), local to a slice of ``length`` cache rows that
+    starts at global row ``start``, that a token at ``pos`` sees: global
+    rows <= ``pos`` and, with ``window`` > 0, > ``pos - window``; r0 ==
+    r1 when it sees none of them."""
+    lo = max(0, pos - window + 1) if window else 0
+    r0 = min(max(lo, start), start + length) - start
+    return r0, max(r0, min(pos + 1, start + length) - start)
+
+
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     """The kernel's per-(batch, kv head) tickets on ``device``: zeroed once,
     and left zeroed by every launch.  Launches on one device must not run
@@ -93,10 +115,13 @@ def _rows_16b(x: torch.Tensor) -> bool:
 
 def decode_attn_plain(q: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, pos: int, *,
-                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                      window: int = 0, softcap: float = 0.0,
+                      rows: Optional[Tuple[int, int]] = None,
+                      return_lse: bool = False):
     """Softmax attention of q over cache positions <= ``pos`` (and > ``pos -
-    window`` when ``window`` > 0), in float32, over the whole cache with the
-    rest masked to -1e30.  Same arguments as :func:`decode_attn`."""
+    window`` when ``window`` > 0), or over ``rows``, in float32, over the
+    whole cache with the rest masked to -1e30.  Same arguments and results
+    as :func:`decode_attn`."""
     b, _, h, d = q.shape
     s_len, kh = cache_k.shape[1], cache_k.shape[2]
     group = h // kh
@@ -107,18 +132,27 @@ def decode_attn_plain(q: torch.Tensor, cache_k: torch.Tensor,
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     k_pos = torch.arange(s_len, device=q.device)
-    mask = k_pos <= pos
-    if window:
-        mask = mask & (k_pos > pos - window)
+    if rows is not None:
+        mask = (k_pos >= rows[0]) & (k_pos < rows[1])
+    else:
+        mask = k_pos <= pos
+        if window:
+            mask = mask & (k_pos > pos - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
     out = torch.einsum("bhk,bhkd->bhd", p, vf) / l
-    return out[:, None].to(q.dtype)
+    if not return_lse:
+        return out[:, None].to(q.dtype)
+    if not bool(mask.any()):
+        return (torch.zeros_like(q),
+                torch.full(m.shape[:-1], -math.inf, device=q.device))
+    return out[:, None].to(q.dtype), (m + l.log())[..., 0]
 
 
-def _check(q, cache_k, cache_v, pos: int, window: int,
-           softcap: float) -> None:
+def _check(q, cache_k, cache_v, pos: int, window: int, softcap: float,
+           rows: Optional[Tuple[int, int]] = None) -> None:
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, H, D), got {tuple(q.shape)}")
     if cache_k.dim() != 4 or tuple(cache_k.shape) != tuple(cache_v.shape):
@@ -138,10 +172,14 @@ def _check(q, cache_k, cache_v, pos: int, window: int,
             cache_v.dtype != q.dtype:
         raise TypeError(f"q and the cache must share one dtype of {DTYPES}, "
                         f"got {q.dtype}, {cache_k.dtype}, {cache_v.dtype}")
-    if not 0 <= pos < cache_k.shape[1] or window < 0 or softcap < 0:
-        raise ValueError(f"need 0 <= pos < {cache_k.shape[1]}, window >= 0 "
-                         f"and softcap >= 0, got pos={pos}, window={window}, "
-                         f"softcap={softcap}")
+    if window < 0 or softcap < 0 or (
+            rows is None and not 0 <= pos < cache_k.shape[1]) or (
+            rows is not None and not 0 <= rows[0] <= rows[1]
+            <= cache_k.shape[1]):
+        raise ValueError(f"need 0 <= pos < {cache_k.shape[1]} (or 0 <= r0 "
+                         f"<= r1 <= {cache_k.shape[1]}), window >= 0 and "
+                         f"softcap >= 0, got pos={pos}, rows={rows}, "
+                         f"window={window}, softcap={softcap}")
     devices = {t.device for t in (q, cache_k, cache_v)}
     if len(devices) != 1:
         raise ValueError(f"q and the cache lie on several devices: "
@@ -154,23 +192,25 @@ def _kernel_fn():
         fn = build.load(SOURCE).flash_decode
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 14
                        + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def _launch(q, cache_k, cache_v, out, pos: int, window: int,
-            softcap: float, scale: float = 0.0) -> None:
-    """One launch of ``flash_decode`` on checked CUDA tensors (the cache laid
-    out for 16-byte loads); ``scale`` defaults to 1/sqrt(D)."""
+def _launch(q, cache_k, cache_v, out, kbeg: int, kend: int,
+            softcap: float, scale: float = 0.0,
+            lse: Optional[torch.Tensor] = None) -> None:
+    """One launch of ``flash_decode`` over the rows [kbeg, kend) (not
+    empty) on checked CUDA tensors (the cache laid out for 16-byte loads);
+    ``scale`` defaults to 1/sqrt(D); ``lse``, a contiguous (B, H) float32
+    tensor, receives the heads' log-sum-exps."""
     global LAUNCHES
     b, _, h, d = q.shape
     kh = cache_k.shape[2]
     qs, ks, vs, os_ = (q.stride(), cache_k.stride(), cache_v.stride(),
                        out.stride())
-    kbeg = max(0, pos - window + 1) if window else 0
-    chunk, n_chunks = split_plan(b, kh, kbeg, pos)
+    chunk, n_chunks = split_plan(b, kh, kbeg, kend - 1)
     part = tickets = None
     if n_chunks > 1:
         part = torch.empty(b * kh * n_chunks * (h // kh) * (d + 2),
@@ -180,11 +220,12 @@ def _launch(q, cache_k, cache_v, out, pos: int, window: int,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             out.data_ptr(), qs[0], qs[2], qs[3], *ks, *vs,
-            os_[0], os_[2], os_[3], b, h, kh, d, pos, window, chunk,
+            os_[0], os_[2], os_[3], b, h, kh, d, kbeg, kend, chunk,
             n_chunks, _DTYPE_CODE[q.dtype],
             float(scale or 1.0 / math.sqrt(d)), float(softcap),
             None if part is None else part.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), stream)
+            None if tickets is None else tickets.data_ptr(),
+            None if lse is None else lse.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -192,13 +233,16 @@ def _launch(q, cache_k, cache_v, out, pos: int, window: int,
 
 def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos: int, *,
-                window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                window: int = 0, softcap: float = 0.0,
+                rows: Optional[Tuple[int, int]] = None,
+                return_lse: bool = False):
     """q: (B, 1, H, D); cache_k, cache_v: (B, S, Kh, D); pos: host int, the
     position of the token being decoded, shared by the batch -> (B, 1, H, D)
-    in q's dtype (float32 or bfloat16; float32 softmax state).  With
+    in q's dtype (float32 or bfloat16; float32 softmax state), and with
+    ``return_lse`` also the heads' log-sum-exps, (B, H) float32.  With
     ``softcap`` > 0 the logits are capped as in :func:`repro_torch.kernels.
     flash_attention.ops.mha` (the models' decode needs it; the reference
-    kernel has no cap).
+    kernel has no cap).  ``rows``: the module docstring.
 
     CPU tensors run :func:`decode_attn_plain`; CUDA tensors launch the
     kernel, which reads only the cache rows the token sees.  A cache whose
@@ -206,12 +250,22 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
     first; the kernel still runs.
     """
     pos, window = int(pos), int(window)
-    _check(q, cache_k, cache_v, pos, window, softcap)
+    if rows is not None:
+        rows = (int(rows[0]), int(rows[1]))
+    _check(q, cache_k, cache_v, pos, window, softcap, rows)
+    if rows is not None and rows[0] == rows[1]:    # nothing seen, no launch
+        b, _, h, _ = q.shape
+        out = torch.zeros_like(q)
+        return (out, q.new_full((b, h), -math.inf, dtype=torch.float32)) \
+            if return_lse else out
     if q.device.type == "cpu":
         return decode_attn_plain(q, cache_k, cache_v, pos, window=window,
-                                 softcap=softcap)
+                                 softcap=softcap, rows=rows,
+                                 return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
+    kbeg, kend = rows if rows is not None else (
+        max(0, pos - window + 1) if window else 0, pos + 1)
     d = q.shape[-1]
     d_pad = -(-d // 8) * 8
     if d_pad != d:
@@ -220,7 +274,11 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
     cache_k, cache_v = (x if _rows_16b(x) else x.contiguous()
                         for x in (cache_k, cache_v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, _, h, _ = q.shape
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel():
-        _launch(q, cache_k, cache_v, out, pos, window, softcap,
-                scale=1.0 / math.sqrt(d))
-    return out if d_pad == d else out[..., :d].contiguous()
+        _launch(q, cache_k, cache_v, out, kbeg, kend, softcap,
+                scale=1.0 / math.sqrt(d), lse=lse)
+    out = out if d_pad == d else out[..., :d].contiguous()
+    return (out, lse) if return_lse else out

@@ -203,7 +203,11 @@ def cache_shardings(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig):
 
 def cache_specs_of(cfg: ModelConfig, rules: Dict):
     """:func:`cache_shardings` from the logical ``rules`` themselves (the
-    sharded prefill places its cache with the rules it runs under)."""
+    sharded prefill places its cache with the rules it runs under).  A
+    cache's sequence dim splits over ``cache_seq``'s mesh dims, major to
+    minor, in equal parts: a length that does not divide raises
+    (``models.transformer.check_cache_split``), as the reference's
+    ``pjit`` refuses it."""
     dp, cseq, kv = rules["dp"], rules["cache_seq"], rules["tp_kv"]
     tpff = rules["tp_ff"]
 

@@ -20,6 +20,20 @@ and the output is summed over the ranks.  Where the kv heads do not split
 (``wk`` / ``wv`` whole), every rank projects them all and keeps the ones
 its q heads read.  A replicated ``bq`` / ``bk`` / ``bv`` is cut to the
 local heads, and padded heads are masked by their global index.
+
+Where the heads do not split (``kv_seq`` over ``"model"``: ``wq`` ..
+``wo`` whole on every rank), the keys do: each rank projects k and v for
+its ``torch.chunk`` slice of the key rows only, runs every query against
+them (``mha`` with the slice's offset, so the masks compare global
+positions, and its log-sum-exp) and the ranks' partials are merged by
+log-sum-exp (``launch.collectives.merge_partials``).  Where the cache
+splits along its sequence (``cache_seq`` over ``"model"``, the batch's
+``"data"`` or both), only the rank that holds row ``pos`` writes the new
+token's k and v, each rank runs every query head over the rows of its
+slice the token sees (``decode_attn`` with ``rows``; the one-token q
+gathered over ``"model"`` where the heads split) and the partials are
+merged over the split's mesh dims; a rank then keeps its own heads for
+``wo``.
 """
 from __future__ import annotations
 
@@ -30,11 +44,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.kernels.flash_decode.ops import decode_attn
-from repro_torch.launch.collectives import copy_to, reduce_from
+from repro_torch.kernels.flash_decode.ops import decode_attn, visible_rows
+from repro_torch.launch.collectives import (copy_to, gather_dim,
+                                            merge_partials, reduce_out,
+                                            same_out)
 from repro_torch.models.layers import (DTYPES, apply_rope, dense_init,
                                        head_rms_norm)
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, seq_split
 
 
 def padded_heads(cfg: ModelConfig) -> int:
@@ -142,21 +158,76 @@ def kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
 
 def _finish(p: Dict, cfg: ModelConfig, out: torch.Tensor,
             tp=None) -> torch.Tensor:
+    """Padded heads masked, then ``wo``: with ``tp``, this rank's heads
+    against its rows of ``wo``, summed over the ranks (``reduce_out``), or,
+    where ``wo`` is whole (``kv_seq``), every head on every rank alike
+    (``same_out``)."""
     hp = padded_heads(cfg)
     hl = out.shape[-2]
+    local = tp is not None and hl != hp
     if hp > cfg.n_heads:                     # inert padded heads
-        h0 = 0 if tp is None else tp.start(hl)
+        h0 = tp.start(hl) if local else 0
         out = out * (torch.arange(h0, h0 + hl, device=out.device) <
                      cfg.n_heads).to(out.dtype)[None, None, :, None]
     out = constrain(out, "dp", None, "tp_heads", None,
                     full=(None, None, hp, None))
     y = out.reshape(*out.shape[:-2], hl * cfg.d_head) @ p["wo"]
-    return y if tp is None else reduce_from(y, tp)
+    if tp is None:
+        return y
+    return reduce_out(y, tp) if local else same_out(y, tp)
 
 
 def kv_local(p: Dict, cfg: ModelConfig) -> bool:
     """Whether ``p``'s ``wk`` / ``wv`` are a rank's kv-head shards."""
     return p["wk"].shape[-1] != cfg.kv_hidden
+
+
+def heads_local(p: Dict, cfg: ModelConfig) -> bool:
+    """Whether ``p``'s ``wq`` holds a rank's q-head shards."""
+    return p["wq"].shape[-1] != padded_heads(cfg) * cfg.d_head
+
+
+def _gather_rows(t: torch.Tensor, size: int, split, tp) -> torch.Tensor:
+    """The whole (B, ``size``, ...) tensor from every rank's chunk of its
+    rows (``split``'s cut over ``tp``; no gradient): the chunks padded to
+    one length, gathered, the padding cut."""
+    lo, hi = split.bounds(size)
+    step = -(-size // split.n)
+    if hi - lo < step:
+        t = torch.cat([t, t.new_zeros((t.shape[0], step - (hi - lo))
+                                      + tuple(t.shape[2:]))], dim=1)
+    return gather_dim(t, 1, tp)[:, :size]
+
+
+def _seq_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, kind: str, causal: bool,
+                   kv_x: torch.Tensor, kv_positions: torch.Tensor,
+                   return_kv: bool, tp):
+    """:func:`multi_head_attention` under ``kv_seq``: every head on every
+    rank, the keys split over ``"model"`` (module docstring).  The
+    projections' parameters and ``x`` enter through ``copy_to`` (each rank
+    computes a part of their gradients: its keys' and its partial's);
+    ``wo`` does not, since every rank then holds the merged output."""
+    split = seq_split("kv_seq")
+    assert split is not None and split.n == tp.size, (split, tp)
+    pp = {k: t if k == "wo" else copy_to(t, tp) for k, t in p.items()}
+    xq = copy_to(x, tp)
+    src = xq if kv_x is x else copy_to(kv_x, tp)
+    sk = kv_x.shape[1]
+    r0, r1 = split.bounds(sk)
+    q = _project_q(pp, cfg, xq, positions, kind)
+    k, v = _project_kv(pp, cfg, src[:, r0:r1], kv_positions[:, r0:r1], kind)
+    full = (None, sk, cfg.n_kv_heads, None)
+    k = constrain(k, "dp", "kv_seq", "tp_kv", None, full=full)
+    v = constrain(v, "dp", "kv_seq", "tp_kv", None, full=full)
+    out, lse = mha(q, k, v, causal=causal, window=_window(cfg, kind),
+                   softcap=cfg.attn_logit_softcap, k_offset=r0,
+                   return_lse=True)
+    out = merge_partials(out, lse.transpose(1, 2), split.groups)
+    out = _finish(pp, cfg, out, tp)
+    if not return_kv:
+        return out
+    return out, tuple(_gather_rows(t, sk, split, tp) for t in (k, v))
 
 
 def multi_head_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -173,23 +244,28 @@ def multi_head_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     returns the roped (k, v), (B, Sk, Kh, Dh), that the prefill cache is
     built from.  With ``tp``, this rank's heads (module docstring); the
     returned (k, v) are its kv heads when they split, else all of them.
+    Under ``kv_seq`` (``wq`` whole with ``tp``) the keys split instead,
+    and the returned (k, v) are gathered whole (no gradient: the prefill's
+    cache).
     """
-    xq = x if tp is None else copy_to(x, tp)
-    q = _project_q(p, cfg, xq, positions, kind, tp)
     if kv_x is None:
         kv_x, kv_positions = x, positions
     elif kv_positions is None:
         kv_positions = torch.arange(kv_x.shape[1], device=kv_x.device
                                     ).expand(kv_x.shape[:2])
+    if tp is not None and not heads_local(p, cfg):
+        return _seq_attention(p, cfg, x, positions, kind, causal, kv_x,
+                              kv_positions, return_kv, tp)
+    xq = x if tp is None else copy_to(x, tp)
+    q = _project_q(p, cfg, xq, positions, kind, tp)
     split = tp is not None and kv_local(p, cfg)
     if split:
         kv_x = copy_to(kv_x, tp)
     k, v = _project_kv(p, cfg, kv_x, kv_positions, kind,
                        tp if split else None)
-    k = constrain(k, "dp", "kv_seq", "tp_kv", None,
-                  full=(None, None, cfg.n_kv_heads, None))
-    v = constrain(v, "dp", "kv_seq", "tp_kv", None,
-                  full=(None, None, cfg.n_kv_heads, None))
+    full = (None, kv_x.shape[1], cfg.n_kv_heads, None)
+    k = constrain(k, "dp", "kv_seq", "tp_kv", None, full=full)
+    v = constrain(v, "dp", "kv_seq", "tp_kv", None, full=full)
     kq, vq = (k, v) if tp is None or split else \
         kv_for_heads(k, v, cfg, q.shape[2], tp)
     out = mha(q, kq, vq, causal=causal, window=_window(cfg, kind),
@@ -220,12 +296,13 @@ def decode_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     encoder's (B, T, Kh, Dh) keys and values, the cache is left alone and
     every one of the T rows is attended (the kernel at pos = T - 1).
     Returns (out, cache), the cache being the same dict.  With ``tp``,
-    this rank's heads: the cache (and ``cross_kv``) hold its kv heads.
+    this rank's heads, or every head where ``wq`` is whole (``kv_seq``);
+    the cache (and ``cross_kv``) hold its kv heads.  Under ``cache_seq``
+    the cache is this rank's slice of the rows (module docstring).
     """
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.long,
                            device=x.device)
     if tp is not None:
-        assert kv_local(p, cfg), "sharded decode needs kv-head shards"
         x = copy_to(x, tp)
     q = _project_q(p, cfg, x, positions, kind, tp)
     if cross_kv is not None:
@@ -233,13 +310,35 @@ def decode_attention(p: Dict, cfg: ModelConfig, x: torch.Tensor,
         out = decode_attn(q, ck, cv, ck.shape[1] - 1,
                           softcap=cfg.attn_logit_softcap)
         return _finish(p, cfg, out, tp), cache
-    k_new, v_new = _project_kv(p, cfg, x, positions, kind, tp)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    ck = constrain(cache["k"], "dp", "cache_seq", "tp_kv", None,
-                   full=(None, None, cfg.n_kv_heads, None))
-    cv = constrain(cache["v"], "dp", "cache_seq", "tp_kv", None,
-                   full=(None, None, cfg.n_kv_heads, None))
-    out = decode_attn(q, ck, cv, pos, window=_window(cfg, kind),
-                      softcap=cfg.attn_logit_softcap)
+    k_new, v_new = _project_kv(p, cfg, x, positions, kind,
+                               tp if kv_local(p, cfg) else None)
+    split = seq_split("cache_seq")
+    rows, r0 = cache["k"].shape[1], 0
+    if split is not None:
+        r0 = split.index * rows
+    if r0 <= pos < r0 + rows:                # the rank that holds row pos
+        cache["k"][:, pos - r0] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos - r0] = v_new[:, 0].to(cache["v"].dtype)
+    full = (None, rows * (split.n if split else 1), cfg.n_kv_heads, None)
+    ck = constrain(cache["k"], "dp", "cache_seq", "tp_kv", None, full=full)
+    cv = constrain(cache["v"], "dp", "cache_seq", "tp_kv", None, full=full)
+    window = _window(cfg, kind)
+    if split is None:
+        assert tp is None or kv_local(p, cfg), \
+            "a sharded decode over whole kv heads needs its cache split"
+        out = decode_attn(q, ck, cv, pos, window=window,
+                          softcap=cfg.attn_logit_softcap)
+        return _finish(p, cfg, out, tp), cache
+    # every q head over this rank's rows, merged over the split
+    hl = q.shape[2]
+    gather = tp is not None and heads_local(p, cfg) and not kv_local(p, cfg)
+    if gather:
+        q = gather_dim(q, 2, tp)
+    out, lse = decode_attn(q, ck, cv, pos, window=window,
+                           softcap=cfg.attn_logit_softcap,
+                           rows=visible_rows(pos, window, r0, rows),
+                           return_lse=True)
+    out = merge_partials(out, lse[:, None], split.groups)
+    if gather:
+        out = out.narrow(2, tp.start(hl), hl)
     return _finish(p, cfg, out, tp), cache

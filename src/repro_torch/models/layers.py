@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.collectives import copy_to, reduce_from
+from repro_torch.launch.collectives import copy_to, reduce_from, reduce_out
 from repro_torch.models.sharding import constrain
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -76,7 +76,8 @@ def ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     """Gated FFN: SwiGLU, or GeGLU with the tanh gelu for gemma (the
     default of ``jax.nn.gelu``).  With ``tp``: this rank's hidden units
     (``w_gate`` / ``w_up`` columns, ``w_down`` rows), the output summed
-    over the ranks."""
+    over the ranks (``reduce_out``: under Megatron-SP, this rank's rows of
+    the sequence)."""
     if tp is not None:
         x = copy_to(x, tp)
     gate = x @ params["w_gate"]
@@ -85,7 +86,7 @@ def ffn(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     h = constrain(gate * (x @ params["w_up"]), "dp", None, "tp_ff",
                   full=(None, None, cfg.d_ff))
     out = h @ params["w_down"]
-    return out if tp is None else reduce_from(out, tp)
+    return out if tp is None else reduce_out(out, tp)
 
 
 # -------------------------------------------------------------------- rotary

@@ -13,6 +13,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.models.sharding import seq_split
 
 init_model = tfm.init_model
 frontend_input = tfm.frontend_input
@@ -39,13 +40,20 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
     ``"model"`` (the vocabulary, where it splits), the cache as ``DTensor``
     entries placed by ``launch.shardings.cache_shardings``: the reference's
     jitted ``prefill_step`` (``repro/launch/dryrun.py:122-130``), whose
-    logits are the last position's of these.  The sequence-sharded layouts
-    raise ``NotImplementedError`` (ROADMAP.md item 13d)."""
+    logits are the last position's of these.  Where ``cache_seq`` splits
+    the cache along its sequence, each rank keeps its rows of the cache
+    grown to ``cache_len`` (the prompt's length when None), which must
+    divide evenly over the split (else ``ValueError``, as the reference's
+    ``pjit`` refuses it)."""
     sh = tfm.serving_sharded(params, cfg)
     if sh is not None:
         batch = {k: tfm.local_input(v, sh) for k, v in batch.items()}
     logits, _, cache = tfm.forward(params, cfg, batch, mode="prefill")
-    if cache_len is not None:
+    split = seq_split("cache_seq") if sh is not None else None
+    if split is not None and tfm.cache_seq_len(cfg, cache):
+        cache = tfm.pad_cache_to(
+            cache, cfg, cache_len or tfm.cache_seq_len(cfg, cache), split)
+    elif cache_len is not None:
         cache = tfm.pad_cache_to(cache, cfg, cache_len)
     if sh is None:
         return logits, cache

@@ -25,7 +25,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.collectives import copy_to, reduce_from, sum_over
+from repro_torch.launch.collectives import copy_to, reduce_out, sum_over
 from repro_torch.models.layers import DTYPES, dense_init
 from repro_torch.models.sharding import constrain
 from repro_torch.models.ssm import silu
@@ -137,6 +137,7 @@ def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, tp=None,
     ye = torch.einsum("egcf,efd->egcd", h, p["w_down"])
     ye = constrain(ye, "ep", "dp", None, None, full=(e, None, None, None))
     out = torch.einsum("egcd,gtec->gtd", ye, combine.to(ye.dtype))
+    out = out.reshape(b, s, d)
     if tp is not None:
-        out = reduce_from(out, tp)
-    return {"out": out.reshape(b, s, d).to(x.dtype), "aux_loss": aux}
+        out = reduce_out(out, tp)
+    return {"out": out.to(x.dtype), "aux_loss": aux}

@@ -19,17 +19,23 @@ the activation (the sharded model runs on local shards, ROADMAP.md item
 rule gives, each dim whose global size the caller names (``full``)
 divided by the mesh dims the rule maps it to (where they divide it, as
 ``launch.shardings._guard`` keeps a parameter's), so that a wrong layout
-fails where the reference places the activation.
+fails where the reference places the activation.  A sequence dim
+(``kv_seq``, ``cache_seq``, ``sp``; :data:`SEQ_AXES`) splits as
+``torch.chunk`` splits it, unevenly where it must (812 keys over 3 ranks
+are 271, 271, 270), over one or two mesh dims major to minor:
+:func:`seq_split` gives this rank's chunk and the groups that hold the
+others.
 """
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 Axis = Union[None, str, Tuple[str, ...]]
+SEQ_AXES = ("kv_seq", "cache_seq", "sp")
 
 _state = threading.local()
 
@@ -63,14 +69,70 @@ def logical_spec(*names: Optional[str]):
     return PartitionSpec(*[rules.get(n) if n else None for n in names])
 
 
-def local_size(size: int, axis: Axis, sizes: Dict[str, int]) -> int:
+def _axis_names(axis: Axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis or ())
+
+
+def chunk_bounds(size: int, n: int, index: int) -> Tuple[int, int]:
+    """[start, stop) of chunk ``index`` when ``torch.chunk`` cuts ``size``
+    rows into ``n``: ceil(size / n) rows a chunk, the last ones shorter or
+    empty."""
+    step = -(-size // n)
+    start = min(index * step, size)
+    return start, min(start + step, size)
+
+
+def local_size(size: int, axis: Axis, sizes: Dict[str, int],
+               index: Optional[int] = None) -> int:
     """A dim of global ``size`` under the mesh dims ``axis``: divided by
-    their product where it divides evenly, else whole."""
-    names = (axis,) if isinstance(axis, str) else tuple(axis or ())
+    their product where it divides evenly, else whole; with ``index`` (a
+    sequence dim), chunk ``index`` of ``torch.chunk``'s cut."""
     n = 1
-    for a in names:
+    for a in _axis_names(axis):
         n *= sizes.get(a, 1)
+    if index is not None:
+        lo, hi = chunk_bounds(size, n, index)
+        return hi - lo
     return size // n if size % n == 0 and size >= n else size
+
+
+class SeqSplit(NamedTuple):
+    """A sequence dim split over the mesh dims of a logical axis: ``n``
+    chunks (``torch.chunk``'s), this rank's ``index`` among them (the mesh
+    dims major to minor) and the process groups of those dims of more than
+    one rank (a merge over the chunks runs over each)."""
+    n: int
+    index: int
+    groups: Tuple
+
+    def bounds(self, size: int) -> Tuple[int, int]:
+        """This rank's rows [start, stop) of a dim of ``size``."""
+        return chunk_bounds(size, self.n, self.index)
+
+
+def _chunk_index(mesh, names: Tuple[str, ...]) -> Tuple[int, int]:
+    n, idx = 1, 0
+    for a in names:
+        k = mesh.mesh_dim_names.index(a)
+        idx = idx * mesh.size(k) + mesh.get_local_rank(a)
+        n *= mesh.size(k)
+    return n, idx
+
+
+def seq_split(name: str) -> Optional[SeqSplit]:
+    """The :class:`SeqSplit` of the sequence axis ``name`` under the active
+    rules, or None outside a mesh or where it is not split."""
+    mesh, rules = get_rules()
+    if mesh is None or rules is None:
+        return None
+    names = tuple(a for a in _axis_names(rules.get(name))
+                  if a in mesh.mesh_dim_names)
+    n, idx = _chunk_index(mesh, names)
+    if n == 1:
+        return None
+    groups = tuple(mesh.get_group(a) for a in names
+                   if mesh.size(mesh.mesh_dim_names.index(a)) > 1)
+    return SeqSplit(n, idx, groups)
 
 
 def constrain(x: torch.Tensor, *names: Optional[str],
@@ -90,8 +152,16 @@ def constrain(x: torch.Tensor, *names: Optional[str],
         if full is not None:
             from repro_torch.launch.mesh import mesh_shape
             sizes = mesh_shape(mesh)
+
+            def index(n):
+                if n not in SEQ_AXES:
+                    return None
+                axes = tuple(a for a in _axis_names(rules.get(n))
+                             if a in mesh.mesh_dim_names)
+                return _chunk_index(mesh, axes)[1]
             want = tuple(None if f is None else
-                         local_size(f, rules.get(n) if n else None, sizes)
+                         local_size(f, rules.get(n) if n else None, sizes,
+                                    index(n))
                          for n, f in zip(names, full))
             got = tuple(x.shape)
             assert all(w is None or w == g for w, g in zip(want, got)), (
@@ -117,11 +187,7 @@ def local_rows(batch: Dict, mesh, axes: Tuple[str, ...]) -> Dict:
     """This rank's rows of every batch leaf: the batch split evenly over
     the mesh dims ``axes``, major to minor (all rows when ``axes`` is
     empty).  Raises when the rows do not split evenly."""
-    n, idx = 1, 0
-    for a in axes:
-        k = mesh.mesh_dim_names.index(a)
-        idx = idx * mesh.size(k) + mesh.get_local_rank(a)
-        n *= mesh.size(k)
+    n, idx = _chunk_index(mesh, axes)
     if n == 1:
         return batch
     out = {}

@@ -41,7 +41,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.kernels.mlstm_chunk.ops import M_INIT, log_sigmoid, mlstm
-from repro_torch.launch.collectives import copy_to, gather_dim, reduce_from
+from repro_torch.launch.collectives import (copy_to, gather_dim, reduce_from,
+                                            reduce_out)
 from repro_torch.models.layers import DTYPES, dense_init
 from repro_torch.models.sharding import constrain
 
@@ -126,7 +127,7 @@ def _mamba_out(p: Dict, x: torch.Tensor, x1: torch.Tensor, y: torch.Tensor,
         y = constrain(y, "dp", None, "tp_ff",
                       full=(None, None, mamba_dims(cfg)[0]))
     out = y @ p["out_proj"]
-    return out if tp is None else reduce_from(out, tp)
+    return out if tp is None else reduce_out(out, tp)
 
 
 def _mamba_in(p: Dict, cfg: ModelConfig, x: torch.Tensor, tp=None):
@@ -241,7 +242,7 @@ def _gate_out(p: Dict, u: torch.Tensor, h_out: torch.Tensor,
         u = copy_to(u, tp)
     gate = silu(u @ w_gate)
     out = (h_out.reshape(*u.shape[:2], -1) * gate) @ w_out
-    return out if tp is None else reduce_from(out, tp)
+    return out if tp is None else reduce_out(out, tp)
 
 
 def _value_state(state: Dict, cfg: ModelConfig, tp, heads: bool) -> Dict:

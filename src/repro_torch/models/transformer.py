@@ -38,10 +38,18 @@ block, so that a checkpointed block gathers again in its backward and no
 block keeps another's.  Along ``"model"`` a block runs on this rank's
 shards wherever the rules shard its dim there (heads, FFN hidden units,
 experts, Mamba channels, mLSTM heads; the vocabulary of the embedding and
-the logits, which come out as this rank's columns); a block whose dim
-does not split (the sLSTM; attention whose heads do not divide, the
-sequence-sharded layouts of ROADMAP.md item 13d) gathers its ``"model"``
-shards too and runs whole on every rank.
+the logits, which come out as this rank's columns); attention whose heads
+do not divide (``kv_seq``) runs every head on this rank's slice of the
+keys, merged across the ranks by log-sum-exp (``models.attention``); a
+block whose dim does not split otherwise (the sLSTM) gathers its
+``"model"`` shards too and runs whole on every rank.  The sequence-sharded
+layouts are the reference's: a prefill's cache keeps this rank's rows of
+its sequence where ``cache_seq`` splits it (:func:`pad_cache_to`), decode
+merges the ranks' partials over them, and under Megatron-SP (``sp``, train
+mode) the residual between blocks is this rank's rows of the sequence:
+each block gathers it before its mixers and its row-parallel products
+reduce-scatter it (``launch.collectives``); the final norm and the logits
+run on the gathered sequence.
 """
 from __future__ import annotations
 
@@ -54,14 +62,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.collectives import TP, tp_of
+from repro_torch.launch.collectives import (TP, gather_seq, split_seq,
+                                            tp_of)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (DTYPES, embed_init, embed_lookup, ffn,
                                        init_ffn, norm_init, rms_norm,
                                        sinusoidal_positions, unembed_logits)
-from repro_torch.models.sharding import batch_axes, constrain, get_rules
+from repro_torch.models.sharding import (batch_axes, constrain, get_rules,
+                                         seq_split, use_rules)
 
 
 class FrontendInput(NamedTuple):
@@ -174,6 +184,16 @@ class Sharded(NamedTuple):
     dp_groups: Tuple
 
 
+def seq_parallel(sh: Optional[Sharded], mode: str) -> Optional[TP]:
+    """The ``"model"`` dim's :class:`TP` marked ``seq`` where the residual
+    is split along the sequence (Megatron-SP: the rules' ``sp``, train
+    mode), else None."""
+    if sh is None or sh.tp is None or mode != "train" or \
+            sh.rules.get("sp") != "model":
+        return None
+    return sh.tp._replace(seq=True)
+
+
 def sharded(params: Dict) -> Optional[Sharded]:
     """The :class:`Sharded` of ``params``, or None for plain tensors."""
     from torch.distributed.tensor import DTensor
@@ -212,13 +232,16 @@ def _block_plan(sh: Sharded, key: str, block: Dict, cfg: ModelConfig,
                 kind: str, mode: str):
     """(the leaves of ``block`` kept on this rank's ``"model"`` shard, the
     block's ``tp``): the block runs on local shards where the rules shard
-    its dim over ``"model"``, else whole."""
+    its dim over ``"model"``; attention under ``kv_seq`` on every head, its
+    parameters whole, with the keys split; else whole."""
     tp, rules = sh.tp, sh.rules
     if tp is None:
         return (), None
     if key in ("attn", "cross") and rules["tp_heads"] == "model":
         kv = ("wk", "wv") if rules["tp_kv"] == "model" else ()
         return ("wq", "wo") + kv, tp
+    if key in ("attn", "cross") and rules["kv_seq"] == "model":
+        return (), tp
     if key == "ffn" and model_dim(block["w_gate"]) == 1:
         return ("w_gate", "w_up", "w_down"), tp
     if key == "moe" and model_dim(block["w_gate"]) == 0:
@@ -267,11 +290,39 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
     FFN block unless ``fkind`` is "none" (the dense FFN, the MoE FFN, or
     their sum for "moe+dense"), each pre-normed and added to the residual.
     Returns (x, cache entry, the MoE's aux loss or None).  With ``sh``,
-    ``lp`` holds ``DTensor`` objects, gathered here (module docstring)."""
+    ``lp`` holds ``DTensor`` objects, gathered here (module docstring);
+    under Megatron-SP ``x`` is this rank's rows of the sequence, and so is
+    the result.  The block runs under ``sh``'s rules: they are
+    thread-local, and a checkpointed block's recompute runs on autograd's
+    thread for the device."""
+    if sh is None:
+        return _layer_body(lp, cfg, kind, fkind, x, mode, positions, cache,
+                           pos, enc_out)
+    with use_rules(sh.mesh, sh.rules):
+        return _layer_body(lp, cfg, kind, fkind, x, mode, positions, cache,
+                           pos, enc_out, sh)
+
+
+def _layer_body(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
+                x: torch.Tensor, mode: str,
+                positions: Optional[torch.Tensor], cache: Optional[Dict],
+                pos: Optional[int], enc_out: Optional[torch.Tensor] = None,
+                sh: Optional[Sharded] = None
+                ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
     tps: Dict = {}
     if sh is not None:
         lp, tps = _gather_layer(lp, cfg, kind, mode, sh)
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    seq = seq_parallel(sh, mode)
+    if seq is not None:
+        tps = {k: None if t is None else seq for k, t in tps.items()}
+
+    def whole(x):                  # the block's input: the whole sequence
+        return x if seq is None else gather_seq(x, seq)
+
+    def own(y, key):               # a mixer's output: this rank's rows
+        return y if seq is None or tps.get(key) is not None else \
+            split_seq(y, seq)
+    h = rms_norm(whole(x), lp["ln1"], cfg.norm_eps)
     entry: Dict = {}
     if kind in _RECURRENT:
         mixer = _RECURRENT[kind]
@@ -282,7 +333,7 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
         elif mode == "prefill":
             y, entry = mixer.forward(mp, cfg, h, return_state=True, **kw)
         else:
-            y = mixer.forward(mp, cfg, h, **kw)
+            y = own(mixer.forward(mp, cfg, h, **kw), mixer.key)
     elif mode == "decode":
         y, entry = attn_lib.decode_attention(lp["attn"], cfg, h, cache, pos,
                                              kind, tp=tps.get("attn"))
@@ -291,11 +342,12 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
             lp["attn"], cfg, h, positions, kind, return_kv=True,
             tp=tps.get("attn"))
     else:
-        y = attn_lib.multi_head_attention(lp["attn"], cfg, h, positions, kind,
-                                          tp=tps.get("attn"))
+        y = own(attn_lib.multi_head_attention(lp["attn"], cfg, h, positions,
+                                              kind, tp=tps.get("attn")),
+                "attn")
     x = x + y
     if "cross" in lp:                                      # whisper decoder
-        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        h = rms_norm(whole(x), lp["ln_cross"], cfg.norm_eps)
         if mode == "decode":
             y, _ = attn_lib.decode_attention(lp["cross"], cfg, h, {}, pos,
                                              "attn",
@@ -306,26 +358,29 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
             y, (ck, cv) = attn_lib.multi_head_attention(
                 lp["cross"], cfg, h, positions, "attn", causal=False,
                 kv_x=enc_out, return_kv=True, tp=tps.get("cross"))
+            y = own(y, "cross")
             if mode == "prefill":
                 entry["ck"], entry["cv"] = ck, cv
         x = x + y
     if fkind == "none":
         return x, entry, None
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h = rms_norm(whole(x), lp["ln2"], cfg.norm_eps)
     y, aux = None, None
     if "ffn" in lp:
-        y = ffn(lp["ffn"], cfg, h, tp=tps.get("ffn"))
+        y = own(ffn(lp["ffn"], cfg, h, tp=tps.get("ffn")), "ffn")
     if "moe" in lp:
         dp = sh.dp_groups if sh is not None and mode == "train" else ()
         r = moe_lib.moe_ffn(lp["moe"], cfg, h, tp=tps.get("moe"),
                             dp_groups=dp)
-        y = r["out"] if y is None else y + r["out"]
+        out = own(r["out"], "moe")
+        y = out if y is None else y + out
         aux = r["aux_loss"]
     x = x + y
     if cfg.seq_parallel_residual and mode == "train":
-        # the reference keeps the residual split along the sequence over
-        # "model" (Megatron-SP); here it stays whole (ROADMAP.md item 13d)
-        x = constrain(x, "dp", "sp", None, full=(None, None, cfg.d_model))
+        # Megatron-SP: the residual lives split along the sequence over
+        # "model" between blocks, this rank's rows of it
+        x = constrain(x, "dp", "sp", None,
+                      full=(None, positions.shape[1], cfg.d_model))
     return x, entry, aux
 
 
@@ -415,6 +470,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
                   full=(None, None, cfg.d_model))
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    seq = seq_parallel(sh, mode)
+    if seq is not None:                  # Megatron-SP: this rank's rows
+        x = split_seq(x, seq)
     entries: List[Dict] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = _layer_apply
@@ -428,20 +486,43 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
         if a is not None:
             aux = aux + a
     cache = {"layers": entries} if mode == "prefill" else None
+    if seq is not None:
+        x = gather_seq(x, seq)
     return _logits(params, cfg, x, sh), aux, cache
 
 
-def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int) -> Dict:
+def check_cache_split(rows: int, split) -> None:
+    """Raise ``ValueError`` unless a cache of ``rows`` splits evenly over
+    the ranks of ``split`` (its ``cache_seq`` dims), as the reference's
+    ``pjit`` refuses such a cache."""
+    if rows % split.n:
+        raise ValueError(
+            f"a cache of {rows} rows does not split evenly over the "
+            f"{split.n} ranks of its sequence (cache_seq); the reference's "
+            f"pjit refuses it")
+
+
+def pad_cache_to(cache: Dict, cfg: ModelConfig, cache_len: int,
+                 split=None) -> Dict:
     """Grow prefill KV entries (B, P, Kh, Dh) to (B, cache_len, Kh, Dh) with
     zeros (new tensors, so decoding in place never writes the prefill's).
     Recurrent states (and a Mamba layer's conv window) have no sequence
     axis and pass unchanged, and so do whisper's encoder k/v (``ck``,
-    ``cv``)."""
+    ``cv``).  With ``split`` (a ``models.sharding.SeqSplit``: the cache's
+    sequence split over ranks), ``cache_len`` is the global length, which
+    must divide evenly over the split (else ``ValueError``, as the
+    reference's ``pjit`` refuses such a cache), and each entry keeps this
+    rank's rows of the grown cache."""
+    if split is not None:
+        check_cache_split(cache_len, split)
+    lo, hi = (0, cache_len) if split is None else split.bounds(cache_len)
+
     def grow(t: torch.Tensor) -> torch.Tensor:
-        if cache_len <= t.shape[1]:
+        if split is None and cache_len <= t.shape[1]:
             return t
-        out = t.new_zeros((t.shape[0], cache_len) + tuple(t.shape[2:]))
-        out[:, :t.shape[1]] = t
+        out = t.new_zeros((t.shape[0], hi - lo) + tuple(t.shape[2:]))
+        n = max(0, min(hi, t.shape[1]) - lo)
+        out[:, :n] = t[:, lo:lo + n]
         return out
 
     return {"layers": [{key: grow(t) if key in ("k", "v") else t
@@ -466,11 +547,15 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     entries are updated in place (a recurrent state replaced, keeping its
     placements) and the logits come back as a ``DTensor`` placed over the
     batch's dims and, where ``"model"`` shards the vocabulary, over it (the
-    reference's jitted ``serve_step``, ``repro/launch/dryrun.py:139-147``).
-    The sequence-sharded layouts raise ``NotImplementedError``
-    (ROADMAP.md item 13d)."""
+    reference's jitted ``serve_step``, ``repro/launch/dryrun.py:139-147``),
+    a cache split along its sequence (``cache_seq``) included: the rank
+    that holds row ``pos`` writes it, and the ranks' partial attentions
+    are merged (``models.attention.decode_attention``)."""
     sh = serving_sharded(params, cfg)
     layers = cache["layers"]
+    split = seq_split("cache_seq") if sh is not None else None
+    if split is not None:
+        check_cache_split(cache_seq_len(cfg, cache), split)
     if sh is not None:
         placed = layers
         layers = [{k: t.to_local() for k, t in e.items()} for e in layers]
@@ -496,28 +581,12 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
 # ------------------------------------------------------ sharded prefill/decode
 def serving_sharded(params: Dict, cfg: ModelConfig) -> Optional[Sharded]:
     """:func:`sharded` for prefill and decode, which place the cache as
-    ``cache_shardings`` does: its sequence-sharded layouts (a cache or
-    keys split along the sequence over ``"model"`` or the batch's dims)
-    raise ``NotImplementedError`` naming ROADMAP.md item 13d."""
+    ``cache_shardings`` does (so they need the logical rules)."""
     sh = sharded(params)
-    if sh is None:
-        return None
-    if sh.rules is None:
+    if sh is not None and sh.rules is None:
         raise ValueError("sharded prefill and decode place their cache by "
                          "the logical rules: run them under "
                          "models.sharding.use_rules")
-    attn = any(cfg.layer_kind(i).startswith("attn")
-               for i in range(cfg.n_layers))
-    rules = sh.rules
-    if attn and (rules["cache_seq"] is not None or
-                 rules["kv_seq"] is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: sharded prefill and decode with the cache's "
-            f"sequence split (cache_seq={rules['cache_seq']!r}, "
-            f"kv_seq={rules['kv_seq']!r}: the kv heads or the heads do not "
-            f"divide over 'model', or the batch is one row) need a "
-            f"log-sum-exp merge across ranks in both attention kernels: "
-            f"ROADMAP.md item 13d")
     return sh
 
 

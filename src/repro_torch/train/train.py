@@ -18,7 +18,11 @@ sharded forward (``models.transformer``: each block gathers its
 parameters over ``"data"`` as it runs and computes on this rank's
 ``"model"`` shards; the logits are this rank's columns of the
 vocabulary, so the cross-entropy takes its log-sum-exp from a max and a
-sum over the ranks and the target's logit from the rank that holds it).
+sum over the ranks and the target's logit from the rank that holds it;
+where the heads do not divide, each rank attends over its slice of the
+keys and the gradients flow through the log-sum-exp merge; under
+Megatron-SP the residual is split along the sequence between blocks and
+the loss is taken on the gathered sequence).
 It normalises its partial loss by the global count of valid tokens, so
 that the gradients summed over the batch-sharding mesh dims are the
 gradients of the global batch's loss; ranks that repeat the same rows

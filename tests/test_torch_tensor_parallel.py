@@ -1,24 +1,28 @@
 """The sharded train step on local shards (tensor-, expert- and
 vocabulary-parallel over ``"model"``, parameters gathered one layer at a
-time) and its MoE aux loss over the global batch, in spawned gloo worlds
-on the CPU, against the JAX reference on fake XLA devices.
+time), its MoE aux loss over the global batch and the sequence-sharded
+layouts, in spawned gloo worlds on the CPU, against the JAX reference on
+fake XLA devices.
 
 The reference runs once, in a subprocess with 4 fake host devices (as
 ``tests/test_torch_distributed.py`` runs it): its sharded train step
 (``jax.jit(make_train_step)`` with ``in_shardings`` from
-``state_shardings``) for olmoe's smoke config on meshes (2, 2) and (4, 1),
-two steps each from the state before it, and the gradient of its loss
-(``jax.grad`` of ``loss_fn``, jitted on the same shardings) at the first
-state.  The port runs one world of 4 ranks (``launch.world.run_world``)
-that holds, on each mesh, each step from the reference's state (loss,
-ce, aux and grad norm at 1e-5 relative; moments and parameters as
-``tests/test_torch_distributed.py`` holds them), the gradients of every
-leaf, the routers' among them, at the module's atol 1e-4 / rtol 1e-3, the
-head and channel counts the kernels' wrappers see, the parameter bytes a
-rank holds gathered at once, and the sequence-sharded layouts (ROADMAP.md
-item 13d): qwen3's smoke config on (1, 4) and a two-head variant whose
-heads do not split train as the one-device step does, and their prefill
-raises, naming item 13d.
+``state_shardings``), two steps each from the state before it, and the
+gradient of its loss (``jax.grad`` of ``loss_fn``, jitted on the same
+shardings) at the first state, for each cell of ``CELLS``: olmoe's smoke
+config on meshes (2, 2) and (4, 1), and on (1, 4) the sequence-sharded
+layouts: qwen3's smoke config (its 2 kv heads do not split over 4 ranks:
+``cache_seq``), a two-head variant (the heads do not split: ``kv_seq``,
+the keys split along the sequence and merged by log-sum-exp) and both
+with ``seq_parallel_residual`` (Megatron-SP: the residual split along the
+sequence between blocks).  The port runs one world of 4 ranks
+(``launch.world.run_world``) that holds, in each cell, each step from the
+reference's state (loss, ce, aux and grad norm at 1e-5 relative; moments
+and parameters as ``tests/test_torch_distributed.py`` holds them), the
+gradients of every leaf at the module's atol 1e-4 / rtol 1e-3, the head
+and channel counts the kernels' wrappers see, the parameter bytes a rank
+holds gathered at once, and, for the sequence-sharded cells, the sharded
+prefill, which runs and gives the one-device prefill's logits.
 """
 import dataclasses
 import os
@@ -40,6 +44,12 @@ from test_torch_distributed import (ATOL, LOSS_RTOL, RTOL, SHARDED_SHAPE,
 ROOT = Path(__file__).resolve().parent.parent
 MOE_ARCH = "olmoe-1b-7b"
 MESHES = ((2, 2), (4, 1))
+# (name, arch, config overrides, mesh): the reference's sharded train steps
+SEQ_CELLS = {"qwen3": {}, "two_heads": {"n_heads": 2},
+             "sp": {"seq_parallel_residual": True},
+             "sp_two_heads": {"n_heads": 2, "seq_parallel_residual": True}}
+CELLS = [("moe", MOE_ARCH, {}, m) for m in MESHES] + \
+    [(name, "qwen3-0.6b", kw, (1, 4)) for name, kw in SEQ_CELLS.items()]
 
 REFERENCE = """
 import dataclasses, pickle, sys
@@ -53,11 +63,11 @@ from repro.train.optimizer import AdamWConfig
 from repro.train.train import init_train_state, loss_fn, make_train_step
 np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
 assert len(jax.devices()) == 4
-cfg = smoke_config(get_config(%(arch)r))
 opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=8)
 shape = dataclasses.replace(TRAIN_4K, **%(shape)r)
 out = {}
-for dp, tp in %(meshes)r:
+for name, arch, kw, (dp, tp) in %(cells)r:
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), **kw)
     mesh = make_mesh(dp, tp)
     with mesh, use_rules(mesh, logical_rules(cfg, mesh, shape)):
         host = np_tree(init_train_state(jax.random.PRNGKey(0), cfg, opt))
@@ -79,9 +89,11 @@ for dp, tp in %(meshes)r:
                                  ("loss", "ce", "aux", "grad_norm")},
                               after=after))
             host = after
-    out[(dp, tp)] = steps
+    out[(name, (dp, tp))] = dict(steps=steps, rules={
+        k: logical_rules(cfg, mesh, shape)[k] for k in (
+            "tp_heads", "tp_kv", "kv_seq", "cache_seq", "sp")})
 pickle.dump(out, open(sys.argv[1], "wb"))
-""" % dict(arch=MOE_ARCH, shape=SHARDED_SHAPE, meshes=MESHES)
+""" % dict(shape=SHARDED_SHAPE, cells=CELLS)
 
 
 @pytest.fixture(scope="module")
@@ -163,7 +175,7 @@ def _sharded_state(rec, cfg, mesh):
     return sh.shard_tree(st, mesh, sh.state_shardings(cfg, mesh, st))
 
 
-def _world_train(rank, world, ref_moe):
+def _world_train(rank, world, ref):
     from repro_torch import tree
     from repro_torch.configs import TRAIN_4K
     from repro_torch.convert import lm_params_from_numpy, \
@@ -177,15 +189,15 @@ def _world_train(rank, world, ref_moe):
                                          batch_to_device, init_train_state,
                                          make_train_step)
     opt = _opt()
-    step = make_train_step(_smoke(MOE_ARCH), opt)
     shape = dataclasses.replace(TRAIN_4K, **SHARDED_SHAPE)
-    out = {"moe": {}}
-    cfg = _smoke(MOE_ARCH)
-    for dp, tp in MESHES:
+    out = {"cells": {}, "prefill": {}}
+    for name, arch, kw, (dp, tp) in CELLS:
+        cfg = _smoke(arch, **kw)
+        step = make_train_step(cfg, opt)
         mesh = make_mesh(dp, tp, device_type="cpu")
         rules = sh.logical_rules(cfg, mesh, shape)
         got = []
-        for i, rec in enumerate(ref_moe[(dp, tp)]):
+        for i, rec in enumerate(ref[(name, (dp, tp))]["steps"]):
             st = _sharded_state(rec["before"], cfg, mesh)
             mu0 = [t.clone() for t in tree.leaves(
                 train_state_from_numpy(rec["before"], cfg,
@@ -202,14 +214,30 @@ def _world_train(rank, world, ref_moe):
                     want = lm_params_from_numpy(rec["grads"], cfg, "cpu")
                     _close_tree(tree.map_with_paths(lambda q, _: full[q],
                                                     st["params"]), want,
-                                f"grads on {(dp, tp)}")
+                                f"{name} grads on {(dp, tp)}")
                 st, m = step(st, batch)
             want = train_state_from_numpy(rec["after"], cfg, device="cpu")
             _state_close(sh.gather_tree(st), want, mu0, i,
-                         f"{MOE_ARCH} on {(dp, tp)} step {i}")
+                         f"{name} on {(dp, tp)} step {i}")
             got.append({k: float(m[k]) for k in ("loss", "ce", "aux",
                                                  "grad_norm")})
-        out["moe"][(dp, tp)] = got
+        out["cells"][(name, (dp, tp))] = dict(steps=got, rules={
+            k: rules[k] for k in ("tp_heads", "tp_kv", "kv_seq",
+                                  "cache_seq", "sp")})
+        if name in SEQ_CELLS:
+            # the sharded prefill on these layouts, against one device's
+            pshape = dataclasses.replace(shape, kind="prefill")
+            params = init_model(cfg, seed=0, device="cpu")
+            sp = sh.shard_tree(params, mesh, sh.tree_shardings(mesh, params))
+            toks = {"tokens": batch["tokens"][:, :12]}
+            with torch.no_grad():
+                want, _ = prefill(params, cfg, toks, cache_len=16)
+                with use_rules(mesh, sh.logical_rules(cfg, mesh, pshape)):
+                    logits, cache = prefill(sp, cfg, toks, cache_len=16)
+            out["prefill"][name] = dict(
+                err=float((sh.full_tensor(logits) - want).abs().max()),
+                cache=[tuple(t.to_local().shape) for t in
+                       cache["layers"][0].values()])
 
     # the wrappers' shapes and the gathered bytes: olmoe and qwen3 on
     # (2, 2) under remat, one step against the one-device step
@@ -242,48 +270,14 @@ def _world_train(rank, world, ref_moe):
             loss=(float(m["loss"]), float(mp["loss"])),
             norm=(float(m["grad_norm"]), float(mp["grad_norm"])))
 
-    # the sequence-sharded layouts (ROADMAP.md item 13d) on (1, 4)
-    mesh = make_mesh(1, 4, device_type="cpu")
-    out["13d"] = {}
-    for name, cfg in (("qwen3", _smoke("qwen3-0.6b")),
-                      ("two_heads", _smoke("qwen3-0.6b", n_heads=2))):
-        rules = sh.logical_rules(cfg, mesh, shape)
-        batches = [batch_to_device(global_batch(DataConfig(seed=3), cfg,
-                                                shape, i), "cpu")
-                   for i in range(2)]
-        plain = init_train_state(0, cfg, opt, device="cpu")
-        st = sh.shard_tree(init_train_state(0, cfg, opt, device="cpu"),
-                           mesh, sh.state_shardings(cfg, mesh, plain))
-        step = make_train_step(cfg, opt)
-        losses = []
-        for b in batches:
-            with use_rules(mesh, rules):
-                st, m = step(st, b)
-            plain, mp = step(plain, b)
-            losses.append((float(m["loss"]), float(mp["loss"])))
-        _close_tree(sh.gather_tree(st)["opt"]["mu"], plain["opt"]["mu"],
-                    f"{name} on (1, 4) mu")
-        pshape = dataclasses.replace(shape, kind="prefill")
-        params = sh.shard_tree(init_model(cfg, seed=0, device="cpu"), mesh,
-                               sh.tree_shardings(mesh, plain["params"]))
-        try:
-            with use_rules(mesh, sh.logical_rules(cfg, mesh, pshape)), \
-                    torch.no_grad():
-                prefill(params, cfg, {"tokens": batches[0]["tokens"]})
-            raised = None
-        except NotImplementedError as err:
-            raised = str(err)
-        out["13d"][name] = dict(losses=losses, raised=raised,
-                                rules={k: rules[k] for k in (
-                                    "tp_heads", "tp_kv", "kv_seq",
-                                    "cache_seq")})
     return out
 
 
 @pytest.fixture(scope="module")
 def world(ref, tmp_path_factory):
     """The port's world of 4 ranks (the checks that need the reference's
-    values run inside it; the results come back by rank)."""
+    values run inside it, raising there; the results come back by
+    rank)."""
     return run_world(_world_train, 4,
                      str(tmp_path_factory.mktemp("store")),
                      timeout=WORLD_TIMEOUT, args=(ref,))
@@ -297,14 +291,19 @@ def test_moe_aux_of_the_global_batch(ref, world, mesh):
     mean of the ranks' own) and grad norm at 1e-5 relative; moments and
     parameters, and at the first state every gradient, the routers' too,
     held inside the world (they raise there)."""
+    want = ref[("moe", mesh)]["steps"]
     for rank, r in enumerate(world):
-        for got, want in zip(r["moe"][mesh], ref[mesh]):
-            for k in ("loss", "ce", "aux", "grad_norm"):
-                np.testing.assert_allclose(got[k], want[k], rtol=LOSS_RTOL,
-                                           err_msg=f"rank {rank} {k}")
+        _steps_close(r["cells"][("moe", mesh)]["steps"], want, rank)
     # the aux loss is a product of global means: a rank's own rows give
     # another value, so a per-rank mean could not pass the gate above
-    assert ref[mesh][0]["aux"] > 0
+    assert want[0]["aux"] > 0
+
+
+def _steps_close(got, want, rank):
+    for g, w in zip(got, want):
+        for k in ("loss", "ce", "aux", "grad_norm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=LOSS_RTOL,
+                                       err_msg=f"rank {rank} {k}")
 
 
 @pytest.mark.parametrize("arch", [MOE_ARCH, "qwen3-0.6b", "xlstm-350m",
@@ -336,20 +335,49 @@ def test_local_shards_and_layer_gathers(world, arch):
         assert shapes, arch
 
 
-@pytest.mark.parametrize("name", ["qwen3", "two_heads"])
-def test_sequence_sharded_layouts(world, name):
-    """(1, 4): qwen3's smoke config (2 kv heads over 4 ranks: its cache
-    would split along the sequence) and a two-head variant (heads do not
-    split: the keys would) train as the one-device step does (loss 1e-5,
-    first moments as the module holds them, inside the world); the
-    two-head variant's attention runs whole on every rank.  Their sharded
-    prefill raises ``NotImplementedError`` naming ROADMAP.md item 13d."""
-    for r in world:
-        got = r["13d"][name]
-        for a, b in got["losses"]:
-            np.testing.assert_allclose(a, b, rtol=LOSS_RTOL)
-        assert got["raised"] is not None and "13d" in got["raised"], got
-        if name == "two_heads":
-            assert got["rules"]["kv_seq"] == "model", got["rules"]
-        else:
-            assert got["rules"]["cache_seq"] == "model", got["rules"]
+@pytest.mark.parametrize("name", list(SEQ_CELLS))
+def test_sequence_sharded_layouts(ref, world, name):
+    """(1, 4), the sequence-sharded layouts: qwen3's smoke config (2 kv
+    heads over 4 ranks: the cache splits along its sequence), a two-head
+    variant (the heads do not split: the keys do, merged by log-sum-exp)
+    and both with ``seq_parallel_residual`` (the residual split along the
+    sequence between blocks).  Each sharded step from the reference's
+    state against the reference's sharded ``jax.jit`` step (loss, ce,
+    aux, grad norm at 1e-5 relative; every gradient at the first state,
+    the moments and parameters held inside the world), the rules the
+    reference gives, and the sharded prefill: it runs, its logits the
+    one-device prefill's (atol 1e-4), its cache split along its
+    sequence (16 rows, 4 a rank)."""
+    cell = (name, (1, 4))
+    want = ref[cell]
+    for rank, r in enumerate(world):
+        got = r["cells"][cell]
+        _steps_close(got["steps"], want["steps"], rank)
+        assert got["rules"] == want["rules"], (got["rules"], want["rules"])
+        pre = r["prefill"][name]
+        assert pre["err"] <= ATOL, pre
+        assert all(shape[1] == 4 for shape in pre["cache"]), pre
+    rules = want["rules"]
+    assert rules["cache_seq"] == "model", rules
+    assert rules["kv_seq"] == ("model" if "two_heads" in name else None)
+    assert rules["sp"] == ("model" if name.startswith("sp") else None)
+
+
+def test_block_runs_under_its_rules_on_any_thread(monkeypatch):
+    """A sharded block enters the rules its ``Sharded`` carries: on a card
+    the recompute of a checkpointed block runs on autograd's thread for
+    the device, where the caller's rules (thread-local) are not set."""
+    import threading
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import get_rules
+    seen = []
+    monkeypatch.setattr(tfm, "_layer_body",
+                        lambda *a, **k: seen.append(get_rules()))
+    sh = tfm.Sharded(mesh="mesh", rules={"sp": None}, tp=None, partial=(),
+                     dp_groups=())
+    run = threading.Thread(target=tfm._layer_apply, args=(
+        {}, None, "attn", "dense", None, "train", None, None, None, None, sh))
+    run.start()
+    run.join()
+    assert seen == [("mesh", {"sp": None})]
+    assert get_rules() == (None, None)

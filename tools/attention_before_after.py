@@ -5,7 +5,9 @@ Kh 8, D 128, bf16, causal) and ``flash_decode`` at its decode shape (B 8,
 H 16, Kh 8, D 128, cache 2048, pos 875 and 2047, bf16, the caches cold in
 L2 as ``chip_smoke.py`` phase 10 keeps them), beside one
 ``scaled_dot_product_attention`` call, each as the device time per call
-of a CUDA graph of back-to-back calls.  With ``--jamba`` it also takes
+of a CUDA graph of back-to-back calls, and holds the two checkouts'
+outputs of those calls (the same seeded inputs) bit for bit against each
+other (``other_vs_this``).  With ``--jamba`` it also takes
 jamba's bf16 teacher-forced reading (``chip_smoke.py`` phase 15: all 8
 layers of one period, B = 2, capacity 16, decode_step vs forward at
 768..771 on the rows routed alike) and its routing flips.
@@ -48,7 +50,8 @@ def measure(root: str, args) -> dict:
     out["fa_ms"] = cs.graph_ms(lambda: fa.mha(q, k, v), calls=20)
     out["fa_sdpa_ms"] = cs.graph_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), calls=20)
-    out["fa_err"] = float((fa.mha(q, k, v).float()
+    outputs = {"fa": fa.mha(q, k, v)}
+    out["fa_err"] = float((outputs["fa"].float()
                            - fa.mha_plain(q, k, v).float()).abs().max())
     del q, k, v, qt, kt, vt
     caches = [tuple(cs._randn(rng, (b, 2048, kh, d), bf16, dev)
@@ -64,12 +67,14 @@ def measure(root: str, args) -> dict:
         out[f"fd_sdpa_ms_{pos}"] = cs.graph_ms(
             lambda: F.scaled_dot_product_attention(
                 qdt, *rows[next(turn)], enable_gqa=True), calls=48)
+        outputs[f"fd_{pos}"] = fd.decode_attn(qd, *caches[0], pos)
         out[f"fd_err_{pos}"] = float(
-            (fd.decode_attn(qd, *caches[0], pos).float()
+            (outputs[f"fd_{pos}"].float()
              - fd.decode_attn_plain(qd, *caches[0], pos).float())
             .abs().max())
         del rows
     del caches
+    torch.save({k: t.cpu() for k, t in outputs.items()}, args.save)
     torch.cuda.empty_cache()
     if args.jamba and args.run < 2:
         out.update(before_after.jamba(cs, dev, teacher_forced=True,
@@ -77,6 +82,15 @@ def measure(root: str, args) -> dict:
     return out
 
 
+def bit_equal(other: str, this: str) -> dict:
+    """Whether each output of the other checkout's run equals this one's,
+    bit for bit."""
+    import torch
+    a, b = torch.load(other), torch.load(this)
+    return {k: bool(torch.equal(a[k], b[k])) for k in sorted(a)}
+
+
 if __name__ == "__main__":
     sys.exit(before_after.main(__file__, __doc__, measure, flags=[
-        ("--jamba", "also jamba's bf16 teacher-forced reading")]))
+        ("--jamba", "also jamba's bf16 teacher-forced reading")],
+        compare=bit_equal))
