@@ -231,7 +231,7 @@ Phases (any failure exits non-zero; nothing is caught):
    fleet's trace pick for pick, ``sim_step`` launching once per engine
    dispatch (one per profiling component, one per lockstep round that
    steps) and the graph kernels once per Adam step; (d) the harness:
-   ``run_scenario_campaign`` on ``node_failure`` and ``multi_tenant`` and
+   ``run_scenario_campaign`` on ``multi_tenant`` and
    ``run_chaos_campaign("chaos_crashes")`` (2 restores) at the four jobs
    (``profile_runs=1``, 1 adaptive run), ``chaos_trace_identity`` (1 run)
    True, one transfer cell (``baseline`` 1.0 -> ``node_failure``
@@ -371,7 +371,19 @@ Phases (any failure exits non-zero; nothing is caught):
     ``flash_attention_fwd`` on each rank's third of the keys with all 16
     q heads, ``flash_decode`` on each rank's 276 rows, the cache leaves'
     local shapes ``cache_shardings``'; printed with the merges' share;
-25. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
+25. the dry run and its cost model (``run_dry_run``): (a) in a
+    subprocess with a time limit, ``python -m repro_torch.launch.dryrun
+    --arch qwen3-0.6b,olmoe-1b-7b --shape train_4k,decode_32k`` (rank 0
+    of a fake 256-rank world, meta tensors, no card): every record
+    ``ok`` (a collective or kernel op the cost model does not know is an
+    error), each record's three roofline terms and dominant one printed;
+    (b) phase 21's qwen3-0.6b train step at 8 x 1024 traced on meta
+    tensors at world size 1 and one real step of it on the card, both
+    under ``launch.op_cost.OpLog`` (the card's kernels recorded through
+    the same formulas as their meta routes): FLOPs and bytes equal, 56
+    ``flash_attention`` ops in each; printed: phase 21's measured ms a
+    step beside ``t_compute`` and ``t_memory`` of those counts;
+26. a ``{"phase_clock": ...}`` line (each phase's end, in seconds since the
     script started), a ``{"kernels": [...]}`` line, then the device line
     last.
 
@@ -1827,7 +1839,7 @@ def run_sim_engine(device, card, ss, ops):
     fetches[0] = 0
     campaigns = {}
     t0 = time.perf_counter()
-    for name in ("node_failure", "multi_tenant"):
+    for name in ("multi_tenant",):     # node_failure cut for the limit
         t1 = time.perf_counter()
         rows = evaluate.run_scenario_campaign(
             name, JOB_KEYS, device=device, profile_runs=SIM_PROFILE_RUNS,
@@ -5143,6 +5155,165 @@ def check_tp_seq(seq, r, cfg, card, launches):
     return {"ranks": seq, "world_size_1": want, "gaps": gaps}
 
 
+# ------------------------------------------------------------------ phase 25
+DRYRUN_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b")
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def start_dry_run():
+    """Phase 25 (a)'s launcher in a subprocess on one host thread (no
+    card: the dry run runs on meta tensors in a fake world): (its output
+    directory, the process)."""
+    import os
+    import shutil
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(DRYRUN_ARCHS), "--shape", ",".join(DRYRUN_SHAPES),
+         "--out", str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return out, proc
+
+
+def stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def cost_diff(a, b, k: int = 8):
+    """The op-log entries whose counts differ between two logs, the
+    largest first (what a count mismatch shows)."""
+    from repro_torch.launch.op_cost import _specs
+    ea, eb = dict(a.items()), dict(b.items())
+    rows = [(e[0], [tuple(x.shape) for x in _specs(e[1])], ea.get(e, 0),
+             eb.get(e, 0)) for e in set(ea) | set(eb)
+            if ea.get(e, 0) != eb.get(e, 0)]
+    return sorted(rows, key=lambda r: -abs(r[2] - r[3]))[:k]
+
+
+def run_dry_run(device, card, fa, train_ms: float, dry_run):
+    """Phase 25: (a) the dry run of qwen3-0.6b and olmoe-1b-7b at
+    ``train_4k`` and ``decode_32k`` on the (16, 16) mesh, in the
+    subprocess ``dry_run`` (:func:`start_dry_run`, started before phase
+    24), read here; (b) phase 21's train step traced on meta tensors and
+    run once on the card under the same cost mode, whose FLOPs and bytes
+    must be equal."""
+    import dataclasses
+    from repro_torch.configs import TRAIN_4K, get_config
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.cost_analysis import roofline_terms
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train import (batch_to_device, init_train_state,
+                                         make_train_step)
+    t_phase = time.perf_counter()
+    out, proc = dry_run
+    # (b) one step's cost, traced on meta and counted on the card
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    shape = dataclasses.replace(TRAIN_4K, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH)
+    batch = batch_to_device(global_batch(DataConfig(seed=SEED), cfg,
+                                         shape, 0), device)
+    step = make_train_step(cfg, opt)
+    t0 = time.perf_counter()
+    meta_state = init_train_state(SEED, cfg, opt, device="meta")
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                  for k, v in batch.items()}
+    with op_cost.OpLog() as meta_log:
+        step(meta_state, meta_batch)
+    meta_s = time.perf_counter() - t0
+    state = init_train_state(SEED, cfg, opt, device=device)
+    torch.cuda.synchronize()
+    before = fa.LAUNCHES
+    t0 = time.perf_counter()
+    with op_cost.OpLog() as card_log:
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+    loss = float(m["loss"])
+    card_s = time.perf_counter() - t0
+    launched = fa.LAUNCHES - before
+    del state
+    torch.cuda.empty_cache()
+    got_meta, got_card = (op_cost.analyze(meta_log),
+                          op_cost.analyze(card_log))
+    kernel_ops = [sum(n for e, n in log.items()
+                      if e[0] == "kernel.flash_attention")
+                  for log in (meta_log, card_log)]
+    same = (got_meta["flops"] == got_card["flops"] and
+            got_meta["hbm_bytes"] == got_card["hbm_bytes"])
+    if not same:
+        for row in cost_diff(meta_log, card_log):
+            say(f"  op count meta / card differs: {row}")
+    assert np.isfinite(loss), loss
+    assert same, (got_meta["flops"], got_card["flops"],
+                  got_meta["hbm_bytes"], got_card["hbm_bytes"])
+    assert kernel_ops == [2 * cfg.n_layers] * 2 and \
+        launched == 2 * cfg.n_layers, (kernel_ops, launched)
+    terms = roofline_terms(got_meta["flops"], got_meta["hbm_bytes"],
+                           got_meta["collective_bytes"])
+    over = train_ms / 1e3 / max(terms["t_compute"], terms["t_memory"])
+    say(f"phase 25 (b) {TRAIN_ARCH} train step B={TRAIN_BATCH} "
+        f"S={TRAIN_SEQ}, world size 1: traced on meta tensors "
+        f"({meta_s:.1f} s, {meta_log.n_ops} ops) and run on {card} "
+        f"under the same cost mode ({card_s:.1f} s, {card_log.n_ops} "
+        f"ops): {got_meta['flops'] / 1e12:.4f} TFLOP and "
+        f"{got_meta['hbm_bytes'] / 1e9:.3f} GB both, "
+        f"{kernel_ops[0]} flash_attention ops each ({launched} launches "
+        f"on the card); t_compute {terms['t_compute'] * 1e3:.2f} ms, "
+        f"t_memory {terms['t_memory'] * 1e3:.2f} ms against phase 21's "
+        f"measured {train_ms:.1f} ms a step ({over:.2f}x the larger)")
+
+    # (a) the dry run's records
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"the dry run ran past {DRYRUN_TIMEOUT_S} s")
+    assert proc.returncode == 0, text[-3000:]
+    cells = {}
+    for arch in DRYRUN_ARCHS:
+        for shp in DRYRUN_SHAPES:
+            tag = f"{arch}--{shp}--pod1"
+            rec = json.loads((out / f"{tag}.json").read_text())
+            assert rec["status"] == "ok", (tag, rec.get("error"))
+            t = rec["roofline"]
+            say(f"phase 25 (a) dry run {tag} (rank 0 of "
+                f"{rec['n_devices']}, meta, traced in "
+                f"{rec['trace_s']:.1f} s, {rec['ops']} ops): t_compute "
+                f"{t['t_compute'] * 1e3:.3f} ms, t_memory "
+                f"{t['t_memory'] * 1e3:.3f} ms, t_collective "
+                f"{t['t_collective'] * 1e3:.3f} ms, dominant "
+                f"{rec['dominant']}; peak live "
+                f"{rec['memory_analysis']['peak_live_bytes'] / 1e9:.2f} "
+                f"GB a rank")
+            cells[tag] = {"roofline": t, "dominant": rec["dominant"],
+                          "flops_per_device": rec["flops_per_device"],
+                          "bytes_per_device": rec["bytes_per_device"],
+                          "collective_bytes_per_device":
+                          rec["collective_bytes_per_device"],
+                          "peak_live_bytes":
+                          rec["memory_analysis"]["peak_live_bytes"],
+                          "trace_s": rec["trace_s"]}
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 25: {phase_s:.1f} s")
+    return {"cells": cells,
+            "step": {"flops": got_meta["flops"],
+                     "hbm_bytes": got_meta["hbm_bytes"],
+                     "roofline": terms, "measured_ms": train_ms,
+                     "measured_over_roofline": over,
+                     "meta_s": meta_s, "card_s": card_s,
+                     "ops": [meta_log.n_ops, card_log.n_ops],
+                     "flash_attention_ops": kernel_ops[0],
+                     "launched": launched},
+            "seconds": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a card")
@@ -5717,13 +5888,25 @@ def main() -> int:
     d_launch = dist_r["launches"]
     mark("23")
 
-    # 24. tensor-parallel activations: NCCL at world size 1, 2 gloo ranks
-    tp_r = run_tensor_parallel(device, card, fa, fd)
-    say(json.dumps({"card": card, "tensor_parallel": tp_r}))
-    tp_launch = tp_r["launches"]
-    mark("24")
+    # phase 25 (a)'s dry run starts here, on a host core, and runs
+    # through phase 24
+    dry_run = start_dry_run()
+    try:
+        # 24. tensor-parallel activations: NCCL at world size 1, gloo ranks
+        tp_r = run_tensor_parallel(device, card, fa, fd)
+        say(json.dumps({"card": card, "tensor_parallel": tp_r}))
+        tp_launch = tp_r["launches"]
+        mark("24")
 
-    # 25. results
+        # 25. the dry run and its cost model against a step on the card
+        dry = run_dry_run(device, card, fa,
+                          lm_train["train"]["ms_per_step"], dry_run)
+        say(json.dumps({"card": card, "dry_run": dry}))
+        mark("25")
+    finally:
+        stop(dry_run[1])
+
+    # 26. results
     say(json.dumps({"phase_clock": PHASE_CLOCK}))
     say(json.dumps({"kernels": [{
         "name": "graph_prop_fwd", "route": "cuda",

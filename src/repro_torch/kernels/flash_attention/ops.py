@@ -32,6 +32,13 @@ attention over every key.  Without ``return_lse`` a row with no visible
 key keeps the reference's convention (the mean of V), and a call with
 ``k_offset=0`` computes what it did before, bit for bit.
 
+On ``meta`` tensors (the dry run, ``launch.dryrun``) :func:`mha` takes
+the CUDA route up to the launch and stops there: the outputs' shapes and
+dtypes, nothing launched.  Every call on CUDA or meta tensors is reported
+at the launch as one op (``kernels/observe.py``); :func:`cost` gives its
+FLOPs and bytes.  A meta tensor has no address, so the meta route takes
+its data as 16-byte aligned.
+
 Counterpart of ``repro.kernels.flash_attention.ops.mha`` (whose kernel is
 ``flash_attention``), which transposes and pads every call.
 """
@@ -44,7 +51,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, observe
 from repro_torch.kernels.vjp import plain_vjp
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
@@ -99,6 +106,15 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.where(seen[:, 0], (m + l.log())[..., 0],
                       torch.full_like(m[..., 0], -math.inf))
     return out.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def cost(reads, writes, opts) -> tuple:
+    """(FLOPs, bytes) of one call (``kernels/observe.py``): the products of
+    :func:`mha_plain`, Q K^T and P V over every key, 2 B H Sq Sk D each,
+    whatever the masks; q, k, v read once, the outputs written once."""
+    (b, sq, h, d), _ = reads[0]
+    sk = reads[1][0][1]
+    return 4 * b * h * sq * sk * d, observe.moved(reads, writes)
 
 
 def _check(q, k, v, window: int, softcap: float, kv_len: int,
@@ -167,8 +183,15 @@ def _launch(q, k, v, out, causal: bool, window: int, softcap: float,
     """One launch of ``flash_attention_fwd`` on checked CUDA tensors (for
     bfloat16, laid out as :func:`_for_tensor_cores` leaves them).  ``scale``
     defaults to 1/sqrt(D); ``lse``, a contiguous (B, H, Sq) float32 tensor,
-    receives the rows' log-sum-exps."""
+    receives the rows' log-sum-exps.  Reported first; on meta tensors
+    nothing more."""
     global LAUNCHES
+    observe.report("flash_attention", (q, k, v),
+                   (out,) if lse is None else (out, lse), causal=causal,
+                   window=window, softcap=softcap, kv_len=kv_len,
+                   k_offset=k_offset)
+    if q.device.type == "meta":
+        return
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     fn = _kernel_fn()
@@ -200,7 +223,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     module docstring; with ``return_lse`` a slice of no keys (Sk = 0) is
     answered without a launch.
 
-    CPU tensors run :func:`mha_plain`; CUDA tensors launch the kernel.  A
+    CPU tensors run :func:`mha_plain`; CUDA tensors launch the kernel;
+    meta tensors take the CUDA route without the launch.  A
     bfloat16 input whose layout rules out 16-byte copies (D not a multiple
     of 8, an innermost stride other than 1, another stride not a multiple
     of 8 elements, data not 16-byte aligned) is copied to a contiguous
@@ -216,16 +240,18 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 k_offset=k_offset, return_lse=return_lse)
     if q.device.type == "cpu":
         return mha_plain(q, k, v, **opts)
-    if q.device.type != "cuda":
-        raise ValueError(f"mha runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mha runs on cpu or cuda (or meta, "
+                         f"launching nothing), not {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return Mha.apply(opts, q, k, v)
     return _mha_cuda(q, k, v, **opts)
 
 
 class Mha(torch.autograd.Function):
-    """:func:`mha` on checked CUDA tensors with a gradient: the forward
-    launches the kernel (returning (out, lse) with ``return_lse``); the
+    """:func:`mha` on checked CUDA (or meta) tensors with a gradient: the
+    forward launches the kernel (returning (out, lse) with ``return_lse``;
+    on meta tensors the shapes alone); the
     backward is autograd of :func:`mha_plain`, recomputed on the saved
     inputs."""
 
@@ -244,7 +270,8 @@ class Mha(torch.autograd.Function):
 
 def _mha_cuda(q, k, v, *, causal: bool, window: int, softcap: float,
               kv_len: int, k_offset: int, return_lse: bool):
-    """One kernel launch for :func:`mha` on checked CUDA tensors."""
+    """One kernel launch for :func:`mha` on checked CUDA tensors (on meta
+    tensors, its outputs' shapes)."""
     b, sq, h, d = q.shape
     if q.dtype == torch.bfloat16:
         d_pad = -(-d // 8) * 8

@@ -26,6 +26,12 @@ comes out as 0 with log-sum-exp -inf (the plain version alike), so that
 attention over the whole cache.  A call without ``rows`` and
 ``return_lse`` computes what it did before, bit for bit.
 
+On ``meta`` tensors (the dry run, ``launch.dryrun``) :func:`decode_attn`
+takes the CUDA route up to the launch and stops there: the outputs' shapes
+and dtypes, nothing launched.  Every call on CUDA or meta tensors is
+reported at the launch as one op (``kernels/observe.py``); :func:`cost`
+gives its FLOPs and bytes.
+
 Counterpart of ``repro.kernels.flash_decode.ops.decode_attn`` (whose kernel
 is ``flash_decode``); unlike it, the cache is read in place in its own
 layout, never transposed, and ``pos`` is a host int.
@@ -40,7 +46,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, observe
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
 NEG_INF = -1e30         # the mask value of the reference kernel
@@ -151,6 +157,18 @@ def decode_attn_plain(q: torch.Tensor, cache_k: torch.Tensor,
     return out[:, None].to(q.dtype), (m + l.log())[..., 0]
 
 
+def cost(reads, writes, opts) -> tuple:
+    """(FLOPs, bytes) of one call (``kernels/observe.py``): the products of
+    :func:`decode_attn_plain`, q K^T and p V over every row of the cache,
+    2 B H S D each; bytes: q, the rows [r0, r1) of both caches that the
+    kernel reads (``opts["rows"]``), and the outputs."""
+    (b, _, h, d), _ = reads[0]
+    (_, s_len, kh, _), size = reads[1]
+    r0, r1 = opts["rows"]
+    read = observe.nbytes(reads[0]) + 2 * b * (r1 - r0) * kh * d * size
+    return 4 * b * h * s_len * d, read + observe.moved((), writes)
+
+
 def _check(q, cache_k, cache_v, pos: int, window: int, softcap: float,
            rows: Optional[Tuple[int, int]] = None) -> None:
     if q.dim() != 4 or q.shape[1] != 1:
@@ -204,8 +222,14 @@ def _launch(q, cache_k, cache_v, out, kbeg: int, kend: int,
     """One launch of ``flash_decode`` over the rows [kbeg, kend) (not
     empty) on checked CUDA tensors (the cache laid out for 16-byte loads);
     ``scale`` defaults to 1/sqrt(D); ``lse``, a contiguous (B, H) float32
-    tensor, receives the heads' log-sum-exps."""
+    tensor, receives the heads' log-sum-exps.  Reported first; on meta
+    tensors nothing more."""
     global LAUNCHES
+    observe.report("flash_decode", (q, cache_k, cache_v),
+                   (out,) if lse is None else (out, lse), rows=(kbeg, kend),
+                   softcap=softcap)
+    if q.device.type == "meta":
+        return
     b, _, h, d = q.shape
     kh = cache_k.shape[2]
     qs, ks, vs, os_ = (q.stride(), cache_k.stride(), cache_v.stride(),
@@ -245,7 +269,8 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
     kernel has no cap).  ``rows``: the module docstring.
 
     CPU tensors run :func:`decode_attn_plain`; CUDA tensors launch the
-    kernel, which reads only the cache rows the token sees.  A cache whose
+    kernel, which reads only the cache rows the token sees; meta tensors
+    take the CUDA route without the launch.  A cache whose
     layout rules out 16-byte loads (see the module docstring) is copied
     first; the kernel still runs.
     """
@@ -262,8 +287,9 @@ def decode_attn(q: torch.Tensor, cache_k: torch.Tensor,
         return decode_attn_plain(q, cache_k, cache_v, pos, window=window,
                                  softcap=softcap, rows=rows,
                                  return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attn runs on cpu or cuda (or meta, "
+                         f"launching nothing), not {q.device}")
     kbeg, kend = rows if rows is not None else (
         max(0, pos - window + 1) if window else 0, pos + 1)
     d = q.shape[-1]

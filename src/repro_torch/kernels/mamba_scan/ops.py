@@ -10,6 +10,12 @@ is enabled and an input requires it, the launch goes through
 :func:`selective_scan_plain` recomputed on the saved inputs
 (``kernels/vjp.py``).
 
+On ``meta`` tensors (the dry run, ``launch.dryrun``) :func:`selective_scan`
+takes the CUDA route up to the launch and stops there: the outputs' shapes
+and dtypes, nothing launched.  Every call on CUDA or meta tensors is
+reported at the launch as one op (``kernels/observe.py``); :func:`cost`
+gives its FLOPs and bytes.
+
 Counterpart of ``repro.kernels.mamba_scan.ops.selective_scan`` (whose
 kernel is ``mamba_scan``), with the same arguments.  It computes the strict
 recurrence of the reference's oracle ``ref.py::mamba_scan_ref``, not the
@@ -25,7 +31,7 @@ from typing import Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, observe
 from repro_torch.kernels.vjp import plain_vjp
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
@@ -60,6 +66,15 @@ def selective_scan_plain(dt: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
     y = torch.stack(ys, dim=1)
     return (y, h) if return_state else y
+
+
+def cost(reads, writes, opts) -> tuple:
+    """(FLOPs, bytes) of one call (``kernels/observe.py``): the product of
+    :func:`selective_scan_plain`, h C at every step (2 B S D N); dt, a, x,
+    b, c read once, y and h written once."""
+    (bsz, s, d), _ = reads[0]
+    n = reads[1][0][1]
+    return 2 * bsz * s * d * n, observe.moved(reads, writes)
 
 
 def _check(dt, a, x, b, c) -> None:
@@ -103,8 +118,12 @@ def _kernel_fn():
 
 
 def _launch(dt, a, x, b, c, y, h) -> None:
-    """One launch of ``mamba_scan`` on checked CUDA tensors."""
+    """One launch of ``mamba_scan`` on checked CUDA tensors, reported
+    first; on meta tensors nothing more."""
     global LAUNCHES
+    observe.report("mamba_scan", (dt, a, x, b, c), (y, h))
+    if dt.device.type == "meta":
+        return
     bsz, s, d = dt.shape
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -125,13 +144,13 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
     and with ``return_state`` also the final h (B, D, N) float32.
 
     CPU tensors run :func:`selective_scan_plain`; CUDA tensors launch the
-    kernel."""
+    kernel; meta tensors take the CUDA route without the launch."""
     _check(dt, a, x, b, c)
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, a, x, b, c, return_state=return_state)
-    if dt.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, not "
-                         f"{dt.device}")
+    if dt.device.type not in ("cuda", "meta"):
+        raise ValueError(f"selective_scan runs on cpu or cuda (or meta, "
+                         f"launching nothing), not {dt.device}")
     inputs = (dt, a, x, b, c)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         y, h = SelectiveScan.apply(*inputs)
@@ -141,8 +160,9 @@ def selective_scan(dt: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
 
 
 class SelectiveScan(torch.autograd.Function):
-    """:func:`selective_scan` on checked CUDA tensors with a gradient: the
-    forward launches the kernel and returns (y, h); the backward is
+    """:func:`selective_scan` on checked CUDA (or meta) tensors with a
+    gradient: the forward launches the kernel and returns (y, h) (on meta
+    tensors their shapes); the backward is
     autograd of :func:`selective_scan_plain`, recomputed on the saved
     inputs."""
 
@@ -160,8 +180,8 @@ class SelectiveScan(torch.autograd.Function):
 
 
 def _scan_cuda(dt, a, x, b, c):
-    """One kernel launch for :func:`selective_scan` on checked CUDA
-    tensors: (y, h)."""
+    """One kernel launch for :func:`selective_scan` on checked CUDA (or
+    meta) tensors: (y, h)."""
     bsz, _, d = dt.shape
     y = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
     h = torch.empty((bsz, d, a.shape[1]), dtype=torch.float32,

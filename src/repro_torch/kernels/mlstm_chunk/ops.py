@@ -9,6 +9,12 @@ input requires it, the launch goes through :class:`Mlstm`, whose backward
 is autograd of :func:`mlstm_plain` recomputed on the saved inputs
 (``kernels/vjp.py``).
 
+On ``meta`` tensors (the dry run, ``launch.dryrun``) :func:`mlstm` takes
+the CUDA route up to the launch and stops there: the outputs' shapes and
+dtypes, nothing launched.  Every call on CUDA or meta tensors is reported
+as one op (``kernels/observe.py``), with the ``chunk`` that sets the plain
+version's work; :func:`cost` gives its FLOPs and bytes.
+
 Counterpart of ``repro.kernels.mlstm_chunk.ops.mlstm`` (whose kernel is
 ``mlstm_chunk``); unlike it, nothing is transposed, and the final state
 (C, n, m) can be returned, as ``repro.models.ssm.mlstm_chunk_scan`` returns
@@ -23,7 +29,7 @@ from typing import Dict, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, observe
 from repro_torch.kernels.vjp import plain_vjp
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mlstm_chunk.cu"
@@ -95,6 +101,19 @@ def mlstm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def cost(reads, writes, opts) -> tuple:
+    """(FLOPs, bytes) of one call (``kernels/observe.py``): the products of
+    :func:`mlstm_plain` at ``opts["chunk"]``, for each of its S / L chunks
+    of L = min(chunk, S) rows: q k^T and w v (2 B H L^2 D each), q C and
+    the C update (2 B H L D^2 each) and q n (2 B H L D); q, k, v and the
+    gates read once, h and the state written once."""
+    (b, s, h, d), _ = reads[0]
+    el = min(opts["chunk"], s)
+    per_chunk = 4 * b * h * el * el * d + 4 * b * h * el * d * d + \
+        2 * b * h * el * d
+    return (s // el) * per_chunk, observe.moved(reads, writes)
+
+
 def _check(q, k, v, i, f, chunk: int) -> None:
     if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or \
             tuple(v.shape) != tuple(q.shape):
@@ -140,8 +159,11 @@ def _kernel_fn():
 
 
 def _launch(q, k, v, i, f, out, C, n, m) -> None:
-    """One launch of ``mlstm_chunk`` on checked CUDA tensors."""
+    """One launch of ``mlstm_chunk`` on checked CUDA tensors; nothing on
+    meta tensors."""
     global LAUNCHES
+    if q.device.type == "meta":
+        return
     b, s, h, d = q.shape
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -164,29 +186,32 @@ def mlstm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunk`` is the reference's chunk length: S must be a multiple of
     min(chunk, S).  CPU tensors run :func:`mlstm_plain` with it; CUDA
     tensors launch the kernel, which walks chunks of its own length (the
-    result does not depend on the chunking).
+    result does not depend on the chunking); meta tensors take the CUDA
+    route without the launch.
     """
     _check(q, k, v, i, f, chunk)
     if q.device.type == "cpu":
         return mlstm_plain(q, k, v, i, f, chunk=chunk,
                            return_state=return_state)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm runs on cpu or cuda, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mlstm runs on cpu or cuda (or meta, "
+                         f"launching nothing), not {q.device}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must start on a 16-byte boundary")
     inputs = (q, k, v, i, f)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         out, C, n, m = Mlstm.apply(chunk, *inputs)
     else:
-        out, C, n, m = _mlstm_cuda(*inputs)
+        out, C, n, m = _run(chunk, *inputs)
     if return_state:
         return out, {"C": C, "n": n, "m": m}
     return out
 
 
 class Mlstm(torch.autograd.Function):
-    """:func:`mlstm` on checked CUDA tensors with a gradient: the forward
-    launches the kernel and returns (h, C, n, m); the backward is autograd
+    """:func:`mlstm` on checked CUDA (or meta) tensors with a gradient: the
+    forward launches the kernel and returns (h, C, n, m) (on meta tensors
+    their shapes); the backward is autograd
     of :func:`mlstm_plain` (at the caller's ``chunk``), recomputed on the
     saved inputs."""
 
@@ -195,7 +220,7 @@ class Mlstm(torch.autograd.Function):
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, i, f)
-        return _mlstm_cuda(q, k, v, i, f)
+        return _run(chunk, q, k, v, i, f)
 
     @staticmethod
     def backward(ctx, g_out, g_C, g_n, g_m):
@@ -207,9 +232,17 @@ class Mlstm(torch.autograd.Function):
                                    ctx.needs_input_grad[1:])
 
 
+def _run(chunk: int, *inputs):
+    """:func:`_mlstm_cuda`, reported with the caller's ``chunk``, which sets
+    the plain version's work (``kernels/observe.py``)."""
+    outs = _mlstm_cuda(*inputs)
+    observe.report("mlstm_chunk", inputs, outs, chunk=chunk)
+    return outs
+
+
 def _mlstm_cuda(q, k, v, i, f):
-    """One kernel launch for :func:`mlstm` on checked CUDA tensors: (h, C,
-    n, m)."""
+    """One kernel launch for :func:`mlstm` on checked CUDA (or meta)
+    tensors: (h, C, n, m)."""
     b, s, h, d = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     C = torch.empty((b, h, d, d), dtype=torch.float32, device=q.device)

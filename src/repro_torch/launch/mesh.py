@@ -12,6 +12,14 @@ ranks past the mesh's last get a mesh they are not part of.
 names and sizes without processes, which the rules in ``launch/
 shardings.py`` accept as well, so that they can be read at production sizes
 on one process.  Importing this module initialises nothing.
+
+The dry run (``launch.dryrun``) builds the production mesh over a fake
+world (``launch.world.fake_world``) with ``device_type="cpu"`` and places
+``meta`` local tensors on it: ``DTensor.from_local`` takes them, and
+sharding propagation runs their ops (checked with torch 2.13).  A
+``"meta"`` mesh builds, but sharding propagation fails on its ops (it
+asks for a device module of that type); ``"cpu"`` asks nothing of a
+card.
 """
 from __future__ import annotations
 

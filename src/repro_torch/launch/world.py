@@ -12,12 +12,19 @@ that hangs in a collective is killed and :func:`run_world` raises, as it
 does when a rank raises (with that rank's traceback).  The group is
 destroyed in every rank that gets that far.  Children start with
 ``spawn``; ``fn`` must be importable by its module's name.
+
+:func:`fake_world` is a world of many ranks inside this one process: a
+``"fake"`` process group (torch's ``FakeStore``), whose collectives
+return at once without moving data, as one rank of a world of 256 or 512
+sees it (the dry run, ``launch.dryrun``, traces a step on meta tensors
+in it).
 """
 from __future__ import annotations
 
 import os
 import time
 import traceback
+from contextlib import contextmanager
 from typing import Any, Callable, List, Sequence
 
 
@@ -88,3 +95,31 @@ def run_world(fn: Callable, world: int, store_dir: str, *,
                 p.kill()
                 p.join(timeout=10)
     return [results[r] for r in range(world)]
+
+
+def fake_store():
+    """torch's ``FakeStore`` (importing its module registers the ``"fake"``
+    backend); raises naming this torch where it is not there."""
+    import torch
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise ImportError(
+            f"torch {torch.__version__} has no torch.testing._internal."
+            f"distributed.fake_pg.FakeStore, which a fake world needs") from e
+    return FakeStore()
+
+
+@contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """A ``"fake"`` process group of ``world_size`` ranks in this process,
+    as rank ``rank``; destroyed on the way out, whatever happens."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=fake_store(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

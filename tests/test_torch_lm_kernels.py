@@ -18,6 +18,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_decode import ops as fd
 
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device (xpu): the wrappers refuse
+    any device but the CPU, a card and meta, which takes the card's route
+    without launching."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t: torch.Tensor) -> torch.Tensor:
+    return t.as_subclass(_Elsewhere)
+
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 # (B, S, H, Kh, D, causal, window, softcap): tests/test_kernels.py's sweep
@@ -221,7 +236,7 @@ def test_mha_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError, match="several devices"):
         fa.mha(q, k.to("meta"), v)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fa.mha(q.to("meta"), k.to("meta"), v.to("meta"))
+        fa.mha(*map(_elsewhere, (q, k, v)))
     with pytest.raises(TypeError, match="dtype"):
         fa.mha(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="dtype"):
@@ -244,7 +259,7 @@ def test_decode_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError, match="several devices"):
         fd.decode_attn(q, ck.to("meta"), cv, 3)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        fd.decode_attn(q.to("meta"), ck.to("meta"), cv.to("meta"), 3)
+        fd.decode_attn(*map(_elsewhere, (q, ck, cv)), 3)
     with pytest.raises(TypeError, match="dtype"):
         fd.decode_attn(q, ck.bfloat16(), cv.bfloat16(), 3)
     with pytest.raises(ValueError, match="pos"):

@@ -25,6 +25,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mamba_scan import ops
 from repro_torch.models import moe, ssm
 
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device (xpu): the wrappers refuse
+    any device but the CPU, a card and meta, which takes the card's route
+    without launching."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t: torch.Tensor) -> torch.Tensor:
+    return t.as_subclass(_Elsewhere)
+
+
 TOL = 1e-5              # strict recurrences, step for step
 SCAN_TOL = 2e-4         # against the associative scan / the chunked form
 # (B, S, D, N, chunk, block_d): tests/test_new_substrate.py's sweep
@@ -397,7 +412,7 @@ def test_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError, match="several devices"):
         ops.selective_scan(dt, a.to("meta"), x, b, c)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.selective_scan(*(t.to("meta") for t in (dt, a, x, b, c)))
+        ops.selective_scan(*map(_elsewhere, (dt, a, x, b, c)))
     with pytest.raises(TypeError, match="float32"):
         ops.selective_scan(dt.double(), a, x, b, c)
     with pytest.raises(TypeError, match="float32"):

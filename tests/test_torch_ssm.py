@@ -25,6 +25,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mlstm_chunk import ops
 from repro_torch.models import ssm
 
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device (xpu): the wrappers refuse
+    any device but the CPU, a card and meta, which takes the card's route
+    without launching."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t: torch.Tensor) -> torch.Tensor:
+    return t.as_subclass(_Elsewhere)
+
+
 CHUNK_TOL = 2e-4        # the reference's, between two chunkwise forms
 TOL = 1e-5              # per-token recurrences and mixers
 # bf16 h: one bf16 step (2^-7 of the value) where the float32 results of
@@ -423,9 +438,8 @@ def test_wrapper_refuses_bad_inputs():
         ops.mlstm(q, k.to("meta"), v, i, f)
     with pytest.raises(ValueError, match="several devices"):
         ops.mlstm(q, k, v, i, f.to("meta"))
-    meta = [t.to("meta") for t in (q, k, v, i, f)]
     with pytest.raises(ValueError, match="cpu or cuda"):
-        ops.mlstm(*meta)
+        ops.mlstm(*map(_elsewhere, (q, k, v, i, f)))
     with pytest.raises(TypeError, match="dtype"):
         ops.mlstm(q.half(), k.half(), v.half(), i, f)
     with pytest.raises(TypeError, match="dtype"):

@@ -37,6 +37,21 @@ from repro_torch.train.stragglers import StragglerConfig, StragglerDetector
 from repro_torch.train.train import (batch_to_device, loss_fn,
                                      make_eval_step, make_train_step)
 
+
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device (xpu): the wrappers refuse
+    any device but the CPU, a card and meta, which takes the card's route
+    without launching."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t: torch.Tensor) -> torch.Tensor:
+    return t.as_subclass(_Elsewhere)
+
+
 LOSS_RTOL = 1e-5
 ATOL, RTOL = 1e-4, 1e-3          # the reference's gradient tolerance
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=8)
@@ -659,16 +674,16 @@ def _mlstm_apply(x):
 @pytest.mark.parametrize("name", list(OPS))
 def test_wrappers_under_grad_refuse_mixed_and_other_devices(name):
     """Under grad too, a mix of devices raises, and so does a device that is
-    neither the CPU nor a card (the meta device stands in for one)."""
+    neither the CPU, a card nor meta (a tensor that reports xpu)."""
     mod, op, _, make = OPS[name]
     inputs = make(np.random.RandomState(2))
     mixed = [inputs[0].to("meta").requires_grad_(True)] + \
         [t.requires_grad_(True) for t in inputs[1:]]
     with pytest.raises(ValueError, match="several devices"):
         op(mixed)
-    meta = [t.detach().to("meta").requires_grad_(True) for t in inputs]
+    other = [_elsewhere(t.detach()).requires_grad_(True) for t in inputs]
     with pytest.raises(ValueError, match="cpu or cuda"):
-        op(meta)
+        op(other)
 
 
 FUNCTIONS = {
