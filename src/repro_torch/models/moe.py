@@ -16,6 +16,12 @@ The load-balancing loss is a product of two means over the batch's
 tokens: with ``dp_groups`` (the process groups of the mesh dims that split
 the batch) the per-expert sums and the token count are summed over those
 ranks first, so every rank holds the global batch's aux loss.
+
+While spans record (``repro_torch.obs``), ``moe_ffn`` adds to the
+innermost span's counters (the model's ``model.moe``): the ``routed``
+(token, choice) pairs G T K, those ``kept`` within capacity and the
+``slots`` computed, G E C, over all E experts under ``tp`` too (every rank
+routes the same tokens).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.collectives import copy_to, reduce_out, sum_over
 from repro_torch.models.layers import DTYPES, dense_init
@@ -123,6 +130,10 @@ def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, tp=None,
         contrib = m_j[..., :, None] * slot[..., None, :]     # (G, T, E, C)
         dispatch = dispatch + contrib.to(x.dtype)
         combine = combine + (contrib * gate_vals[..., j, None, None]).to(cdt)
+    if obs.recording():
+        # an expert's pairs take its slots in order: min(count, C) are kept
+        obs.count(routed=g * t * cfg.top_k, kept=counts.clamp(max=c).sum(),
+                  slots=g * e * c)
 
     if tp is not None:                   # this rank's experts
         el = p["w_gate"].shape[0]

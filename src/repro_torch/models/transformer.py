@@ -21,7 +21,11 @@ code path:
 
 and :func:`decode_step` runs one token at a host int position ``pos``,
 writing its K/V into the cache in place (a recurrent layer's entry is
-replaced by its new state).
+replaced by its new state).  The embedding, each block, its attention
+mixer, its FFN or MoE block and the head run inside ``repro_torch.obs``
+spans (``model.embed``, ``model.layer``, ``model.attention``,
+``model.ffn``, ``model.moe``, ``model.head``), which record only while a
+torch profiler does.
 
 Every family runs: ``dense``, ``moe``, ``hybrid`` (jamba), ``ssm``
 (xLSTM), ``audio`` (whisper: the batch's ``frames``, (B, enc_frames, d) in
@@ -60,6 +64,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.collectives import (TP, gather_seq, split_seq,
@@ -295,12 +300,13 @@ def _layer_apply(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
     the result.  The block runs under ``sh``'s rules: they are
     thread-local, and a checkpointed block's recompute runs on autograd's
     thread for the device."""
-    if sh is None:
-        return _layer_body(lp, cfg, kind, fkind, x, mode, positions, cache,
-                           pos, enc_out)
-    with use_rules(sh.mesh, sh.rules):
-        return _layer_body(lp, cfg, kind, fkind, x, mode, positions, cache,
-                           pos, enc_out, sh)
+    with obs.span("model.layer"):
+        if sh is None:
+            return _layer_body(lp, cfg, kind, fkind, x, mode, positions,
+                               cache, pos, enc_out)
+        with use_rules(sh.mesh, sh.rules):
+            return _layer_body(lp, cfg, kind, fkind, x, mode, positions,
+                               cache, pos, enc_out, sh)
 
 
 def _layer_body(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
@@ -334,17 +340,19 @@ def _layer_body(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
             y, entry = mixer.forward(mp, cfg, h, return_state=True, **kw)
         else:
             y = own(mixer.forward(mp, cfg, h, **kw), mixer.key)
-    elif mode == "decode":
-        y, entry = attn_lib.decode_attention(lp["attn"], cfg, h, cache, pos,
-                                             kind, tp=tps.get("attn"))
-    elif mode == "prefill":
-        y, (entry["k"], entry["v"]) = attn_lib.multi_head_attention(
-            lp["attn"], cfg, h, positions, kind, return_kv=True,
-            tp=tps.get("attn"))
     else:
-        y = own(attn_lib.multi_head_attention(lp["attn"], cfg, h, positions,
-                                              kind, tp=tps.get("attn")),
-                "attn")
+        with obs.span("model.attention"):
+            if mode == "decode":
+                y, entry = attn_lib.decode_attention(
+                    lp["attn"], cfg, h, cache, pos, kind, tp=tps.get("attn"))
+            elif mode == "prefill":
+                y, (entry["k"], entry["v"]) = attn_lib.multi_head_attention(
+                    lp["attn"], cfg, h, positions, kind, return_kv=True,
+                    tp=tps.get("attn"))
+            else:
+                y = own(attn_lib.multi_head_attention(
+                    lp["attn"], cfg, h, positions, kind,
+                    tp=tps.get("attn")), "attn")
     x = x + y
     if "cross" in lp:                                      # whisper decoder
         h = rms_norm(whole(x), lp["ln_cross"], cfg.norm_eps)
@@ -367,12 +375,14 @@ def _layer_body(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
     h = rms_norm(whole(x), lp["ln2"], cfg.norm_eps)
     y, aux = None, None
     if "ffn" in lp:
-        y = own(ffn(lp["ffn"], cfg, h, tp=tps.get("ffn")), "ffn")
+        with obs.span("model.ffn"):
+            y = own(ffn(lp["ffn"], cfg, h, tp=tps.get("ffn")), "ffn")
     if "moe" in lp:
         dp = sh.dp_groups if sh is not None and mode == "train" else ()
-        r = moe_lib.moe_ffn(lp["moe"], cfg, h, tp=tps.get("moe"),
-                            dp_groups=dp)
-        out = own(r["out"], "moe")
+        with obs.span("model.moe"):
+            r = moe_lib.moe_ffn(lp["moe"], cfg, h, tp=tps.get("moe"),
+                                dp_groups=dp)
+            out = own(r["out"], "moe")
         y = out if y is None else y + out
         aux = r["aux_loss"]
     x = x + y
@@ -386,12 +396,13 @@ def _layer_body(lp: Dict, cfg: ModelConfig, kind: str, fkind: str,
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
             sh: Optional[Sharded] = None) -> torch.Tensor:
-    norm = params["final_norm"] if sh is None else \
-        gathered(params["final_norm"], sh)
-    x = rms_norm(x, norm, cfg.norm_eps)
-    table, tp = _vocab_table(
-        params["embed"] if cfg.tie_embeddings else params["unembed"], sh)
-    return unembed_logits(x, table, cfg, tp=tp)
+    with obs.span("model.head"):
+        norm = params["final_norm"] if sh is None else \
+            gathered(params["final_norm"], sh)
+        x = rms_norm(x, norm, cfg.norm_eps)
+        table, tp = _vocab_table(
+            params["embed"] if cfg.tie_embeddings else params["unembed"], sh)
+        return unembed_logits(x, table, cfg, tp=tp)
 
 
 def encode_audio(params: Dict, cfg: ModelConfig,
@@ -436,15 +447,16 @@ def _embed_input(params: Dict, cfg: ModelConfig, batch: Dict,
                  sh: Optional[Sharded] = None) -> torch.Tensor:
     """Token embeddings, after the vlm's patches (cast to their dtype),
     with the absolute positions added when ``cfg.abs_positions``."""
-    table, tp = _vocab_table(params["embed"], sh)
-    x = embed_lookup(table, batch["tokens"], cfg, tp=tp)
-    del table
-    if cfg.family == "vlm":
-        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-    if cfg.abs_positions:
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device
-                                     ).to(x.dtype)[None]
-    return x
+    with obs.span("model.embed"):
+        table, tp = _vocab_table(params["embed"], sh)
+        x = embed_lookup(table, batch["tokens"], cfg, tp=tp)
+        del table
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        if cfg.abs_positions:
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device
+                                         ).to(x.dtype)[None]
+        return x
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, mode: str = "train"
@@ -560,12 +572,13 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         placed = layers
         layers = [{k: t.to_local() for k, t in e.items()} for e in layers]
         token = local_input(token, sh)
-    table, tp = _vocab_table(params["embed"], sh)
-    x = embed_lookup(table, token, cfg, tp=tp)
-    del table
-    if cfg.abs_positions:
-        x = x + sinusoidal_positions(1, cfg.d_model, x.device,
-                                     start=int(pos)).to(x.dtype)[None]
+    with obs.span("model.embed"):
+        table, tp = _vocab_table(params["embed"], sh)
+        x = embed_lookup(table, token, cfg, tp=tp)
+        del table
+        if cfg.abs_positions:
+            x = x + sinusoidal_positions(1, cfg.d_model, x.device,
+                                         start=int(pos)).to(x.dtype)[None]
     for i, lp in enumerate(params["layers"]):
         x, layers[i], _ = _layer_apply(lp, cfg, cfg.layer_kind(i),
                                        cfg.ffn_kind(i), x, "decode", None,

@@ -10,6 +10,11 @@ are host-side and feed no decision, and the attribute APIs
 
 Counterpart of ``repro.obs``: metric families, label names and span kinds
 are the reference's letter for letter, so one dashboard reads both.
+
+The LM paths' spans (:func:`span`, :func:`count`, :func:`span_records`;
+``obs/spans.py``) are the port's own: they record only while the gate is
+on and a torch profiler is recording, keep their own ring, and are no
+part of :func:`snapshot` or the flight recorder.
 """
 from __future__ import annotations
 
@@ -17,15 +22,20 @@ import os
 from contextlib import contextmanager
 from typing import Dict, Optional
 
+import torch
+
 from .metrics import (DEFAULT_LATENCY_BUCKETS, CounterSeries, GaugeSeries,
                       HistogramSeries, Metric, MetricsRegistry)
 from .recorder import FlightRecorder
+from .spans import OFF, SpanRecorder
 
 _ENABLED = os.environ.get("ENEL_OBS", "1").lower() in ("1", "true", "yes")
 
 REGISTRY = MetricsRegistry()
 RECORDER = FlightRecorder(capacity=int(os.environ.get("ENEL_OBS_RING", "4096")),
                           gate=lambda: _ENABLED)
+SPANS = SpanRecorder()
+_profiling = torch._C._autograd._profiler_enabled
 
 
 def enabled(override: Optional[bool] = None) -> bool:
@@ -68,6 +78,24 @@ def observe(name: str, value: float, **labels) -> None:
         REGISTRY.histogram(name).labels(**labels).observe(value)
 
 
+def recording() -> bool:
+    """Whether spans record now: the gate is on and a torch profiler is
+    recording."""
+    return _ENABLED and _profiling()
+
+
+def span(name: str, **attrs):
+    """A span of the LM paths (``obs/spans.py``); the shared no-op context
+    unless :func:`recording`."""
+    if _ENABLED and _profiling():
+        return SPANS.span(name, attrs)
+    return OFF
+
+
+count = SPANS.count                # counters of the innermost open span
+span_records = SPANS.records       # resolved records, oldest first
+
+
 def snapshot() -> Dict:
     """Combined pickle-safe obs state (registry + recorder ring)."""
     return {"metrics": REGISTRY.snapshot(), "recorder": RECORDER.state()}
@@ -85,6 +113,7 @@ def reset() -> None:
     """Clear all global obs state (test isolation)."""
     REGISTRY.reset()
     RECORDER.clear()
+    SPANS.clear()
 
 
 def registry_attributes(cls, attrs) -> None:

@@ -23,6 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode_step, frontend_input, prefill
@@ -83,37 +84,42 @@ class ServeEngine:
         """One wave: joint prefill, then lockstep decode.  ``extras`` maps
         batch names (``frames``, ``patches``) to numpy arrays or tensors,
         which go to the engine's device with their values and dtype
-        unchanged."""
+        unchanged.  ``prefill_s`` runs to the first tokens on the host,
+        whose copy waits for the prefill; one synchronize ends the wave."""
         stats = ServeStats()
         toks = self._pad_prompts(reqs)
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        for k, v in (extras or {}).items():
-            batch[k] = torch.as_tensor(v).to(self.device)
-        t0 = time.perf_counter()
-        logits, cache = prefill(self.params, self.cfg, batch,
-                                cache_len=self.max_len)
-        _sync(self.device)
-        stats.prefill_s = time.perf_counter() - t0
-
-        pos = toks.shape[1] + frontend_input(self.cfg).text_offset
-        next_tok = logits[:, -1:].argmax(dim=-1)                  # (B, 1)
+        b, plen = toks.shape
+        pos = plen + frontend_input(self.cfg).text_offset
         max_new = max(r.max_new_tokens for r in reqs)
-        t0 = time.perf_counter()
-        for step in range(max_new):
-            host = next_tok[:, 0].tolist()
-            for i, r in enumerate(reqs):
-                if not r.done and step < r.max_new_tokens:
-                    r.out_tokens.append(host[i])
-                    stats.tokens_out += 1
-            if pos + 1 >= self.max_len:
-                break
-            logits, cache = decode_step(self.params, self.cfg, cache,
-                                        next_tok, pos)
-            stats.decode_steps += 1
-            next_tok = logits[:, -1:].argmax(dim=-1)
-            pos += 1
-        _sync(self.device)
-        stats.decode_s = time.perf_counter() - t0
+        with obs.span("serve.wave"):
+            t0 = time.perf_counter()
+            with obs.span("serve.prefill", rows=b * pos):
+                batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+                for k, v in (extras or {}).items():
+                    batch[k] = torch.as_tensor(v).to(self.device)
+                logits, cache = prefill(self.params, self.cfg, batch,
+                                        cache_len=self.max_len)
+                next_tok = logits[:, -1:].argmax(dim=-1)          # (B, 1)
+                host = next_tok[:, 0].tolist()
+            t1 = time.perf_counter()
+            stats.prefill_s = t1 - t0
+            for step in range(max_new):
+                if step:
+                    host = next_tok[:, 0].tolist()
+                for i, r in enumerate(reqs):
+                    if not r.done and step < r.max_new_tokens:
+                        r.out_tokens.append(host[i])
+                        stats.tokens_out += 1
+                if pos + 1 >= self.max_len:
+                    break
+                with obs.span("serve.decode"):
+                    logits, cache = decode_step(self.params, self.cfg,
+                                                cache, next_tok, pos)
+                    next_tok = logits[:, -1:].argmax(dim=-1)
+                stats.decode_steps += 1
+                pos += 1
+            _sync(self.device)
+            stats.decode_s = time.perf_counter() - t1
         for r in reqs:
             r.done = True
         return stats
