@@ -1,17 +1,27 @@
-"""Mixture-of-Experts FFN: GShard-style dense dispatch with capacity.
+"""Mixture-of-Experts FFN: GShard-style routing with capacity, dispatch and
+combine by slot index.
 
 Counterpart of ``repro.models.moe``.  Tokens are routed top-k within groups
-of ``min(S, moe_group)`` tokens, each expert takes at most ``capacity``
-tokens per group in the order of a cumulative sum over the group (a token
-routed past an expert's capacity is dropped there, pad tokens included),
-and the dispatch and combine tensors (G, T, E, C) are contracted with the
-expert weights by plain products: the JAX package computes them outside any
-Pallas kernel too.
+of ``min(S, moe_group)`` tokens, and each expert takes at most ``capacity``
+tokens per group, in the order in which the reference's top-k loop fills
+its slots: over the group's (token, choice) pairs in choice-major order
+(every token's first choice, then every second choice, ...), an exclusive
+count per expert gives each pair its position there, and a pair at
+position ``capacity`` or later is dropped, pad tokens included.  Where the
+reference builds one-hot dispatch and combine tensors (G, T, E, C) and
+contracts them by einsums, each kept pair here has one flat slot (e, g, c):
+dispatch gathers the tokens' rows into the slots by a slot-to-token table
+(an empty slot reads a zero row), the experts run the reference's three
+products over every slot, and combine gathers each pair's slot row and
+sums a token's K rows weighted by their gate values, accumulating in
+float32 as the reference's product does.  The reference computes all of it
+outside any Pallas kernel too.
 
 Expert-parallel with ``tp`` (a ``launch.collectives.TP`` over ``"model"``):
-the router is replicated, so every rank builds the same dispatch, and runs
-its own ``E / tp`` experts (the expert weights are its shards) on its slice
-of the dispatch and combine tensors; the output is summed over the ranks.
+the router is replicated, so every rank assigns the same slots, and runs
+its own ``E / tp`` experts (the expert weights are its shards) on their
+slots, its combine taking the other experts' pairs as dropped; the output
+is summed over the ranks.
 The load-balancing loss is a product of two means over the batch's
 tokens: with ``dp_groups`` (the process groups of the mesh dims that split
 the batch) the per-expert sums and the token count are summed over those
@@ -94,6 +104,36 @@ def _aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, e: int,
     return (me * ce).sum() * e
 
 
+def _gather_sum(rows: torch.Tensor, at: torch.Tensor, w: torch.Tensor
+                ) -> torch.Tensor:
+    """rows (N, d), at and w (..., K) -> (..., d): the sum over k of
+    w[..., k] rows[at[..., k]], as one batched product, which accumulates
+    in float32 and rounds once to ``rows``' dtype."""
+    got = rows.index_select(0, at.reshape(-1)).view(*at.shape, rows.shape[1])
+    return (w.unsqueeze(-2) @ got).squeeze(-2)
+
+
+class _Dispatch(torch.autograd.Function):
+    """rows (N, d) -> the slots' rows, ``rows[table]`` with N a zero row.
+    The gradient of a token's row is the sum of its pairs' slots' gradients
+    (slots ``at``, weights ``mine``: 0 for a dropped pair), a gather by
+    :func:`_gather_sum`.  ``index_select``'s own backward would add them by
+    atomics, each rounding to a bf16 row, and every empty slot's into the
+    zero row."""
+
+    @staticmethod
+    def forward(ctx, rows, table, at, mine):
+        ctx.save_for_backward(at, mine)
+        return torch.cat([rows, rows.new_zeros(1, rows.shape[1])]
+                         ).index_select(0, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        at, mine = ctx.saved_tensors
+        got = _gather_sum(grad, at, mine.to(grad.dtype))
+        return got.reshape(-1, grad.shape[1]), None, None, None
+
+
 def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, tp=None,
             dp_groups=()) -> Dict:
     """x: (B, S, d) -> {"out": (B, S, d), "aux_loss": float32 scalar}.  S
@@ -107,48 +147,52 @@ def moe_ffn(p: Dict, cfg: ModelConfig, x: torch.Tensor, *, tp=None,
             f"multiple of it: the reference's routing-group contract "
             f"(repro/models/moe.py:44-46)")
     g = b * (s // t)
-    e = cfg.n_experts
+    e, k = cfg.n_experts, cfg.top_k
     c = capacity(cfg, t)
-    f32 = torch.float32
+    dev = x.device
     xg = x.reshape(g, t, d)
     probs, gate_vals, gate_idx = route(p, cfg, xg)
     aux = _aux_loss(probs, gate_idx, e, dp_groups)
 
-    cdt = f32 if cfg.moe_combine_f32 else x.dtype
-    dispatch = torch.zeros((g, t, e, c), dtype=x.dtype, device=x.device)
-    combine = torch.zeros((g, t, e, c), dtype=cdt, device=x.device)
-    counts = torch.zeros((g, e), dtype=f32, device=x.device)
-    slots = torch.arange(c, dtype=f32, device=x.device)
-    for j in range(cfg.top_k):
-        m_j = torch.nn.functional.one_hot(gate_idx[..., j], e).to(f32)
-        pos_in_e = torch.cumsum(m_j, dim=1) - m_j + counts[:, None, :]
-        counts = counts + m_j.sum(dim=1)
-        pos_j = (pos_in_e * m_j).sum(dim=-1)                 # (G, T)
-        keep = (pos_j < c) & (m_j.sum(dim=-1) > 0)
-        # jax.nn.one_hot(pos_j, c): a zero row for pos_j >= c (a drop)
-        slot = (pos_j[..., None] == slots).to(f32) * keep[..., None]
-        contrib = m_j[..., :, None] * slot[..., None, :]     # (G, T, E, C)
-        dispatch = dispatch + contrib.to(x.dtype)
-        combine = combine + (contrib * gate_vals[..., j, None, None]).to(cdt)
+    # each pair's position at its expert (G, T, K): an exclusive count
+    # over the group's pairs in choice-major order, along the innermost dim
+    # (a scan along an outer dim runs one thread per column on the card)
+    pick = gate_idx.transpose(1, 2).reshape(g, 1, k * t)
+    hot = torch.zeros((g, e, k * t), dtype=torch.int32, device=dev)
+    hot.scatter_(1, pick, 1)
+    pos = hot.cumsum(2, dtype=torch.int32).gather(1, pick) - 1
+    pos = pos.view(g, k, t).transpose(1, 2)
+    keep = pos < c
     if obs.recording():
-        # an expert's pairs take its slots in order: min(count, C) are kept
-        obs.count(routed=g * t * cfg.top_k, kept=counts.clamp(max=c).sum(),
-                  slots=g * e * c)
+        obs.count(routed=g * t * k, kept=keep.sum(), slots=g * e * c)
 
+    el, e0 = e, 0
     if tp is not None:                   # this rank's experts
         el = p["w_gate"].shape[0]
         e0 = tp.start(el)
         xg = copy_to(xg, tp)
-        dispatch = dispatch[:, :, e0:e0 + el]
-        combine = copy_to(combine, tp)[:, :, e0:e0 + el]
-    xe = torch.einsum("gtec,gtd->egcd", dispatch, xg)
-    xe = constrain(xe, "ep", "dp", None, None, full=(e, None, None, None))
+        gate_vals = copy_to(gate_vals, tp)
+    # a kept pair of this rank's experts takes slot (e, g, c) of the n; the
+    # others are past the table, and read slot n - 1 at weight 0
+    n = el * g * c
+    expert = gate_idx - e0
+    mine = keep & (expert >= 0) & (expert < el)
+    group = torch.arange(g, device=dev).view(g, 1, 1)
+    slot = torch.where(mine, (expert * g + group) * c + pos, n)
+    table = torch.full((n + 1,), g * t, dtype=torch.long, device=dev)
+    table.index_put_((slot,), torch.arange(g * t, device=dev).view(g, t, 1))
+    at = slot.clamp(max=n - 1)
+
+    xe = _Dispatch.apply(xg.reshape(g * t, d), table[:n], at, mine)
+    xe = constrain(xe.view(el, g, c, d), "ep", "dp", None, None,
+                   full=(e, None, None, None))
     h = silu(torch.einsum("egcd,edf->egcf", xe, p["w_gate"]))
     h = h * torch.einsum("egcd,edf->egcf", xe, p["w_up"])
     ye = torch.einsum("egcf,efd->egcd", h, p["w_down"])
     ye = constrain(ye, "ep", "dp", None, None, full=(e, None, None, None))
-    out = torch.einsum("egcd,gtec->gtd", ye, combine.to(ye.dtype))
-    out = out.reshape(b, s, d)
+    cdt = torch.float32 if cfg.moe_combine_f32 else x.dtype
+    w = torch.where(mine, gate_vals.to(cdt), 0).to(ye.dtype)
+    out = _gather_sum(ye.reshape(n, d), at, w).reshape(b, s, d)
     if tp is not None:
         out = reduce_out(out, tp)
     return {"out": out.to(x.dtype), "aux_loss": aux}

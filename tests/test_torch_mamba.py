@@ -7,7 +7,9 @@ Tolerances: 1e-5 where two strict recurrences (or the same products) are
 compared, step for step in float32; 2e-4, the reference's own
 (``tests/test_new_substrate.py:29,51-52``), where the recurrence is held
 against the reference model's associative scan or the chunked Pallas form,
-which sum in another order; 1e-6 for the elementwise softplus.  The
+which sum in another order; 1e-6 for the elementwise softplus; the MoE's
+gradients at 1e-5 of each gradient's largest entry, and its bf16 output on
+a card at 2^-6 of the largest |out| of the float32 call.  The
 ``cuda``-marked tests need an NVIDIA card and ``nvcc`` and skip without
 them, naming what is missing; on a machine with a card run them with
 ``python -m pytest -m cuda tests/test_torch_mamba.py`` (the reference is
@@ -343,6 +345,99 @@ def test_moe_ffn_matches_reference(name, changes, drops):
     assert (_routed_past_capacity(p, cfg, torch.tensor(x)) > 0) == drops
 
 
+def _ref_dispatch(monkeypatch, rp, rcfg, x) -> np.ndarray:
+    """The reference's one-hot dispatch (G, T, E, C), caught at its
+    einsum."""
+    import jax.numpy as jnp
+    from repro.models import moe as ref_moe
+    seen = {}
+
+    class _Jnp:
+        def __getattr__(self, attr):
+            return getattr(jnp, attr)
+
+        @staticmethod
+        def einsum(spec, *ops, **kw):
+            if spec == "gtec,gtd->egcd":
+                seen["dispatch"] = np.asarray(ops[0], np.float32)
+            return jnp.einsum(spec, *ops, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(ref_moe, "jnp", _Jnp())
+        ref_moe.moe_ffn(rp, rcfg, jnp.asarray(x))
+    return seen["dispatch"]
+
+
+def _skewed(d, b=2, s=64, seed=11):
+    """(B, S, d): one offset shared by every token skews the routing
+    towards a few experts, as a run of similar tokens does."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, s, d) + 3 * rng.randn(d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,changes,b,s", [
+    ("jamba-v0.1-52b", {}, 2, 64),
+    ("olmoe-1b-7b", {"capacity_factor": 16.0}, 2, 64),
+    ("arctic-480b", {"moe_group": 16}, 2, 64),
+    ("jamba-v0.1-52b", {}, 5, 1)])
+def test_moe_slots_are_the_references(name, changes, b, s, monkeypatch):
+    """Token t of group g sits in slot c of expert e exactly where the
+    reference's dispatch[g, t, e, c] is 1: the same pairs kept, in the same
+    slots, with drops (jamba), several routing groups (arctic at moe_group
+    16), none dropped (olmoe) and one-token decode groups (S = 1)."""
+    cfg, rcfg = _moe_cfgs(name, **changes)
+    rp, p = _moe(rcfg, seed=4)
+    x = _skewed(cfg.d_model, b, s)
+    ref = _ref_dispatch(monkeypatch, rp, rcfg, x)
+    tables = []
+    inner = moe._Dispatch.apply
+
+    def recording(rows, table, at, mine):
+        tables.append(table)
+        return inner(rows, table, at, mine)
+    monkeypatch.setattr(moe._Dispatch, "apply", recording)
+    moe.moe_ffn(p, cfg, torch.tensor(x))
+    g, t, e, c = ref.shape
+    assert tables[0].shape == (e * g * c,)
+    tok = tables[0].view(e, g, c)                      # g t, or g t: empty
+    got = torch.nn.functional.one_hot(tok, g * t + 1)[..., :g * t]
+    got = got.view(e, g, c, g, t).diagonal(dim1=1, dim2=3)   # (E, C, T, G)
+    np.testing.assert_array_equal(got.permute(3, 2, 0, 1).numpy(), ref)
+    assert ref.sum() > 0
+
+
+def test_moe_gradients_match_reference():
+    """The gradients of ``moe_ffn``'s out (against a fixed random
+    cotangent) and of its aux loss with respect to x and every parameter
+    against ``jax.grad`` of the reference's, on jamba's drop-heavy input,
+    within TOL of each gradient's largest entry (the sums run in other
+    orders); all finite."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import moe as ref_moe
+    cfg, rcfg = _moe_cfgs("jamba-v0.1-52b")
+    rp, p = _moe(rcfg, seed=4)
+    x = _skewed(cfg.d_model)
+    assert _routed_past_capacity(p, cfg, torch.tensor(x)) > 0
+    cot = np.random.RandomState(7).randn(*x.shape).astype(np.float32)
+    names = sorted(p)
+    for key, weight in (("out", cot), ("aux_loss", np.float32(1.0))):
+        def ref_loss(params, xs):
+            return jnp.sum(ref_moe.moe_ffn(params, rcfg, xs)[key] * weight)
+        rg, rgx = jax.grad(ref_loss, argnums=(0, 1))(rp, jnp.asarray(x))
+        ins = [p[n].clone().requires_grad_(True) for n in names] + \
+            [torch.tensor(x, requires_grad=True)]
+        loss = (moe.moe_ffn(dict(zip(names, ins)), cfg, ins[-1])[key] *
+                torch.tensor(weight)).sum()
+        got = torch.autograd.grad(loss, ins, allow_unused=True,
+                                  materialize_grads=True)
+        for n, gr, want in zip(names + ["x"], got,
+                               [rg[n] for n in names] + [rgx]):
+            assert torch.isfinite(gr).all(), (key, n)
+            tol = TOL * float(np.abs(want).max())
+            np.testing.assert_allclose(gr.numpy(), want, atol=tol, rtol=0,
+                                       err_msg=f"{key} {n}")
+
+
 def test_moe_capacity_and_init_match_reference():
     from repro.models import moe as ref_moe
     cfg, rcfg = _moe_cfgs("jamba-v0.1-52b")
@@ -518,3 +613,32 @@ def test_wrapper_refuses_a_mix_on_card(card):
                            torch.cat([b, b[..., :2]], -1),
                            torch.cat([c, c[..., :2]], -1))
     assert ops.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+def test_moe_bf16_matches_float32_without_a_sync_on_card(card):
+    """``moe_ffn`` in bf16 at olmoe's widths, 3 routing groups of 1024 on
+    skewed input that drops pairs, against the same call in float32 on the
+    bf16 weights and input: the router runs in float32 on the same values
+    in both, so the same pairs take the same slots, and the outputs agree
+    within 2^-6 of the largest |out| (the products' bf16 rounding).  With
+    spans off the bf16 forward makes no host sync."""
+    cfg = get_config("olmoe-1b-7b")
+    p = moe.init_moe(torch.Generator(device=card).manual_seed(9),
+                     dataclasses.replace(cfg, param_dtype="bfloat16"), card)
+    x = torch.tensor(_skewed(cfg.d_model, 3, 1024), device=card).bfloat16()
+    assert _routed_past_capacity(p, cfg, x) > 0
+    p32 = {n: v.float() for n, v in p.items()}
+    ref = moe.moe_ffn(p32, cfg, x.float())["out"]
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    moe.moe_ffn(p, cfg16, x)                             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.moe_ffn(p, cfg16, x)["out"]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    tol = 2 ** -6 * float(ref.abs().max())
+    torch.testing.assert_close(got.float(), ref, atol=tol, rtol=0)
